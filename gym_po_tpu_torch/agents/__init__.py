@@ -6,6 +6,13 @@ from .networks import (
     params_from_flax,
     sample_action,
 )
+from .qlearning import (
+    QConfig,
+    fused_q_learning,
+    greedy_policy,
+    q_learning,
+    td_update,
+)
 
 __all__ = [
     "ActorCritic",
@@ -14,4 +21,9 @@ __all__ = [
     "sample_action",
     "log_prob",
     "entropy",
+    "QConfig",
+    "q_learning",
+    "td_update",
+    "greedy_policy",
+    "fused_q_learning",
 ]

@@ -1,0 +1,178 @@
+"""Batched tabular Q-learning, PyTorch port of :mod:`gym_po_tpu.agents.qlearning`.
+
+Two learners over the same table:
+
+* :func:`q_learning` steps B envs in lockstep through ``env.step_vec`` and
+  applies ``Q[obs, a] += lr * td`` every step, duplicate ``(obs, a)`` pairs
+  within a batch summing (the standard vectorized-Q approximation, exact as
+  lr -> 0).  Lookups are native gathers and the update is ``index_add_``;
+  the JAX package's one-hot matmuls are a device of the TPU's matrix unit.
+  The TD target bootstraps from the state before the autoreset
+  (``info["terminal_state"]``); ``done`` cuts the bootstrap, truncation
+  does not.
+* :func:`fused_q_learning` runs the whole trainer inside the hand-written
+  CUDA kernel of :mod:`gym_po_tpu_torch.ops.fused_qlearning`, chunk by
+  chunk, over an lr/epsilon schedule.
+
+Both run on the env's device.  Not ported yet: ``fused_actor_critic``
+(ROADMAP Queue 2 kernel 13), the Rooms, MultistoryFourRooms and CRooms
+branches of ``fused_q_learning`` (Queue 1 items 8 and 9), its ``mesh``
+(item 11), and ``make_xla_q_chunk_trainer`` with ``chunk_trainer="xla"``,
+the JAX package's stand-in for its kernel on its multi-device CPU test mesh
+(item 11).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import Discrete
+
+__all__ = ["QConfig", "q_learning", "td_update", "greedy_policy",
+           "fused_q_learning"]
+
+
+class QConfig(NamedTuple):
+    num_envs: int = 4096
+    learning_rate: float = 0.1
+    gamma: float = 0.99
+    epsilon: float = 0.1  # epsilon-greedy exploration
+    steps_per_update: int = 128  # steps per history entry
+
+
+def q_learning(env, config: QConfig, generator: torch.Generator,
+               num_updates: int = 100, q_init=None):
+    """Train a Q-table; returns ``(Q [n_obs, n_act], history)``.
+
+    ``history`` holds one ``(mean reward, mean done)`` per update of
+    ``config.steps_per_update`` steps.  Every draw comes from ``generator``,
+    which lies on the env's device; so does the returned table.
+    """
+    if not isinstance(env.observation_space, Discrete) or not isinstance(
+        env.action_space, Discrete
+    ):
+        raise ValueError("tabular Q-learning needs Discrete obs and actions")
+    n_obs = int(env.observation_space.n)
+    n_act = int(env.action_space.n)
+    dev = env.device
+    if q_init is None:
+        q = torch.zeros((n_obs, n_act), dtype=torch.float32, device=dev)
+    else:
+        q = torch.as_tensor(q_init, dtype=torch.float32).to(dev).clone()
+    B = config.num_envs
+    lr, gamma, eps = (torch.tensor(np.float32(x), device=dev) for x in (
+        config.learning_rate, config.gamma, config.epsilon))
+    obs, state = env.reset_vec(generator, B)
+    hist = []
+    for _ in range(num_updates):
+        rsum = torch.zeros((), dtype=torch.float32, device=dev)
+        dsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for _ in range(config.steps_per_update):
+            q_rows = q[obs.long()]
+            greedy = q_rows.argmax(-1).to(torch.int32)
+            explore = torch.rand(B, generator=generator, device=dev) < eps
+            random_a = torch.randint(0, n_act, (B,), generator=generator,
+                                     device=dev, dtype=torch.int32)
+            action = torch.where(explore, random_a, greedy)
+            nobs, state, rew, done, _, info = env.step_vec(generator, state,
+                                                           action)
+            # bootstrap from the observation before the autoreset
+            td_update(q, obs, action, rew, env.observe(info["terminal_state"]),
+                      done, lr, gamma)
+            rsum = rsum + rew.mean()
+            dsum = dsum + done.to(torch.float32).mean()
+            obs = nobs
+        hist.append(torch.stack([rsum, dsum]) / config.steps_per_update)
+    return q, [tuple(h) for h in torch.stack(hist).tolist()] if hist else []
+
+
+def td_update(q: torch.Tensor, obs, action, rew, next_obs, done, lr,
+              gamma) -> torch.Tensor:
+    """One batched Q-learning update of ``q [n_obs, n_act]``, in place:
+    ``Q[obs, a] += lr * (rew + gamma * max Q[next_obs] * (1 - done) -
+    Q[obs, a])``, every target read from the table before the update and
+    duplicate ``(obs, a)`` pairs summing.  Returns ``q``."""
+    n_act = q.shape[1]
+    obs, action = obs.long(), action.long()
+    next_v = q[next_obs.long()].max(-1).values
+    target = rew + gamma * next_v * (1.0 - done.to(torch.float32))
+    td = target - q[obs, action]
+    q.view(-1).index_add_(0, obs * n_act + action, lr * td)
+    return q
+
+
+def greedy_policy(q):
+    """``(generator, obs[B]) -> argmax actions`` (first maximum on ties);
+    plugs into ``vector.rollout`` and ``ops.state_policy_table``."""
+    q = torch.as_tensor(q)
+
+    def policy(generator, obs):
+        return q.to(obs.device)[obs.long()].argmax(-1).to(torch.int32)
+
+    return policy
+
+
+def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
+                     gamma: float = 0.99, chunk_steps: int = 4096,
+                     q_init=None, average_duplicates: bool = True,
+                     expected_sarsa: bool = False, lam: float = 0.0,
+                     trace_len: int = 8, watkins_cut: bool = True, mesh=None):
+    """Tabular Q-learning inside the fused CUDA trainer kernel, on Taxi.
+
+    ``schedule`` is ``[(lr, epsilon, num_steps), ...]``; each phase runs
+    ``ceil(num_steps / chunk_steps)`` chunks of ``chunk_steps`` steps, and
+    chunk ``i`` (from 1) draws with seed ``seed + i``.  Returns
+    ``(q [n_obs, 5] float32 numpy, history)`` with one mean reward per step
+    for each chunk.  Options are those of
+    :func:`~gym_po_tpu_torch.ops.fused_qlearning.make_fused_q_trainer`.  As
+    in the JAX package, ``completed``, ``elapsed`` and the trace restart at
+    every chunk.
+    """
+    from ..envs.taxi import Taxi
+    from ..ops.fused_qlearning import (
+        bank_geometry,
+        banks_to_q,
+        make_fused_q_trainer,
+        q_to_banks,
+    )
+    from ..parallel import chunk_seeds
+
+    if mesh is not None:
+        raise ValueError("multi-device fused training is not ported yet "
+                         "(ROADMAP Queue 1 item 11)")
+    if not isinstance(env, Taxi):
+        raise ValueError(
+            f"no fused Q trainer for {type(env).__name__} in the port: only "
+            "Taxi is ported (Rooms and MultistoryFourRooms come with ROADMAP "
+            "Queue 1 item 8, CRooms with item 9)")
+    dev = env.device
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed),
+                          num_envs)
+    run = make_fused_q_trainer(
+        env, num_envs, chunk_steps, gamma,
+        average_duplicates=average_duplicates, expected_sarsa=expected_sarsa,
+        lam=lam, trace_len=trace_len, watkins_cut=watkins_cut,
+    )
+    n_obs = int(env.observation_space.n)
+    nsb, _ = bank_geometry(n_obs, 5)
+    nsp = nsb * 128
+    q0 = np.zeros((nsp, 5), np.float32)
+    if q_init is not None:
+        q_init = torch.as_tensor(q_init, dtype=torch.float32).cpu().numpy()
+        q0[: q_init.shape[0]] = q_init
+    qb = torch.as_tensor(q_to_banks(q0, nsb), device=dev)
+    s = st.s.reshape(-1, 128).contiguous()
+    history = []
+    i = 0
+    for lr, eps, steps in schedule:
+        for _ in range(-(-int(steps) // chunk_steps)):
+            i += 1
+            s, qb, rew = run(int(chunk_seeds(seed, i, 1)[0]), float(lr),
+                             float(eps), s, qb)
+            history.append(rew.mean())  # read once at the end
+    history = [h / chunk_steps for h in torch.stack(history).tolist()] \
+        if history else []
+    return banks_to_q(qb.cpu().numpy(), nsp, na=5, nsb=nsb)[:n_obs], history

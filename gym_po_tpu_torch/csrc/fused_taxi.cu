@@ -18,18 +18,21 @@
 // blocks (20 rounds of two 32x32 multiplies) for the 5-7 draw sites, and the
 // u % n of each draw.  The design keeps every intermediate in registers and
 // the lookups in shared memory, so the kernel runs at the integer issue rate.
-// Compile-time map constants, several envs per thread and CUDA graphs are
-// left for later work.
+// The policy choice is a template parameter, so every draw site is a
+// compile-time constant and picks its Philox word without selects (8-9 %
+// off the headline against the runtime choice).  Compile-time map constants,
+// several envs per thread and CUDA graphs are left for later work.  The Taxi
+// step itself is taxi_step.cuh, shared with the tabular trainers.
 //
 // Draw sites, in body order, every step whatever the masks say: action
-// (random policy only), task pn, task d0, full-reset cell (rbits(rows) then
-// rbits(cols) when every cell is valid, else one rbits(n_valid)), reset pr,
-// reset dr0.
+// (random policy only), then the Taxi step's (taxi_step.cuh: task pn, task
+// d0, full-reset cell, reset pr, reset dr0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kernel_rng.cuh"
+#include "taxi_step.cuh"
 
 namespace {
 
@@ -41,6 +44,9 @@ struct TaxiParams {
   uint32_t key0, key1;
 };
 
+// kPolicy: actions from the policy table, else drawn.  A compile-time
+// choice, so every draw site is a constant and its word a register
+template <bool kPolicy>
 __global__ void fused_taxi_kernel(TaxiParams P, const int32_t* __restrict__ s_in,
                                   const int32_t* __restrict__ cell_move,
                                   const int32_t* __restrict__ loc_at,
@@ -66,10 +72,9 @@ __global__ void fused_taxi_kernel(TaxiParams P, const int32_t* __restrict__ s_in
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= P.num_envs) return;
 
-  const int nlocs = P.nlocs, cols = P.cols;
-  const int pd = (nlocs + 1) * nlocs;
-  gpt::KernelRNG rng(tape, P.key0, P.key1, e, P.num_steps, P.rows_per_tile,
-                     P.n_sites);
+  const int pd = (P.nlocs + 1) * P.nlocs;
+  gpt::KernelRNG<2> rng(tape, P.key0, P.key1, e, P.num_steps,
+                        P.rows_per_tile, P.n_sites);
 
   int s = s_in[e];
   // An input outside [0, ns) would index the tables out of bounds.  Such an
@@ -87,71 +92,28 @@ __global__ void fused_taxi_kernel(TaxiParams P, const int32_t* __restrict__ s_in
     }
     return;
   }
+  const gpt::TaxiMap M = {P.nlocs, P.rows, P.cols, P.n_valid, P.all_valid,
+                          P.n_pass, P.time_limit, P.r_goal, P.r_bad,
+                          P.r_any};
   int completed = 0, elapsed = 0;
   float racc = 0.f, cur_ret = 0.f, ep_ret = 0.f, ep_len = 0.f, ep_cnt = 0.f;
   for (int t = 0; t < P.num_steps; ++t) {
     rng.begin_step(t);
     int j = 0;
-    int a;
-    if (P.ns_policy) {
-      a = s_pol[s];
-    } else {
-      a = gpt::rbits(rng.draw(j++), 5);
-    }
-    // decode (reference extended_taxi.py:84-94)
-    const int rc = s / pd;
-    const int rem = s - rc * pd;
-    const int p = rem / nlocs;
-    const int d = rem - p * nlocs;
-    const int moved = s_cm[rc * 4 + min(a, 3)];
-    const bool is_pd = a == 4;
-    const int loc = s_la[rc];
-    const bool goal = is_pd && p == nlocs && loc == d;
-    const bool pickup = is_pd && p < nlocs && loc == p;
-    const bool bad = is_pd && !goal && !pickup;
-    const int p2 = pickup ? nlocs : p;
-    const int rc2 = is_pd ? rc : moved;
-    completed += goal ? 1 : 0;
-    const float rew = goal ? P.r_goal : (bad ? P.r_bad : P.r_any);
-    elapsed += 1;
-    const bool done = completed == P.n_pass;
-    const bool trunc = elapsed > P.time_limit;  // strict >, reference :279
-    // task reset: rejection-free d != p
-    const bool task = goal && !(done || trunc);
-    const int pn = gpt::rbits(rng.draw(j++), nlocs);
-    const int d0 = gpt::rbits(rng.draw(j++), nlocs - 1);
-    const int dn = d0 + (d0 >= pn ? 1 : 0);
-    const int p3 = task ? pn : p2;
-    const int d3 = task ? dn : d;
-    // full reset
-    const bool reset = done || trunc;
-    int rc_new;
-    if (P.all_valid) {
-      const int rr = gpt::rbits(rng.draw(j++), P.rows);
-      const int cc = gpt::rbits(rng.draw(j++), cols);
-      rc_new = rr * cols + cc;
-    } else {
-      rc_new = s_vc[gpt::rbits(rng.draw(j++), P.n_valid)];
-    }
-    const int pr = gpt::rbits(rng.draw(j++), nlocs);
-    const int dr0 = gpt::rbits(rng.draw(j++), nlocs - 1);
-    const int dr = dr0 + (dr0 >= pr ? 1 : 0);
-    const int rc3 = reset ? rc_new : rc2;
-    const int p4 = reset ? pr : p3;
-    const int d4 = reset ? dr : d3;
-    if (reset) completed = 0;
-    s = (rc3 * (nlocs + 1) + p4) * nlocs + d4;
+    const int a = kPolicy ? s_pol[s] : gpt::rbits(rng.draw(j++), 5);
+    const gpt::TaxiStep st = gpt::taxi_step(M, s_cm, s_la, s_vc, rng, j, s, a,
+                                            completed, elapsed);
+    s = st.s_next;
     if (P.episode_stats) {
-      cur_ret = cur_ret + rew;
-      if (reset) {
+      cur_ret = cur_ret + st.rew;
+      if (st.reset) {
         ep_ret = ep_ret + cur_ret;
-        ep_len = ep_len + (float)elapsed;  // before elapsed is zeroed
+        ep_len = ep_len + (float)st.ep_len;  // before elapsed is zeroed
         ep_cnt = ep_cnt + 1.f;
         cur_ret = 0.f;
       }
     }
-    if (reset) elapsed = 0;
-    racc = racc + rew;
+    racc = racc + st.rew;
   }
   s_out[e] = s;
   rew_out[e] = racc;
@@ -172,6 +134,7 @@ extern "C" int fused_taxi_launch(
     int rows_per_tile, int n_sites, int nlocs, int rows, int cols,
     int n_valid, int all_valid, int ns_policy, int n_pass, int time_limit,
     float r_goal, float r_bad, float r_any, int episode_stats, void* stream) {
+  if (n_sites > 8) return (int)cudaErrorInvalidValue;  // KernelRNG<2>
   TaxiParams P;
   P.num_envs = num_envs;
   P.num_steps = num_steps;
@@ -195,7 +158,8 @@ extern "C" int fused_taxi_launch(
   const int threads = 256;
   const int blocks = (num_envs + threads - 1) / threads;
   const size_t smem = sizeof(int32_t) * (P.nc * 5 + n_valid + ns_policy);
-  fused_taxi_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  auto kern = ns_policy ? fused_taxi_kernel<true> : fused_taxi_kernel<false>;
+  kern<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       P, (const int32_t*)s_in, (const int32_t*)cell_move,
       (const int32_t*)loc_at, (const int32_t*)valid_cells,
       (const int32_t*)policy, (const int32_t*)tape, (int32_t*)s_out,

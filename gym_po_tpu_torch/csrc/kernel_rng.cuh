@@ -14,7 +14,11 @@
 //  * Philox4x32-10 (Salmon et al., SC'11, written out here rather than taken
 //    from curand): key = (seed lo, seed hi), counter = (e, t, j/4, 0), site j
 //    takes word j%4.  A draw depends on (seed, e, t, j) alone, not on the
-//    launch geometry.
+//    launch geometry, so sites 0-7 give the same words whatever n_sites is.
+//    KernelRNG<NBLK> holds NBLK blocks: a compile-time count, so each word
+//    is picked by selects and stays in registers (a runtime block count
+//    would index a local array dynamically and put it in local memory).
+//    It serves n_sites <= 4*NBLK; the launcher checks that.
 #pragma once
 
 #include <stdint.h>
@@ -25,7 +29,6 @@ constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
 constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-constexpr int kMaxSites = 8;  // two Philox blocks per env per step
 
 struct U32x4 {
   uint32_t w[4];
@@ -60,13 +63,14 @@ __device__ __forceinline__ uint32_t pick4(const U32x4& b, int w) {
   return w == 0 ? b.w[0] : w == 1 ? b.w[1] : w == 2 ? b.w[2] : b.w[3];
 }
 
+template <int NBLK>
 struct KernelRNG {
   const int32_t* tape;  // null: Philox mode
   long long tape_base;  // tape offset of (tile, row, lane) at site 0, step 0
   int num_steps, rows_per_tile, n_sites;
   uint32_t env, key0, key1;
   int step;
-  U32x4 blk[2];
+  U32x4 blk[NBLK];
 
   __device__ __forceinline__ KernelRNG(const int32_t* tape_, uint32_t seed_lo,
                                        uint32_t seed_hi, long long e,
@@ -84,9 +88,10 @@ struct KernelRNG {
   __device__ __forceinline__ void begin_step(int t) {
     step = t;
     if (!tape) {
-      blk[0] = philox4x32_10(env, (uint32_t)t, 0u, 0u, key0, key1);
-      if (n_sites > 4)
-        blk[1] = philox4x32_10(env, (uint32_t)t, 1u, 0u, key0, key1);
+#pragma unroll
+      for (int b = 0; b < NBLK; ++b)
+        if (b == 0 || 4 * b < n_sites)
+          blk[b] = philox4x32_10(env, (uint32_t)t, (uint32_t)b, 0u, key0, key1);
     }
   }
 
@@ -95,7 +100,12 @@ struct KernelRNG {
       const long long row = ((long long)j * num_steps + step) * rows_per_tile;
       return (uint32_t)__ldg(tape + tape_base + row * 128);
     }
-    return j < 4 ? pick4(blk[0], j & 3) : pick4(blk[1], j & 3);
+    // j < 4 ? block 0 : j < 8 ? block 1 : ..., by selects
+    uint32_t u = pick4(blk[NBLK - 1], j & 3);
+#pragma unroll
+    for (int b = NBLK - 2; b >= 0; --b)
+      if (j < 4 * (b + 1)) u = pick4(blk[b], j & 3);
+    return u;
   }
 };
 

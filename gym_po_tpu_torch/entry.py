@@ -22,7 +22,7 @@ __all__ = ["entry", "ENV_ID"]
 ENV_ID = "ExtendedHansenTaxi-v4"
 
 
-def entry(device="cpu", num_envs: int = 256, hidden: Sequence[int] = (64, 64),
+def entry(device="cuda", num_envs: int = 256, hidden: Sequence[int] = (64, 64),
           seed: int = 0):
     """Return ``(forward, (model, generator, obs, state))``.
 

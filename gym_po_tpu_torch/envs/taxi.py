@@ -54,9 +54,9 @@ def _encode(r, c, p, d, cols: int, nlocs: int):
 class Taxi(Environment[TaxiState]):
     """Taxi / Hansen-PO-Taxi on 5x5 or extended 8x8 maps.
 
-    Args mirror the JAX package's constructor, plus ``device``: the tables
-    live there, and every state, action and generator handed to the env must
-    be on it too.
+    Args mirror the JAX package's constructor, plus ``device`` (the card by
+    default; pass ``"cpu"`` for the CPU): the tables live there, and every
+    state, action and generator handed to the env must be on it too.
     """
 
     def __init__(
@@ -68,7 +68,7 @@ class Taxi(Environment[TaxiState]):
         reward_goal: float = 1.0,
         reward_bad: float = -0.5,
         reward_any: float = -0.05,
-        device: Any = "cpu",
+        device: Any = "cuda",
     ):
         self.tables: TaxiTables = compile_taxi_map(map)
         t = self.tables

@@ -1,9 +1,23 @@
+from .fused_double_q import make_fused_double_q_trainer
+from .fused_qlearning import (
+    apply_update,
+    bank_geometry,
+    banks_to_q,
+    make_fused_q_trainer,
+    q_to_banks,
+)
 from .fused_taxi import make_fused_taxi_rollout, state_policy_table
 from .kernel_rng import KernelRNG, philox4x32_10
 
 __all__ = [
     "make_fused_taxi_rollout",
     "state_policy_table",
+    "make_fused_q_trainer",
+    "make_fused_double_q_trainer",
+    "apply_update",
+    "bank_geometry",
+    "q_to_banks",
+    "banks_to_q",
     "KernelRNG",
     "philox4x32_10",
 ]

@@ -11,6 +11,7 @@ this module imports on a machine with no ``nvcc``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -20,7 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "BUILD_DIR", "CSRC"]
+__all__ = ["load_library", "build_log", "count_launch", "LAUNCHES", "BUILD_DIR",
+           "CSRC"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -29,6 +31,19 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+# Launches of each kernel in this process, by source name: every wrapper adds
+# one where it launches its kernel, and nowhere else, so that a run can show
+# that a path went through the kernels (chip_smoke.py zeroes it before a path
+# and reads it after).
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def count_launch(run, name: str) -> None:
+    """Record one launch of kernel ``name`` by wrapper ``run``: its own
+    ``run.launches`` and the process-wide :data:`LAUNCHES`."""
+    run.launches += 1
+    LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -1,0 +1,368 @@
+"""Fused tabular Q-learning on Taxi: a hand-written CUDA kernel and its twin.
+
+Port of the Pallas kernel
+:func:`gym_po_tpu.ops.fused_qlearning.make_fused_q_trainer`: K steps of
+epsilon-greedy acting, the Taxi transition, the TD target from the state
+after the task reset and before the full reset, and the batched update
+``Q[obs, a] += lr * td`` (summed or averaged over duplicates) every step.
+Every option of the JAX builder is here: classic and extended maps, Q
+indexed by state or by Hansen observation, Expected SARSA, and Watkins or
+Peng Q(lambda) over a ring of the last ``trace_len`` table addresses.
+
+The kernel (``csrc/fused_qlearning.cu``) is one persistent cooperative
+launch per call; its source note says what bounds it on the card and what
+the design does about that.  ``run.twin`` is the plain PyTorch version of
+the same function.  Both add each step's contributions as int64 fixed point
+at scale ``2**32`` (:func:`apply_update`), so the sums do not depend on
+their order and the kernel equals the twin bit for bit.
+
+``run(seed, lr, epsilon, s, q_banks, *tape) -> (s', q_banks', reward_sums)``
+keeps the JAX package's contract: ``s`` int32 ``[B // 128, 128]``,
+``q_banks`` f32 ``[nb, 128]``.  The banks are a reshape of the flat table:
+entry ``(obs, a)`` sits at flat index ``a * nsb * 128 + obs``
+(:func:`q_to_banks`, :func:`banks_to_q`).  ``seed`` is an int (the Philox
+key).  On a CUDA tensor ``run`` launches the kernel (or raises); on a CPU
+tensor it runs the twin.
+
+As in the JAX kernel, ``completed``, ``elapsed`` and the trace start from
+zero at every call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ._build import count_launch
+from .kernel_rng import MASK32, KernelRNG, W
+from .taxi_dynamics import TaxiDynamics, check_batch
+
+__all__ = [
+    "make_fused_q_trainer",
+    "bank_geometry",
+    "q_to_banks",
+    "banks_to_q",
+    "apply_update",
+]
+
+NB = 32  # default Q bank rows: 5 actions x (512 / 128) obs banks, padded
+NSB = 4  # default obs banks per action
+MAX_TRACE = 64
+FIX_SCALE = 2.0**32  # fixed point of the summed updates
+MAX_TERM = 2.0**6  # largest |lr * td| one term may carry
+# terms summed into one entry per step: at 2^24 terms of |w| <= 2^6 the
+# int64 sum stays below 2^62
+MAX_TERMS = 2**24
+
+
+def bank_geometry(idx_n: int, n_act: int) -> Tuple[int, int]:
+    """``(nsb, nb)``: obs banks per action and total bank rows (8-aligned,
+    at least 32) for an ``idx_n``-entry index space."""
+    nsb = max(NSB, -(-idx_n // W))
+    nb = max(NB, -(-(n_act * nsb) // 8) * 8)
+    return nsb, nb
+
+
+def q_to_banks(q: np.ndarray, nsb: int = NSB) -> np.ndarray:
+    """``[ns, na]`` table -> ``[nb, 128]`` banks (entry ``(s, a)`` at flat
+    index ``a * nsb * 128 + s``)."""
+    ns, na = q.shape
+    if ns > nsb * W:
+        raise ValueError(f"{ns} rows do not fit {nsb} banks per action")
+    nb = max(NB, -(-(na * nsb) // 8) * 8)
+    out = np.zeros(nb * W, np.float32)
+    for a in range(na):
+        out[a * nsb * W: a * nsb * W + ns] = q[:, a]
+    return out.reshape(nb, W)
+
+
+def banks_to_q(banks: np.ndarray, ns: int, na: int = 5,
+               nsb: int = NSB) -> np.ndarray:
+    """Inverse of :func:`q_to_banks`."""
+    flat = np.asarray(banks, np.float32).reshape(-1)
+    q = np.zeros((ns, na), np.float32)
+    for a in range(na):
+        q[:, a] = flat[a * nsb * W: a * nsb * W + ns]
+    return q
+
+
+def apply_update(q: torch.Tensor, addr: torch.Tensor, w: torch.Tensor,
+                 live: torch.Tensor, average: bool) -> torch.Tensor:
+    """``q + dq`` with ``dq[i]`` the sum of the live ``w`` at ``addr == i``
+    (divided by their count when ``average``), as the kernel computes it:
+    each f32 ``w`` rounded to int64 at scale 2^32 (half to even), the int64
+    sum converted once, then an f32 division.
+
+    The fixed point holds ``|w| <= MAX_TERM`` per term.  An entry that takes
+    a larger or non-finite term becomes NaN: a diverging run turns Q
+    non-finite, as the JAX package's f32 sums do once they overflow, instead
+    of wrapping round in int64."""
+    over = live & ~(w.abs() <= MAX_TERM)
+    ok = live & ~over
+    fx = torch.round(torch.where(ok, w, 0.0).double() * FIX_SCALE).long()
+    addr = torch.where(live, addr, 0).long()
+    acc = torch.zeros(q.numel(), dtype=torch.int64, device=q.device)
+    dq = (acc.index_add_(0, addr, fx).double() / FIX_SCALE).float()
+    if average:
+        cnt = torch.zeros(q.numel(), dtype=torch.int32, device=q.device)
+        cnt.index_add_(0, addr, ok.to(torch.int32))
+        dq = dq / cnt.clamp(min=1).float()
+    n_over = torch.zeros(q.numel(), dtype=torch.int32, device=q.device)
+    n_over.index_add_(0, addr, over.to(torch.int32))
+    return q + torch.where(n_over > 0, torch.nan, dq)
+
+
+class _QParams(ctypes.Structure):
+    """Mirror of ``QParams`` in ``csrc/fused_qlearning.cu``."""
+
+    _fields_ = [(n, ctypes.c_int32) for n in (
+        "num_envs", "num_steps", "rows_per_tile", "n_sites", "nlocs", "rows",
+        "cols", "n_valid", "all_valid", "hansen", "n_pass", "time_limit",
+        "nsp", "nq", "average", "expected_sarsa", "trace_len", "watkins_cut")]
+    _fields_ += [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)]
+    _fields_ += [(n, ctypes.c_float) for n in (
+        "r_goal", "r_bad", "r_any", "gamma", "lr", "eps")]
+    _fields_ += [("coefs", ctypes.c_float * MAX_TRACE)]
+
+
+@functools.cache
+def _launcher(name: str):
+    from ._build import load_library
+
+    fn = getattr(load_library("fused_qlearning"), name)
+    p = ctypes.c_void_p
+    fn.argtypes = [ctypes.POINTER(_QParams)] + [p] * 15
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class TaxiTrainerSpec(TaxiDynamics):
+    """What the Q trainers' kernel launch and input checks need beyond the
+    Taxi step.  Shared by this module and
+    :mod:`gym_po_tpu_torch.ops.fused_double_q`."""
+
+    def __init__(self, env, num_envs: int, num_steps: int):
+        super().__init__(env)
+        if num_envs % W:
+            raise ValueError("num_envs must be a multiple of 128")
+        if (num_envs // W) % 8:
+            raise ValueError("num_envs must be a multiple of 1024")
+        self.num_envs, self.num_steps = num_envs, num_steps
+        self.R = num_envs // W  # the JAX trainer is one tile of R rows
+
+    def params(self, n_sites: int, nsp: int, nq: int, seed: int, lr: float,
+               epsilon: float, gamma: float, average: bool) -> _QParams:
+        P = _QParams(
+            num_envs=self.num_envs, num_steps=self.num_steps,
+            rows_per_tile=self.R, n_sites=n_sites, nlocs=self.nlocs,
+            rows=self.rows, cols=self.cols, n_valid=self.n_valid,
+            all_valid=int(self.all_valid), hansen=int(self.hansen),
+            n_pass=self.n_pass, time_limit=self.time_limit, nsp=nsp, nq=nq,
+            average=int(average), expected_sarsa=0, trace_len=1,
+            watkins_cut=0, key0=seed & MASK32, key1=(seed >> 32) & MASK32,
+            gamma=gamma, lr=lr, eps=epsilon,
+        )
+        P.r_goal, P.r_bad, P.r_any = self.rewards
+        return P
+
+    def check(self, s: torch.Tensor, q: torch.Tensor, nq: int, rng_tape: bool,
+              tape_shape, tape: Tuple[torch.Tensor, ...]) -> None:
+        check_batch(s, self.R, rng_tape, tape_shape, tape)
+        if (not isinstance(q, torch.Tensor) or q.dtype != torch.float32
+                or tuple(q.shape) != (nq // W, W) or not q.is_contiguous()
+                or q.device != s.device):
+            raise ValueError(f"q banks must be a contiguous float32 tensor of "
+                             f"shape {(nq // W, W)} on s's device")
+
+    def launch(self, name: str, P: _QParams, s: torch.Tensor, q: torch.Tensor,
+               tape: Optional[torch.Tensor], trace_len: int):
+        """Launch ``name`` on ``s``'s CUDA device; returns ``(s', q',
+        reward_sums, (blocks, envs_per_thread))``."""
+        if s.device.type != "cuda":
+            raise ValueError(f"unsupported device {s.device}")
+        tab = self.tables_on(s.device)
+        dev, B = s.device, self.num_envs
+        s_out = torch.empty_like(s)
+        rew = torch.empty(s.shape, dtype=torch.float32, device=dev)
+        q_out = torch.empty_like(q)
+        acc = torch.zeros(q.numel(), dtype=torch.int64, device=dev)
+        cnt = torch.zeros(q.numel(), dtype=torch.int32, device=dev)
+        ring = (torch.empty(trace_len * B, dtype=torch.int32, device=dev)
+                if trace_len > 1 else None)
+        grid = (ctypes.c_int * 2)()
+
+        def ptr(x):
+            return None if x is None else x.data_ptr()
+
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _launcher(name)(
+                ctypes.byref(P), ptr(s), ptr(s_out), ptr(rew), ptr(q),
+                ptr(q_out), ptr(acc), ptr(cnt), ptr(ring), ptr(tab["cm"]),
+                ptr(tab["la"]), ptr(tab["hc"]), ptr(tab["vc"]), ptr(tape),
+                grid, stream,
+            )
+        if err:
+            raise RuntimeError(f"{name} failed: CUDA error {err}")
+        return s_out, q_out, rew, (grid[0], grid[1])
+
+
+def first_argmax(vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First maximum (strict ``>``) over the leading axis of ``[5, B]``."""
+    best_v = vals[0]
+    best_a = torch.zeros_like(best_v, dtype=torch.int32)
+    for a in range(1, vals.shape[0]):
+        better = vals[a] > best_v
+        best_v = torch.where(better, vals[a], best_v)
+        best_a = torch.where(better, a, best_a)
+    return best_a, best_v
+
+
+def f32(x: float) -> torch.Tensor:
+    return torch.tensor(np.float32(x))
+
+
+def make_fused_q_trainer(env, num_envs: int, num_steps: int,
+                         gamma: float = 0.99,
+                         average_duplicates: bool = False,
+                         expected_sarsa: bool = False,
+                         lam: float = 0.0,
+                         trace_len: int = 8,
+                         watkins_cut: bool = True,
+                         rng_tape: bool = False):
+    """Build ``run(seed, lr, epsilon, s, q_banks, *tape) -> (s', q_banks',
+    reward_sums)`` for a Taxi env.
+
+    ``expected_sarsa=True`` bootstraps from the expectation under the
+    epsilon-greedy policy, ``(1-eps)·max_a Q + (eps·0.2)·Σ_a Q``.
+    ``average_duplicates=False`` sums same-entry updates within a step (the
+    effective step is then ``lr × B/ns``, which diverges for
+    ``lr ≳ ns/B``); ``True`` divides each entry's sum by its count.  A
+    term ``|lr·td|`` above ``MAX_TERM`` (2^6) is past the fixed-point sum's
+    range and turns its entry NaN (:func:`apply_update`), so a diverging
+    run goes non-finite, as it does in the JAX package.
+    ``lam > 0`` switches to Q(λ): the last ``trace_len`` (obs, action)
+    addresses per env, each updated with ``(γλ)^k · lr·td`` (the ring is
+    trimmed to the nonzero weights); ``watkins_cut=True`` clears the trace
+    before the update at a non-greedy-valued action (Watkins), ``False``
+    keeps it (Peng).  The trace survives task resets and dies at full
+    resets.  ``rng_tape=True`` makes ``run`` take a trailing int32 tape of
+    ``run.tape_shape`` in place of Philox.
+    """
+    if not 0.0 <= float(lam) <= 1.0:
+        raise ValueError(f"lam={lam} out of range [0, 1]")
+    if not 1 <= int(trace_len) <= MAX_TRACE:
+        raise ValueError(f"trace_len={trace_len} out of range [1, {MAX_TRACE}]")
+    if float(lam) > 0.0 and expected_sarsa:
+        raise ValueError("lam > 0 requires the max bootstrap "
+                         "(expected_sarsa=False)")
+    coefs = [np.float32((float(gamma) * float(lam)) ** k)
+             for k in range(int(trace_len))]
+    L = max(k for k, c in enumerate(coefs) if float(c) != 0.0) + 1
+    coefs = coefs[:L]
+    use_trace = float(lam) > 0.0 and L > 1
+    L = L if use_trace else 1
+    spec = TaxiTrainerSpec(env, num_envs, num_steps)
+    if num_envs * L > MAX_TERMS:
+        raise ValueError(f"num_envs * trace_len = {num_envs * L} exceeds the "
+                         f"fixed-point sum's {MAX_TERMS} terms per step")
+    nsb, nb = bank_geometry(int(env.observation_space.n), 5)
+    nsp, nq = nsb * W, nb * W
+    # draw sites per step, in body order: explore r24, random action, then
+    # the Taxi step's (taxi_dynamics.py)
+    n_sites = 2 + spec.n_sites
+    tape_shape = (KernelRNG.tape_rows(n_sites, num_steps, spec.R), W)
+    B = num_envs
+
+    def twin(seed: int, lr: float, epsilon: float, s: torch.Tensor,
+             q: torch.Tensor, *tape: torch.Tensor):
+        """Plain PyTorch version of the kernel, on ``s``'s device."""
+        spec.check(s, q, nq, rng_tape, tape_shape, tape)
+        dev = s.device
+        tab = spec.tables_on(dev)
+        rng = KernelRNG(seed, B, num_steps, n_sites, spec.R,
+                        tape=tape[0] if rng_tape else None, device=dev)
+        lr_f, eps_f, g_f = (f32(x).to(dev) for x in (lr, epsilon, gamma))
+        eps24 = int(np.float32(epsilon) * np.float32(1 << 24))
+        coef_f = [torch.tensor(c, device=dev) for c in coefs]
+        s = s.reshape(-1)
+        live = (s >= 0) & (s < spec.ns)  # out of range: inactive, s' = -1
+        s = torch.where(live, s, 0)
+        q = q.reshape(-1)
+        acts = (torch.arange(5, device=dev) * nsp)[:, None]
+        zeros = torch.zeros_like(s)
+        completed, elapsed, age = zeros, zeros, zeros
+        racc = torch.zeros(B, dtype=torch.float32, device=dev)
+        ring = torch.zeros((L, B), dtype=torch.int64, device=dev)
+        for step in range(num_steps):
+            rng.begin_step(step)
+            qidx = spec.obs_of(tab, s)
+            vals = q[acts + qidx]
+            greedy, best_v = first_argmax(vals)
+            explore = rng.r24() < eps24
+            a = torch.where(explore, rng.rbits(5), greedy)
+            q_taken = vals.gather(0, a[None].long())[0]
+            if use_trace and watkins_cut:
+                age = torch.where(q_taken < best_v, 0, age)
+            st = spec.step(rng, tab, s, a, completed, elapsed)
+            # TD target from the state before the full reset
+            vals2 = q[acts + spec.obs_of(tab, st.s_mid)]
+            _, next_v = first_argmax(vals2)
+            if expected_sarsa:
+                ssum = vals2[0]
+                for i in range(1, 5):
+                    ssum = ssum + vals2[i]
+                next_v = (1.0 - eps_f) * next_v + (eps_f * f32(0.2)) * ssum
+            target = st.rew + g_f * next_v * torch.where(st.done, 0.0, 1.0)
+            wd = lr_f * (target - q_taken)
+            addr = a.long() * nsp + qidx
+            if use_trace:
+                ring[step % L] = addr
+                age = torch.clamp(age + 1, max=L)
+                ks = range(L)
+                q = apply_update(
+                    q, torch.cat([ring[(step - k) % L] for k in ks]),
+                    torch.cat([coef_f[k] * wd for k in ks]),
+                    torch.cat([live & (k < age) for k in ks]),
+                    average_duplicates)
+            else:
+                q = apply_update(q, addr, wd, live, average_duplicates)
+            s, completed, elapsed = st.s, st.completed, st.elapsed
+            age = torch.where(st.reset, 0, age)  # the trace dies at resets
+            racc = racc + st.rew
+        rng.finalize(n_sites)
+        return (torch.where(live, s, -1).reshape(spec.R, W),
+                q.reshape(nb, W),
+                torch.where(live, racc, torch.nan).reshape(spec.R, W))
+
+    def run(seed: int, lr: float, epsilon: float, s: torch.Tensor,
+            q: torch.Tensor, *tape: torch.Tensor):
+        """One K-step training call: the CUDA kernel on a CUDA tensor, the
+        twin on a CPU tensor.  An env whose input state lies outside
+        ``[0, ns)`` takes no part (``s' = -1``, NaN reward sum)."""
+        spec.check(s, q, nq, rng_tape, tape_shape, tape)
+        if s.device.type == "cpu":
+            return twin(seed, lr, epsilon, s, q, *tape)
+        P = spec.params(n_sites, nsp, nq, seed, lr, epsilon, gamma,
+                        average_duplicates)
+        P.expected_sarsa = int(expected_sarsa)
+        P.trace_len = L
+        P.watkins_cut = int(watkins_cut)
+        for k, c in enumerate(coefs[:L]):
+            P.coefs[k] = c
+        *out, run.grid = spec.launch("fused_q_launch", P, s, q,
+                                     tape[0] if rng_tape else None, L)
+        count_launch(run, "fused_qlearning")
+        return tuple(out)
+
+    run.twin = twin
+    run.launches = 0
+    run.grid = None  # (blocks, envs per thread) of the last launch
+    run.tape_shape = tape_shape
+    run.n_sites = n_sites
+    run.trace_len = L
+    return run

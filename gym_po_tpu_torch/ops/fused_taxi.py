@@ -25,13 +25,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..envs.taxi import TaxiState
+from ._build import count_launch
 from .kernel_rng import MASK32, KernelRNG, W
+from .taxi_dynamics import TaxiDynamics, check_batch
 
 __all__ = ["make_fused_taxi_rollout", "state_policy_table"]
 
@@ -80,15 +82,6 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
     tile height); ``rng_tape=True`` makes ``run`` take a trailing int32 tape
     of shape ``run.tape_shape`` in place of Philox.
     """
-    t = env.tables
-    nc = t.rows * t.cols
-    if nc > W:
-        raise ValueError(f"map has {nc} cells; fused kernel supports <= {W}")
-    nlocs, rows, cols = t.nlocs, t.rows, t.cols
-    pd = (nlocs + 1) * nlocs
-    ns = nc * pd
-    all_valid = env._all_cells_valid
-
     if num_envs % W:
         raise ValueError("num_envs must be a multiple of 128")
     R = min(rows_per_tile, num_envs // W)
@@ -97,75 +90,35 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
         raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
     grid = num_envs // tile_envs
 
-    host: Dict[str, np.ndarray] = {
-        "cm": np.asarray(env._cell_move.cpu(), np.int32),  # [nc * 4]
-        "la": np.asarray(env._loc_at.cpu(), np.int32),  # [nc]
-        "vc": np.flatnonzero((t.tgrid != "|").reshape(-1)).astype(np.int32),
-    }
+    extra = {}
     if policy is not None:
-        host["pol"] = np.asarray(policy, np.int32).reshape(-1)
-        if host["pol"].size != ns:
-            raise ValueError(f"policy table must have {ns} entries")
-        if ((host["pol"] < 0) | (host["pol"] >= 5)).any():
+        extra["pol"] = np.asarray(policy, np.int32).reshape(-1)
+    dyn = TaxiDynamics(env, extra)
+    if policy is not None:
+        if extra["pol"].size != dyn.ns:
+            raise ValueError(f"policy table must have {dyn.ns} entries")
+        if ((extra["pol"] < 0) | (extra["pol"] >= 5)).any():
             raise ValueError("policy actions must lie in [0, 5)")
-    n_valid = host["vc"].size
-    ns_policy = host["pol"].size if policy is not None else 0
-    if 4 * (nc * 5 + n_valid + ns_policy) > _MAX_SMEM:
+    ns_policy = extra["pol"].size if policy is not None else 0
+    if 4 * (dyn.nc * 5 + dyn.n_valid + ns_policy) > _MAX_SMEM:
         raise ValueError("tables exceed the kernel's 48 KB of shared memory")
 
-    # draw sites per step, in body order: action (random policy only),
-    # task pn, task d0, full-reset cell (2 draws when every cell is
-    # navigable, else 1 bank draw), reset pr, reset dr0
-    n_sites = (1 if policy is None else 0) + 2 + (2 if all_valid else 1) + 2
+    # draw sites per step, in body order: action (random policy only), then
+    # the Taxi step's (taxi_dynamics.py)
+    n_sites = (1 if policy is None else 0) + dyn.n_sites
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
     tape_shape = (grid * slab, W)
     n_out = 2 + (3 if episode_stats else 0)
-    rewards = (env.reward_goal, env.reward_bad, env.reward_any)
-    tables: Dict[torch.device, Dict[str, torch.Tensor]] = {}
-
-    def tables_on(device) -> Dict[str, torch.Tensor]:
-        if device not in tables:
-            tables[device] = {k: torch.as_tensor(v, device=device)
-                              for k, v in host.items()}
-            tables[device]["rew"] = torch.tensor(rewards, dtype=torch.float32,
-                                                 device=device)
-        return tables[device]
-
-    def check(s: torch.Tensor, tape: Tuple[torch.Tensor, ...]) -> None:
-        if not isinstance(s, torch.Tensor) or s.dtype != torch.int32:
-            raise ValueError("s must be an int32 tensor")
-        if tuple(s.shape) != (num_envs // W, W) or not s.is_contiguous():
-            raise ValueError(
-                f"s must be contiguous with shape {(num_envs // W, W)}, got "
-                f"{tuple(s.shape)}"
-            )
-        if len(tape) != int(rng_tape):
-            raise ValueError(
-                f"run takes {int(rng_tape)} tape argument(s), got {len(tape)}"
-            )
-        if rng_tape:
-            tp = tape[0]
-            if tuple(tp.shape) != tape_shape:
-                raise ValueError(
-                    f"rng tape must have shape {tape_shape}, got {tuple(tp.shape)}"
-                )
-            if (tp.dtype != torch.int32 or tp.device != s.device
-                    or not tp.is_contiguous()):
-                raise ValueError(
-                    "rng tape must be a contiguous int32 tensor on s's device"
-                )
 
     def twin(seed: int, s: torch.Tensor, *tape: torch.Tensor):
         """Plain PyTorch version of the kernel, on ``s``'s device."""
-        check(s, tape)
+        check_batch(s, num_envs // W, rng_tape, tape_shape, tape)
         dev = s.device
-        tab = tables_on(dev)
-        cm, la, vc = tab["cm"], tab["la"], tab["vc"]
-        r_goal, r_bad, r_any = tab["rew"]
+        tab = dyn.tables_on(dev)
         rng = KernelRNG(seed, num_envs, num_steps, n_sites, R,
                         tape=tape[0] if rng_tape else None, device=dev)
         s = s.reshape(-1)
-        bad_in = (s < 0) | (s >= ns)  # out-of-range input: s' = -1, NaN sums
+        bad_in = (s < 0) | (s >= dyn.ns)  # out-of-range input: s' = -1, NaN sums
         s = torch.where(bad_in, 0, s)
         completed = torch.zeros_like(s)
         elapsed = torch.zeros_like(s)
@@ -174,50 +127,17 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
         for step in range(num_steps):
             rng.begin_step(step)
             a = tab["pol"][s] if policy is not None else rng.rbits(5)
-            rc = s // pd
-            rem = s % pd
-            p = rem // nlocs
-            d = rem % nlocs
-            moved = cm[rc * 4 + torch.clamp(a, max=3)]
-            is_pd = a == 4
-            loc = la[rc]
-            goal = is_pd & (p == nlocs) & (loc == d)
-            pickup = is_pd & (p < nlocs) & (loc == p)
-            bad = is_pd & ~goal & ~pickup
-            p2 = torch.where(pickup, nlocs, p)
-            rc2 = torch.where(is_pd, rc, moved)
-            completed = completed + goal.to(torch.int32)
-            rew = torch.where(goal, r_goal, torch.where(bad, r_bad, r_any))
-            elapsed = elapsed + 1
-            done = completed == env.num_passengers
-            trunc = elapsed > env.time_limit
-            task = goal & ~(done | trunc)
-            pn = rng.rbits(nlocs)
-            d0 = rng.rbits(nlocs - 1)
-            p3 = torch.where(task, pn, p2)
-            d3 = torch.where(task, d0 + (d0 >= pn), d)
-            reset = done | trunc
-            if all_valid:
-                rr = rng.rbits(rows)
-                rc_new = rr * cols + rng.rbits(cols)
-            else:
-                rc_new = vc[rng.rbits(n_valid)]
-            pr = rng.rbits(nlocs)
-            dr0 = rng.rbits(nlocs - 1)
-            rc3 = torch.where(reset, rc_new, rc2)
-            p4 = torch.where(reset, pr, p3)
-            d4 = torch.where(reset, dr0 + (dr0 >= pr), d3)
-            completed = torch.where(reset, 0, completed)
-            s = (rc3 * (nlocs + 1) + p4) * nlocs + d4
+            st = dyn.step(rng, tab, s, a, completed, elapsed)
+            s, completed, elapsed = st.s, st.completed, st.elapsed
             if episode_stats:
-                cur_ret = cur_ret + rew
-                ep_ret = torch.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = torch.where(reset, ep_len + elapsed.to(torch.float32),
+                cur_ret = cur_ret + st.rew
+                ep_ret = torch.where(st.reset, ep_ret + cur_ret, ep_ret)
+                ep_len = torch.where(st.reset,
+                                     ep_len + st.ep_len.to(torch.float32),
                                      ep_len)
-                ep_cnt = torch.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = torch.where(reset, 0.0, cur_ret)
-            elapsed = torch.where(reset, 0, elapsed)
-            racc = racc + rew
+                ep_cnt = torch.where(st.reset, ep_cnt + 1.0, ep_cnt)
+                cur_ret = torch.where(st.reset, 0.0, cur_ret)
+            racc = racc + st.rew
         rng.finalize(n_sites)
         outs = [torch.where(bad_in, -1, s)]
         outs += [torch.where(bad_in, torch.nan, x)
@@ -230,12 +150,12 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
         them); an env whose state lies outside ``[0, ns)`` comes out as
         ``s' = -1`` with NaN sums on both paths, and the others are
         unaffected."""
-        check(s, tape)
+        check_batch(s, num_envs // W, rng_tape, tape_shape, tape)
         if s.device.type == "cpu":
             return twin(seed, s, *tape)
         if s.device.type != "cuda":
             raise ValueError(f"unsupported device {s.device}")
-        tab = tables_on(s.device)
+        tab = dyn.tables_on(s.device)
         launch = _launcher()
         s_out = torch.empty_like(s)
         f32 = [torch.empty(s.shape, dtype=torch.float32, device=s.device)
@@ -252,13 +172,13 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
                 ptr(tab["cm"]), ptr(tab["la"]), ptr(tab["vc"]),
                 ptr(tab.get("pol")), ptr(tape[0] if rng_tape else None),
                 seed & MASK32, (seed >> 32) & MASK32, num_envs, num_steps, R,
-                n_sites, nlocs, rows, cols, n_valid, int(all_valid), ns_policy,
-                env.num_passengers, env.time_limit, *rewards,
-                int(episode_stats), stream,
+                n_sites, dyn.nlocs, dyn.rows, dyn.cols, dyn.n_valid,
+                int(dyn.all_valid), ns_policy, dyn.n_pass, dyn.time_limit,
+                *dyn.rewards, int(episode_stats), stream,
             )
         if err:
             raise RuntimeError(f"fused_taxi launch failed: CUDA error {err}")
-        run.launches += 1
+        count_launch(run, "fused_taxi")
         return (s_out, *f32)
 
     run.twin = twin

@@ -14,7 +14,9 @@ every step.  Two modes:
   and through the port gives the same trajectories, bit for bit.
 * **Perf mode** is counter-based Philox4x32-10 (Salmon et al., SC'11),
   keyed on the 64-bit ``seed`` and countered on ``(e, t, j // 4, 0)``; site
-  ``j`` takes word ``j % 4`` of its block.  A draw is a function of
+  ``j`` takes word ``j % 4`` of its block, so a step of ``n_sites`` draws
+  runs ``philox_blocks(n_sites)`` blocks and sites 0-7 keep their words
+  whatever ``n_sites`` is.  A draw is a function of
   ``(seed, e, t, j)`` alone, so it does not depend on the launch geometry,
   and the kernel and this twin agree bit for bit.  ``t`` restarts at 0 every
   call: chained calls pass a new seed each, as the JAX package does.
@@ -31,10 +33,9 @@ from typing import List, Optional, Tuple
 
 import torch
 
-__all__ = ["KernelRNG", "philox4x32_10", "W", "MAX_SITES"]
+__all__ = ["KernelRNG", "philox4x32_10", "philox_blocks", "W"]
 
 W = 128
-MAX_SITES = 8  # two Philox blocks per env per step
 MASK32 = 0xFFFFFFFF
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -46,6 +47,11 @@ def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     t_hi = a * (b >> 16)  # < 2^48
     lo_part = t_lo + ((t_hi & 0xFFFF) << 16)  # < 2^49
     return ((t_hi >> 16) + (lo_part >> 32)) & MASK32, lo_part & MASK32
+
+
+def philox_blocks(n_sites: int) -> int:
+    """Philox blocks one step of ``n_sites`` draws needs: four words each."""
+    return -(-n_sites // 4)
 
 
 def philox4x32_10(ctr, key) -> List[torch.Tensor]:
@@ -79,8 +85,6 @@ class KernelRNG:
     def __init__(self, seed: int, num_envs: int, num_steps: int, n_sites: int,
                  rows_per_tile: int = W, tape: Optional[torch.Tensor] = None,
                  device=None):
-        if n_sites > MAX_SITES:
-            raise ValueError(f"{n_sites} draw sites; at most {MAX_SITES}")
         self.num_steps = num_steps
         self.n_sites = n_sites
         self.key = (seed & MASK32, (seed >> 32) & MASK32)
@@ -109,7 +113,7 @@ class KernelRNG:
             t = torch.full_like(e, step)
             z = torch.zeros_like(e)
             self._words = []
-            for blk in range(-(-self.n_sites // 4)):
+            for blk in range(philox_blocks(self.n_sites)):
                 self._words += philox4x32_10(
                     (e, t, torch.full_like(e, blk), z), self.key
                 )

@@ -175,29 +175,27 @@ def _launcher_from(lib_path):
 def variants() -> None:
     from ._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
 
-    cu = (CSRC / "fused_taxi.cu").read_text()
-    cuh = (CSRC / "kernel_rng.cuh").read_text()
-    cases = {
-        "as-is": (cu, cuh),
-        "no-range-guard": (
-            _edit(cu, "if ((unsigned)s >= (unsigned)(P.nc * pd)) {",
-                  "if (false) {"),
-            cuh),
-        "philox-0-rounds": (cu, _edit(cuh, "for (int i = 0; i < 10; ++i)",
-                                      "for (int i = 0; i < 0; ++i)")),
-        "const-map-5x5": (
-            _edit(_edit(cu, "const int nlocs = P.nlocs, cols = P.cols;",
-                        "constexpr int nlocs = 4, cols = 5;"),
-                  "gpt::rbits(rng.draw(j++), P.rows)",
-                  "gpt::rbits(rng.draw(j++), 5)"),
-            cuh),
+    files = {f.name: f.read_text()
+             for f in [CSRC / "fused_taxi.cu", *CSRC.glob("*.cuh")]}
+    cu, rng_h, step_h = (files[n] for n in (
+        "fused_taxi.cu", "kernel_rng.cuh", "taxi_step.cuh"))
+    cases = {  # name: the files it edits
+        "as-is": {},
+        "no-range-guard": {"fused_taxi.cu": _edit(
+            cu, "if ((unsigned)s >= (unsigned)(P.nc * pd)) {", "if (false) {")},
+        "philox-0-rounds": {"kernel_rng.cuh": _edit(
+            rng_h, "for (int i = 0; i < 10; ++i)", "for (int i = 0; i < 0; ++i)")},
+        "const-map-5x5": {"taxi_step.cuh": _edit(
+            _edit(step_h, "const int nlocs = M.nlocs, cols = M.cols;",
+                  "constexpr int nlocs = 4, cols = 5;"),
+            "rbits(rng.draw(j++), M.rows)", "rbits(rng.draw(j++), 5)")},
     }
     _, run, s = _setup()  # looks its launcher up at each call
-    for name, (src, hdr) in cases.items():
+    for name, edits in cases.items():
         d = BUILD_DIR / "probe" / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "fused_taxi.cu").write_text(src)
-        (d / "kernel_rng.cuh").write_text(hdr)
+        for fname, text in {**files, **edits}.items():
+            (d / fname).write_text(text)
         out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"),
                               str(d / "fused_taxi.cu")],
                              capture_output=True, text=True)

@@ -12,7 +12,14 @@ import pytest
 import torch
 
 import gym_po_tpu_torch as gpt_torch
-from gym_po_tpu_torch.ops import make_fused_taxi_rollout
+from gym_po_tpu_torch.entry import entry
+from gym_po_tpu_torch.ops import (
+    bank_geometry,
+    make_fused_double_q_trainer,
+    make_fused_q_trainer,
+    make_fused_taxi_rollout,
+    q_to_banks,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +95,92 @@ def test_fused_taxi_kernel_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         run(0, s, torch.zeros(run.tape_shape, dtype=torch.int32))
     assert run.launches == 0
+
+
+def test_entry_points_default_to_the_card(cuda):
+    env = gpt_torch.make("HansenTaxi-v4")
+    assert env.device.type == "cuda" and env._cell_move.is_cuda
+    _, (model, _, obs, _) = entry(num_envs=256)
+    assert obs.is_cuda and next(model.parameters()).is_cuda
+
+
+def _trainer_inputs(env, run, B, seed, tape, double=False):
+    """Start states, Q banks with ``normal(0, 0.1)`` entries (one table or
+    the stacked pair) and, in tape mode, a random tape."""
+    rng = np.random.default_rng(seed)
+    s0 = torch.as_tensor(rng.choice(env.tables.valid_init, B).astype(np.int32),
+                         device=env.device).reshape(-1, 128)
+    n = env.tables.ns if double else int(env.observation_space.n)
+    nsb, nb = bank_geometry(n, 5)
+    q = np.zeros(((2 if double else 1) * nb, 128), np.float32)
+    for half in np.split(q, 2 if double else 1):
+        half[:] = q_to_banks(rng.normal(scale=0.1, size=(n, 5)).astype(
+            np.float32), nsb)
+    qb = torch.as_tensor(q, device=env.device)
+    args = ()
+    if tape:
+        args = (torch.as_tensor(rng.integers(-2**31, 2**31, run.tape_shape,
+                                             dtype=np.int64).astype(np.int32),
+                                device=env.device),)
+    return s0, qb, args
+
+
+# env id, builder options ("double": double Q), lr.  Summed duplicates take
+# a small lr: at B / ns duplicates an entry, lr = 0.1 diverges, and past the
+# fixed point's range the table turns NaN (tested on its own below)
+TRAINER_CASES = [
+    ("Taxi-v4", dict(average_duplicates=True, expected_sarsa=True), 0.1),
+    ("HansenTaxi-v4", dict(average_duplicates=False), 0.002),
+    ("ExtendedTaxi-v4", dict(average_duplicates=True, lam=0.9, trace_len=16,
+                             watkins_cut=False), 0.1),
+    ("Taxi-v4", "double", 0.1),
+]
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("env_id,opts,lr", TRAINER_CASES)
+def test_q_trainer_kernels_equal_twin(cuda, mode, env_id, opts, lr):
+    env = gpt_torch.make(env_id, time_limit=25)
+    B, K = 8192, 48
+    if opts == "double":
+        run = make_fused_double_q_trainer(env, B, K, rng_tape=mode == "tape")
+    else:
+        run = make_fused_q_trainer(env, B, K, rng_tape=mode == "tape", **opts)
+    s0, qb, tape = _trainer_inputs(env, run, B, 3, mode == "tape",
+                                   double=opts == "double")
+    if mode == "philox":
+        qb = torch.zeros_like(qb)  # exact ties among actions
+    got = run(11, lr, 0.3, s0, qb, *tape)
+    want = run.twin(11, lr, 0.3, s0, qb, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert torch.count_nonzero(got[1] != qb) > 0
+
+
+def test_q_trainer_kernel_out_of_range_state_equals_twin(cuda):
+    env = gpt_torch.make("Taxi-v4", time_limit=25)
+    run = make_fused_q_trainer(env, 4096, 32, average_duplicates=True)
+    s0, qb, _ = _trainer_inputs(env, run, 4096, 4, False)
+    s0.view(-1)[torch.tensor([0, 777, 4095], device=cuda)] = torch.tensor(
+        [-1, env.tables.ns, 2**31 - 1], dtype=torch.int32, device=cuda)
+    got, want = run(6, 0.1, 0.1, s0, qb), run.twin(6, 0.1, 0.1, s0, qb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert (got[0].view(-1)[[0, 777, 4095]] == -1).all()
+
+
+@pytest.mark.parametrize("average", [False, True])
+def test_q_trainer_kernel_diverging_lr_equals_twin(cuda, average):
+    """Past the fixed point's range (|lr * td| > 2^6) an entry becomes NaN
+    in the kernel as in the twin, and the run goes on identically."""
+    env = gpt_torch.make("Taxi-v4", time_limit=25)
+    run = make_fused_q_trainer(env, 8192, 16, average_duplicates=average)
+    s0, qb, _ = _trainer_inputs(env, run, 8192, 5, False)
+    got, want = run(7, 1e3, 0.3, s0, qb), run.twin(7, 1e3, 0.3, s0, qb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got[1]).any()

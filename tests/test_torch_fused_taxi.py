@@ -54,7 +54,7 @@ TAPE_CASES = [
 @pytest.mark.parametrize("env_id,kw,rows_per_tile,opts", TAPE_CASES)
 def test_twin_with_tape_equals_jax_kernel(env_id, kw, rows_per_tile, opts):
     je = gpt.make(env_id, time_limit=25, **kw)
-    te = gpt_torch.make(env_id, time_limit=25, **kw)
+    te = gpt_torch.make(env_id, time_limit=25, **kw, device="cpu")
     if opts.get("policy"):
         opts = {"policy": _random_policy(je)}
     jrun = jax_rollout(je, B, K, rows_per_tile=rows_per_tile, interpret=True,
@@ -82,7 +82,7 @@ def test_twin_with_tape_equals_jax_kernel(env_id, kw, rows_per_tile, opts):
 
 
 def test_rejects_bad_shapes_and_arguments():
-    env = gpt_torch.make("Taxi-v4")
+    env = gpt_torch.make("Taxi-v4", device="cpu")
     with pytest.raises(ValueError):
         make_fused_taxi_rollout(env, 100, 10)  # not a multiple of 128
     with pytest.raises(ValueError):
@@ -115,7 +115,7 @@ def test_rejects_bad_shapes_and_arguments():
 def test_out_of_range_state_gives_minus_one_and_nan(policy):
     """An input state outside [0, ns) reads no table: its env comes out as
     s' = -1 with NaN sums, as in the kernel; the other envs are unaffected."""
-    env = gpt_torch.make("ExtendedTaxi-v4", time_limit=25)
+    env = gpt_torch.make("ExtendedTaxi-v4", time_limit=25, device="cpu")
     opts = {"policy": _random_policy(env)} if policy else {}
     run = make_fused_taxi_rollout(env, B, 16, episode_stats=True, **opts)
     s0 = torch.as_tensor(_start_states(env, B, 3))
@@ -189,7 +189,7 @@ def test_philox_draws_depend_on_seed_env_step_site_only():
         assert not torch.equal(x, z)
         assert x.dtype == torch.int64 and (x >= 0).all() and (x < 2**32).all()
     # the geometry (tape tile height) does not change Philox-mode rollouts
-    env = gpt_torch.make("Taxi-v4", time_limit=25)
+    env = gpt_torch.make("Taxi-v4", time_limit=25, device="cpu")
     s0 = torch.as_tensor(_start_states(env, B, 2))
     r1 = make_fused_taxi_rollout(env, B, 16, rows_per_tile=128)(5, s0)
     r2 = make_fused_taxi_rollout(env, B, 16, rows_per_tile=1)(5, s0)
@@ -197,9 +197,28 @@ def test_philox_draws_depend_on_seed_env_step_site_only():
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("n_sites", [9, 12])
+def test_philox_sites_past_eight_come_from_block_two(n_sites):
+    """Sites 0-7 draw the same words whatever ``n_sites`` is; site ``j >= 8``
+    is word ``j % 4`` of the block countered ``(e, t, 2, 0)``."""
+    t, seed = 3, 0x1234567890
+    eight, more = KernelRNG(seed, 256, 4, 8), KernelRNG(seed, 256, 4, n_sites)
+    eight.begin_step(t)
+    more.begin_step(t)
+    for _ in range(8):
+        assert torch.equal(eight.draw32(), more.draw32())
+    e = torch.arange(256, dtype=torch.int64)
+    block2 = philox4x32_10(
+        (e, torch.full_like(e, t), torch.full_like(e, 2), torch.zeros_like(e)),
+        (seed & 0xFFFFFFFF, seed >> 32))
+    for j in range(8, n_sites):
+        assert torch.equal(more.draw32(), block2[j % 4])
+    more.finalize(n_sites)
+
+
 @pytest.mark.parametrize("env_id", ["Taxi-v4", "ExtendedHansenTaxi-v4"])
 def test_philox_rollout_state_validity(env_id):
-    env = gpt_torch.make(env_id)
+    env = gpt_torch.make(env_id, device="cpu")
     run = make_fused_taxi_rollout(env, B, 64)
     _, st = env.reset_vec(torch.Generator().manual_seed(0), B)
     s2, rew = run(3, st.s.reshape(-1, 128))
@@ -211,7 +230,7 @@ def test_philox_rollout_state_validity(env_id):
 def test_policy_eval_twin_matches_step_vec_exactly():
     """Move-only greedy table, K below the time limit: no env finishes, so
     the fused twin and the step_vec rollout must agree bit for bit."""
-    env = gpt_torch.make("Taxi-v4")
+    env = gpt_torch.make("Taxi-v4", device="cpu")
     pol = (np.arange(env.tables.ns) % 4).astype(np.int32)
     run = make_fused_taxi_rollout(env, B, 32, policy=pol)
     obs, st = env.reset_vec(torch.Generator().manual_seed(2), B)
@@ -225,7 +244,7 @@ def test_policy_eval_twin_matches_step_vec_exactly():
 
 
 def test_state_policy_table_equals_jax():
-    je, te = gpt.make("HansenTaxi-v4"), gpt_torch.make("HansenTaxi-v4")
+    je, te = gpt.make("HansenTaxi-v4"), gpt_torch.make("HansenTaxi-v4", device="cpu")
     pol_obs = np.random.default_rng(0).integers(0, 5, je.observation_space.n)
     pj, pt = jnp.asarray(pol_obs, jnp.int32), torch.as_tensor(pol_obs, dtype=torch.int32)
     np.testing.assert_array_equal(

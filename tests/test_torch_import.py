@@ -29,13 +29,16 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch
     import gym_po_tpu_torch.agents
     import gym_po_tpu_torch.entry
+    import gym_po_tpu_torch.agents.qlearning
+    import gym_po_tpu_torch.parallel
     import gym_po_tpu_torch.ops
     import gym_po_tpu_torch.ops._build
     import gym_po_tpu_torch.ops.probe_fused_taxi
+    import gym_po_tpu_torch.ops.probe_fused_qlearning
     import gym_po_tpu_torch.vector
     import chip_smoke
 
-    env = gym_po_tpu_torch.make("ExtendedHansenTaxi-v4")
+    env = gym_po_tpu_torch.make("ExtendedHansenTaxi-v4", device="cpu")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """

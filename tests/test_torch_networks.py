@@ -49,7 +49,7 @@ def _close(j, t, what):
 @pytest.mark.parametrize("hidden", [(64, 64), (32,)])
 def test_discrete_actor_critic_matches_flax(hidden):
     je = gpt.make("ExtendedHansenTaxi-v4")
-    te = gpt_torch.make("ExtendedHansenTaxi-v4")
+    te = gpt_torch.make("ExtendedHansenTaxi-v4", device="cpu")
     net, params, model = _both(je.observation_space, je.action_space,
                                te.observation_space, te.action_space, hidden, 0)
     rng = np.random.default_rng(1)
@@ -89,7 +89,7 @@ def test_gaussian_actor_critic_matches_flax():
 
 
 def test_sample_action_and_init():
-    te = gpt_torch.make("HansenTaxi-v4")
+    te = gpt_torch.make("HansenTaxi-v4", device="cpu")
     torch.manual_seed(0)
     model = tnet.make_actor_critic(te, (64, 64))
     # orthogonal init with the JAX package's gains; zero biases

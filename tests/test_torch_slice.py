@@ -30,7 +30,8 @@ def _step(env, state, a, p, d0, s_new):
 
 
 def test_acting_slice_matches_jax():
-    je, te = gpt.make(ENV_ID, time_limit=5), gpt_torch.make(ENV_ID, time_limit=5)
+    je = gpt.make(ENV_ID, time_limit=5)
+    te = gpt_torch.make(ENV_ID, time_limit=5, device="cpu")
     net = jnet.make_actor_critic(je, (64, 64))
     params = net.init(jax.random.PRNGKey(0), jnp.zeros((1,), jnp.int32))
     params = jax.tree.map(np.asarray, params)
@@ -73,7 +74,7 @@ def test_acting_slice_matches_jax():
 def test_entry_forward_runs_and_is_deterministic():
     outs = []
     for _ in range(2):
-        forward, (model, gen, obs, state) = entry(num_envs=B, seed=3)
+        forward, (model, gen, obs, state) = entry(device="cpu", num_envs=B, seed=3)
         n_obs = model.obs_space.n
         for _ in range(STEPS):
             prev_obs = obs

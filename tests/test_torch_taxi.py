@@ -73,7 +73,7 @@ def test_compiled_tables_equal(map_rows):
 
 @pytest.mark.parametrize("env_id,kw", CASES)
 def test_derived_tables_equal(env_id, kw):
-    je, te = gpt.make(env_id, **kw), gpt_torch.make(env_id, **kw)
+    je, te = gpt.make(env_id, **kw), gpt_torch.make(env_id, **kw, device="cpu")
     for name in ("_cell_move", "_loc_at", "_hansen_cell", "_valid_init"):
         _eq(getattr(je, name), getattr(te, name), name)
         assert getattr(te, name).dtype == torch.int32
@@ -85,7 +85,7 @@ def test_derived_tables_equal(env_id, kw):
 
 @pytest.mark.parametrize("env_id,kw", CASES)
 def test_stages_exactly_equal(env_id, kw):
-    je, te = gpt.make(env_id, **kw), gpt_torch.make(env_id, **kw)
+    je, te = gpt.make(env_id, **kw), gpt_torch.make(env_id, **kw, device="cpu")
     rng = np.random.default_rng(0)
     B = 4096
     s, completed, elapsed = _random_states(je, rng, B)
@@ -131,7 +131,7 @@ def test_stage_composed_trajectory_extended_hansen():
     """300 steps of advance -> task reset -> full reset -> observe with the
     same numpy actions and draws: obs, reward, done and trunc equal."""
     env_id, B, T = "ExtendedHansenTaxi-v4", 256, 300
-    je, te = gpt.make(env_id), gpt_torch.make(env_id)
+    je, te = gpt.make(env_id), gpt_torch.make(env_id, device="cpu")
     nlocs, valid = je.nlocs, je.tables.valid_init
     rng = np.random.default_rng(1)
 
@@ -162,7 +162,7 @@ def test_stage_composed_trajectory_extended_hansen():
 
 
 def test_perf_mode_task_draws_uniform_over_d_ne_p():
-    env = gpt_torch.make("ExtendedTaxi-v4")
+    env = gpt_torch.make("ExtendedTaxi-v4", device="cpu")
     gen = torch.Generator().manual_seed(0)
     N = 240_000
     p, d = env.sample_passenger_destination(gen, (N,))
@@ -176,7 +176,7 @@ def test_perf_mode_task_draws_uniform_over_d_ne_p():
 
 @pytest.mark.parametrize("env_id", ["Taxi-v4", "ExtendedHansenTaxi-v4"])
 def test_perf_mode_init_uniform_over_valid_states(env_id):
-    env = gpt_torch.make(env_id)
+    env = gpt_torch.make(env_id, device="cpu")
     t = env.tables
     gen = torch.Generator().manual_seed(1)
     N = 200_000
@@ -197,7 +197,7 @@ def test_perf_mode_init_uniform_over_valid_states(env_id):
 
 
 def test_perf_mode_step_vec_keeps_states_valid():
-    env = gpt_torch.make("HansenTaxi-v4", time_limit=20)
+    env = gpt_torch.make("HansenTaxi-v4", time_limit=20, device="cpu")
     gen = torch.Generator().manual_seed(2)
     obs, st = env.reset_vec(gen, 512)
     t = env.tables
@@ -222,7 +222,7 @@ def test_environment_base_class_batched_defaults():
     used: move-only actions, far from the time limit."""
     from gym_po_tpu_torch.core import Environment
 
-    env = gpt_torch.make("ExtendedHansenTaxi-v4")
+    env = gpt_torch.make("ExtendedHansenTaxi-v4", device="cpu")
     gen = torch.Generator().manual_seed(4)
     obs, st = Environment.reset_vec(env, gen, 16)
     assert obs.shape == (16,) and st.s.shape == (16,)

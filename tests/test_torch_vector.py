@@ -32,7 +32,7 @@ def test_rollout_with_move_only_policy_equals_jax(env_id):
     """A fixed move-only policy table and K below the time limit: no env can
     finish, so the draws are all masked out and both packages' rollouts
     must agree exactly although their random streams differ."""
-    je, te = gpt.make(env_id), gpt_torch.make(env_id)
+    je, te = gpt.make(env_id), gpt_torch.make(env_id, device="cpu")
     n_obs = je.observation_space.n
     pol = (np.arange(n_obs) * 7 % 4).astype(np.int32)  # moves only
     B, K = 256, 32
@@ -56,7 +56,7 @@ def test_rollout_with_move_only_policy_equals_jax(env_id):
 
 
 def test_rollout_random_policy_shapes_and_infos():
-    env = gpt_torch.make("HansenTaxi-v4", time_limit=10)
+    env = gpt_torch.make("HansenTaxi-v4", time_limit=10, device="cpu")
     venv = VecEnv(env, 64)
     assert venv.observation_space.shape == (64,)
     assert venv.single_action_space.n == 5
@@ -75,7 +75,7 @@ def test_episode_statistics_accounting_equals_jax():
     mid-batch at different steps in different envs."""
     rng = np.random.default_rng(4)
     B, T = 64, 40
-    je, te = JRecord(gpt.make("Taxi-v4")), TRecord(gpt_torch.make("Taxi-v4"))
+    je, te = JRecord(gpt.make("Taxi-v4")), TRecord(gpt_torch.make("Taxi-v4", device="cpu"))
     z_i, z_f = np.zeros(B, np.int32), np.zeros(B, np.float32)
     jinner = JTaxiState(elapsed=jnp.asarray(z_i), s=jnp.asarray(z_i),
                         completed=jnp.asarray(z_i))
@@ -115,7 +115,7 @@ def test_episode_statistics_accounting_equals_jax():
 
 
 def test_episode_statistics_wrapper_step_vec():
-    env = TRecord(gpt_torch.make("Taxi-v4", time_limit=5))
+    env = TRecord(gpt_torch.make("Taxi-v4", time_limit=5, device="cpu"))
     gen = torch.Generator().manual_seed(0)
     obs, st = env.reset_vec(gen, 32)
     for _ in range(6):
