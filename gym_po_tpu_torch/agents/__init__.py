@@ -8,6 +8,7 @@ from .networks import (
 )
 from .qlearning import (
     QConfig,
+    fused_actor_critic,
     fused_q_learning,
     greedy_policy,
     q_learning,
@@ -26,4 +27,5 @@ __all__ = [
     "td_update",
     "greedy_policy",
     "fused_q_learning",
+    "fused_actor_critic",
 ]

@@ -11,15 +11,19 @@ Two learners over the same table:
   (``info["terminal_state"]``); ``done`` cuts the bootstrap, truncation
   does not.
 * :func:`fused_q_learning` runs the whole trainer inside the hand-written
-  CUDA kernel of :mod:`gym_po_tpu_torch.ops.fused_qlearning`, chunk by
-  chunk, over an lr/epsilon schedule.
+  CUDA kernel of :mod:`gym_po_tpu_torch.ops.fused_qlearning` (Taxi and
+  ROOMS; Q(λ) on ROOMS through :mod:`~gym_po_tpu_torch.ops.fused_qlambda`),
+  chunk by chunk, over an lr/epsilon schedule.
 
-Both run on the env's device.  Not ported yet: ``fused_actor_critic``
-(ROADMAP Queue 2 kernel 13), the Rooms, MultistoryFourRooms and CRooms
-branches of ``fused_q_learning`` (Queue 1 items 8 and 9), its ``mesh``
-(item 11), and ``make_xla_q_chunk_trainer`` with ``chunk_trainer="xla"``,
-the JAX package's stand-in for its kernel on its multi-device CPU test mesh
-(item 11).
+:func:`fused_actor_critic` trains a tabular softmax actor-critic on ROOMS
+inside the kernel of :mod:`gym_po_tpu_torch.ops.fused_ac` the same way.
+
+All run on the env's device.  Not ported yet: the MultistoryFourRooms and
+CRooms branches of ``fused_q_learning`` (ROADMAP Queue 1 items 8 and 9),
+the ``mesh`` of both fused trainers (item 11), and
+``make_xla_q_chunk_trainer`` with ``chunk_trainer="xla"``, the JAX
+package's stand-in for its kernel on its multi-device CPU test mesh (item
+11).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 from ..core import Discrete
 
 __all__ = ["QConfig", "q_learning", "td_update", "greedy_policy",
-           "fused_q_learning"]
+           "fused_q_learning", "fused_actor_critic"]
 
 
 class QConfig(NamedTuple):
@@ -115,64 +119,139 @@ def greedy_policy(q):
     return policy
 
 
+def _flat_agents(env, st) -> torch.Tensor:
+    """The flat-cell agent tile ``[B // 128, 128]`` of a Rooms state."""
+    a = st.agent_yx.to(torch.int32)
+    return (a[:, 0] * env.grid_np.shape[1] + a[:, 1]).reshape(-1, 128).contiguous()
+
+
+def _chunks(seed: int, schedule, chunk_steps: int):
+    """``(chunk seed, step sizes)`` per chunk: each schedule phase runs
+    ``ceil(num_steps / chunk_steps)`` chunks, chunk ``i`` (from 1) seeded
+    ``seed + i``."""
+    from ..parallel import chunk_seeds
+
+    i = 0
+    for *sizes, steps in schedule:
+        for _ in range(-(-int(steps) // chunk_steps)):
+            i += 1
+            yield int(chunk_seeds(seed, i, 1)[0]), [float(x) for x in sizes]
+
+
 def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
                      gamma: float = 0.99, chunk_steps: int = 4096,
                      q_init=None, average_duplicates: bool = True,
                      expected_sarsa: bool = False, lam: float = 0.0,
                      trace_len: int = 8, watkins_cut: bool = True, mesh=None):
-    """Tabular Q-learning inside the fused CUDA trainer kernel, on Taxi.
+    """Tabular Q-learning inside the fused CUDA trainer kernel, on Taxi or
+    ROOMS (with a fixed goal).
 
     ``schedule`` is ``[(lr, epsilon, num_steps), ...]``; each phase runs
     ``ceil(num_steps / chunk_steps)`` chunks of ``chunk_steps`` steps, and
     chunk ``i`` (from 1) draws with seed ``seed + i``.  Returns
-    ``(q [n_obs, 5] float32 numpy, history)`` with one mean reward per step
-    for each chunk.  Options are those of
-    :func:`~gym_po_tpu_torch.ops.fused_qlearning.make_fused_q_trainer`.  As
-    in the JAX package, ``completed``, ``elapsed`` and the trace restart at
-    every chunk.
+    ``(q [n_obs, n_act] float32 numpy, history)`` with one mean reward per
+    step for each chunk.  Options are those of
+    :func:`~gym_po_tpu_torch.ops.fused_qlearning.make_fused_q_trainer`;
+    ``expected_sarsa`` is Taxi's alone, and ``lam > 0`` on ROOMS runs
+    :func:`~gym_po_tpu_torch.ops.fused_qlambda.make_fused_qlambda_trainer_rooms`.
+    As in the JAX package, ``completed``, ``elapsed`` and the trace restart
+    at every chunk.
     """
+    from ..envs.rooms import Rooms
     from ..envs.taxi import Taxi
-    from ..ops.fused_qlearning import (
-        bank_geometry,
-        banks_to_q,
+    from ..ops import (
         make_fused_q_trainer,
-        q_to_banks,
+        make_fused_q_trainer_rooms,
+        make_fused_qlambda_trainer_rooms,
     )
-    from ..parallel import chunk_seeds
+    from ..ops.fused_qlearning import bank_geometry, banks_to_q, q_to_banks
 
     if mesh is not None:
         raise ValueError("multi-device fused training is not ported yet "
                          "(ROADMAP Queue 1 item 11)")
-    if not isinstance(env, Taxi):
+    if not isinstance(env, (Taxi, Rooms)):
         raise ValueError(
-            f"no fused Q trainer for {type(env).__name__} in the port: only "
-            "Taxi is ported (Rooms and MultistoryFourRooms come with ROADMAP "
+            f"no fused Q trainer for {type(env).__name__} in the port: Taxi "
+            "and Rooms are ported (MultistoryFourRooms comes with ROADMAP "
             "Queue 1 item 8, CRooms with item 9)")
+    if expected_sarsa and not isinstance(env, Taxi):
+        raise ValueError("expected_sarsa is Taxi-only")
     dev = env.device
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed),
                           num_envs)
-    run = make_fused_q_trainer(
-        env, num_envs, chunk_steps, gamma,
-        average_duplicates=average_duplicates, expected_sarsa=expected_sarsa,
-        lam=lam, trace_len=trace_len, watkins_cut=watkins_cut,
-    )
+    if isinstance(env, Taxi):
+        run = make_fused_q_trainer(
+            env, num_envs, chunk_steps, gamma,
+            average_duplicates=average_duplicates,
+            expected_sarsa=expected_sarsa, lam=lam, trace_len=trace_len,
+            watkins_cut=watkins_cut,
+        )
+        s = st.s.reshape(-1, 128).contiguous()
+    else:
+        if lam > 0.0:
+            run = make_fused_qlambda_trainer_rooms(
+                env, num_envs, chunk_steps, gamma, lam=lam,
+                trace_len=trace_len, watkins_cut=watkins_cut,
+                average_duplicates=average_duplicates)
+        else:
+            run = make_fused_q_trainer_rooms(
+                env, num_envs, chunk_steps, gamma,
+                average_duplicates=average_duplicates)
+        s = _flat_agents(env, st)
     n_obs = int(env.observation_space.n)
-    nsb, _ = bank_geometry(n_obs, 5)
+    n_act = int(env.action_space.n)
+    nsb, _ = bank_geometry(n_obs, n_act)
     nsp = nsb * 128
-    q0 = np.zeros((nsp, 5), np.float32)
+    q0 = np.zeros((nsp, n_act), np.float32)
     if q_init is not None:
         q_init = torch.as_tensor(q_init, dtype=torch.float32).cpu().numpy()
         q0[: q_init.shape[0]] = q_init
     qb = torch.as_tensor(q_to_banks(q0, nsb), device=dev)
-    s = st.s.reshape(-1, 128).contiguous()
     history = []
-    i = 0
-    for lr, eps, steps in schedule:
-        for _ in range(-(-int(steps) // chunk_steps)):
-            i += 1
-            s, qb, rew = run(int(chunk_seeds(seed, i, 1)[0]), float(lr),
-                             float(eps), s, qb)
-            history.append(rew.mean())  # read once at the end
+    for chunk_seed, (lr, eps) in _chunks(seed, schedule, chunk_steps):
+        s, qb, rew = run(chunk_seed, lr, eps, s, qb)
+        history.append(rew.mean())  # read once at the end
     history = [h / chunk_steps for h in torch.stack(history).tolist()] \
         if history else []
-    return banks_to_q(qb.cpu().numpy(), nsp, na=5, nsb=nsb)[:n_obs], history
+    return banks_to_q(qb.cpu().numpy(), nsp, na=n_act, nsb=nsb)[:n_obs], history
+
+
+def fused_actor_critic(env, seed: int, schedule, num_envs: int = 8192,
+                       gamma: float = 0.99, chunk_steps: int = 4096,
+                       mesh=None):
+    """Softmax actor-critic inside the fused CUDA kernel, on ROOMS.
+
+    ``schedule`` is ``[(alpha_pi, alpha_v, num_steps), ...]``, chunked and
+    seeded as in :func:`fused_q_learning`; returns ``(logits [n_obs, A],
+    v [n_obs], history)`` as float32 numpy, with one mean reward per step
+    for each chunk.  See
+    :func:`~gym_po_tpu_torch.ops.fused_ac.make_fused_ac_trainer_rooms`.
+    """
+    from ..envs.rooms import Rooms
+    from ..ops import make_fused_ac_trainer_rooms
+    from ..ops.fused_qlearning import banks_to_q, q_to_banks
+
+    if mesh is not None:
+        raise ValueError("multi-device fused training is not ported yet "
+                         "(ROADMAP Queue 1 item 11)")
+    if not isinstance(env, Rooms):
+        raise ValueError(f"no fused AC trainer for {type(env).__name__}: "
+                         "Rooms only")
+    dev = env.device
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed),
+                          num_envs)
+    agent = _flat_agents(env, st)
+    A = int(env.num_actions)
+    n_obs = int(env.observation_space.n)
+    run = make_fused_ac_trainer_rooms(env, num_envs, chunk_steps, gamma)
+    th = torch.as_tensor(q_to_banks(np.zeros((512, A), np.float32)), device=dev)
+    v = torch.as_tensor(q_to_banks(np.zeros((512, 1), np.float32)), device=dev)
+    history = []
+    for chunk_seed, (api, apv) in _chunks(seed, schedule, chunk_steps):
+        th, v, agent, rew = run(chunk_seed, api, apv, th, v, agent)
+        history.append(rew.mean())
+    history = [h / chunk_steps for h in torch.stack(history).tolist()] \
+        if history else []
+    return (banks_to_q(th.cpu().numpy(), 512, na=A)[:n_obs],
+            banks_to_q(v.cpu().numpy(), 512, na=1)[:n_obs, 0],
+            history)

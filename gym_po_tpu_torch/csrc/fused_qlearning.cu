@@ -1,31 +1,40 @@
-// Fused tabular Q-learning on Taxi for Hopper (sm_90a): the whole trainer,
-// K steps of acting, stepping and updating, in one launch.
+// Fused tabular Q-learning for Hopper (sm_90a): the whole trainer, K steps
+// of acting, stepping and updating, in one launch.
 //
-// Replaces two TPU kernels:
+// Replaces four TPU kernels:
 //  * gym_po_tpu/ops/fused_qlearning.py::make_fused_q_trainer: epsilon-greedy
-//    Q-learning on the classic and extended maps, Q indexed by state or by
-//    Hansen obs, optional Expected-SARSA target, optional Watkins/Peng Q(lambda)
-//    over a ring of the last L table addresses (entry point fused_q_launch);
+//    Q-learning on Taxi's classic and extended maps, Q indexed by state or
+//    by Hansen obs, optional Expected-SARSA target, optional Watkins/Peng
+//    Q(lambda) over a ring of the last L table addresses (entry point
+//    fused_q_launch);
 //  * gym_po_tpu/ops/fused_double_q.py::make_fused_double_q_trainer: double
 //    Q-learning on the classic map, a per-env coin picking which of two
-//    stacked tables is updated (entry point fused_double_q_launch).
-// Both are one templated kernel.  The plain PyTorch twins are
-// gym_po_tpu_torch/ops/fused_qlearning.py and ops/fused_double_q.py.
+//    stacked tables is updated (entry point fused_double_q_launch);
+//  * gym_po_tpu/ops/fused_qlearning.py::make_fused_q_trainer_rooms and
+//    gym_po_tpu/ops/fused_qlambda.py::make_fused_qlambda_trainer_rooms:
+//    one-step Q and Watkins/Peng Q(lambda) on ROOMS with a fixed goal, Q
+//    indexed through a per-cell observation table, the update on the
+//    commanded action (entry point fused_q_rooms_launch; lambda = 0 is the
+//    one-step trainer, bit for bit).
+// All are one kernel templated over the env (its step, its observation
+// index and its action count).  The plain PyTorch twins are
+// gym_po_tpu_torch/ops/fused_qlearning.py, ops/fused_double_q.py and
+// ops/fused_qlambda.py.
 //
 // What bounds it on this card: the step-to-step dependence, not bytes or
 // arithmetic.  Every step reads the Q table that all B envs updated in the
 // step before, so the TPU kernel is one program over the whole batch (grid
 // of 1).  Here it is one persistent cooperative launch: grid.sync() twice
 // per step (after the accumulation, after the apply), each a grid-wide
-// barrier, plus B integer atomics per step into a table of at most 7,168
-// entries.  On an H100 at B = 65,536 a step takes about 12 us: half of it
-// the two barriers, a third the atomics (probe_fused_qlearning.py, figures
-// in PERF.md); the per-env work (two Philox blocks, a few div/mod, ten
-// shared-memory lookups) is small beside that.  The bytes are tiny: 4 B of
-// state in and out per env per call, and the 28 KB table.  The other way to
-// order the steps, one launch per step, measured about 4x more per step
-// through the Python wrapper; that figure includes the wrapper's host work
-// per launch, which a CUDA graph would not pay, so it is an upper figure.
+// barrier, plus B integer atomics per step (L B with a trace) into a table
+// of at most 7,168 entries.  On an H100 at B = 65,536 a Taxi step takes
+// about 12 us: half of it the two barriers, a third the atomics
+// (probe_fused_qlearning.py, figures in PERF.md); the per-env work (two
+// Philox blocks, a few div/mod, a dozen shared-memory lookups) is small
+// beside that.  The bytes are tiny: 4 B of state in and out per env per
+// call, and the table of at most 28 KB.  The other way to order the steps,
+// one launch per step, measured 1.7x slower per step replayed from a CUDA
+// graph.
 //
 // Design:
 //  * The grid is sized from the occupancy API to what is co-resident, and
@@ -33,36 +42,32 @@
 //    state, counters, trace age and reward sum stay in thread-local arrays.
 //    The trace ring (L table addresses per env) is a [L, B] scratch buffer.
 //  * Each block keeps a copy of the flat Q table in shared memory for the
-//    lookups; the TPU's [nb, 128] lane banks and its MXU mask scatter are
-//    not carried over: entry (obs, a) sits at flat index a*nsp + obs.
-//  * Order-independent sums: each lr*td (times (gamma*lambda)^k on the trace)
-//    is added as an int64 fixed point at scale 2^32 (round half to even),
-//    and duplicate counts as int32, so the result does not depend on the
-//    order of the atomics and equals the twin's index_add_ bit for bit.
-//    Tabular Q from zeros is full of exact ties among actions, and a
-//    one-ulp difference would flip an argmax.  The apply converts once:
-//    (float)(sum * 2^-32), then divides by max(count, 1) in f32.  A term
-//    with |w| > 2^6 (or NaN) is past the fixed point's range: it flags its
-//    entry, which becomes NaN, so a diverging run goes non-finite as an f32
-//    sum would, and the twin does the same.
-//  * The Taxi step (transition, task reset, full reset, and their draws)
-//    is taxi_step.cuh, shared with fused_taxi.cu.
+//    lookups, beside the env's tables.  Entry (obs, a) sits at flat index
+//    a*nsp + obs; the TPU's [nb, 128] lane banks and MXU mask scatter are
+//    not carried over.
+//  * The update sums are the int64 fixed point of tabular.cuh.  Tabular Q
+//    from zeros is full of exact ties among actions, and a one-ulp
+//    difference would flip an argmax.
+//  * The env steps are taxi_step.cuh and rooms_step.cuh, shared with the
+//    rollouts.
 //  * Float arithmetic that the twin rounds per operation (the TD target, the
-//    Expected-SARSA blend) uses __fmul_rn/__fadd_rn/__fsub_rn, which nvcc
-//    never contracts into an FMA.
+//    Expected-SARSA blend, the trace weights) uses __fmul_rn/__fadd_rn/
+//    __fsub_rn, which nvcc never contracts into an FMA.
 //
 // Draw sites per step, in body order, every step whatever the masks say:
-// explore r24, random action rbits(5), [double Q: table coin rbits(2)],
-// task pn, task d0, full-reset cell (rbits(rows) then rbits(cols) when every
-// cell is valid, else one rbits(n_valid)), reset pr, reset dr0.
+// explore r24, random action rbits(A), [double Q: table coin rbits(2)],
+// then the env's: Taxi's task pn, task d0, full-reset cell (rbits(rows) then
+// rbits(cols) when every cell is valid, else one rbits(n_valid)), reset pr,
+// reset dr0; ROOMS' failure coin r24() < int(p * 2^24), alternative action
+// rbits(A - 1), agent respawn (random agent only).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "kernel_rng.cuh"
+#include "rooms_step.cuh"
+#include "tabular.cuh"
 #include "taxi_step.cuh"
 
 namespace cg = cooperative_groups;
@@ -71,7 +76,8 @@ constexpr int kMaxTrace = 64;
 
 // Mirrored field for field by _QParams in ops/fused_qlearning.py.  Outside
 // the anonymous namespace: the extern "C" entry points take it, and a type
-// with internal linkage would give them internal linkage too.
+// with internal linkage would give them internal linkage too.  ROOMS reads
+// rows x cols cells, r_goal, r_bad (a wall bump) and r_any (any other step).
 struct QParams {
   int32_t num_envs, num_steps, rows_per_tile, n_sites;
   int32_t nlocs, rows, cols, n_valid, all_valid, hansen;
@@ -82,113 +88,168 @@ struct QParams {
   uint32_t key0, key1;
   float r_goal, r_bad, r_any, gamma, lr, eps;
   float coefs[kMaxTrace];  // (gamma*lambda)^k in f32, k < trace_len
+  // ROOMS: actions, fixed goal and agent (flat cells; -1: drawn), and the
+  // failure threshold int(p * 2^24)
+  int32_t n_act, goal, fixed_agent, pfail24;
 };
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxEnvsPerThread = 8;
-constexpr double kFix = 4294967296.0;                // 2^32
-constexpr double kUnfix = 2.3283064365386963e-10;    // 2^-32
-// |w| <= 2^6 per term and at most 2^24 terms an entry per step (the wrapper
-// checks B * L) keep the int64 sum below 2^62; counts stay below 2^24
-constexpr float kMaxTerm = 64.0f;
-constexpr int kOverflow = 1 << 30;
+// What the trainer needs of one env step.
+struct QStep {
+  int s_td;    // the state the TD target bootstraps from (before a reset)
+  int s_next;  // the next state, after a reset
+  float rew;
+  bool done;   // cuts the bootstrap
+  bool reset;  // the episode ended: the trace dies
+};
 
-__device__ __forceinline__ float pick5(const float v[5], int a) {
-  return a == 0 ? v[0] : a == 1 ? v[1] : a == 2 ? v[2] : a == 3 ? v[3] : v[4];
-}
-
-// first maximum (strict >), as _first_argmax in the JAX kernel
-__device__ __forceinline__ int first_argmax(const float v[5], float& best) {
-  int best_a = 0;
-  best = v[0];
-#pragma unroll
-  for (int a = 1; a < 5; ++a)
-    if (v[a] > best) {
-      best = v[a];
-      best_a = a;
-    }
-  return best_a;
-}
-
-__device__ __forceinline__ void lookup(const float* q, int idx, int nsp,
-                                       float v[5]) {
-#pragma unroll
-  for (int a = 0; a < 5; ++a) v[a] = q[a * nsp + idx];
-}
-
-// cnt[addr] counts the terms (when averaging) and flags a term out of the
-// fixed point's range with kOverflow; such an entry becomes NaN at the apply
-__device__ __forceinline__ void accumulate(long long* acc, int* cnt, int addr,
-                                           float w, bool average) {
-  if (!(fabsf(w) <= kMaxTerm)) {  // also NaN
-    atomicOr(cnt + addr, kOverflow);
-    return;
+// Taxi: tab = cell_move [nc*4], loc_at [nc], hansen_cell [nc], valid cells.
+struct TaxiQ {
+  static constexpr int kA = 5;
+  static size_t smem_tables(const QParams& P) {
+    return sizeof(int32_t) * (P.rows * P.cols * 6 + P.n_valid);
   }
-  const long long fx = __double2ll_rn((double)w * kFix);
-  atomicAdd(reinterpret_cast<unsigned long long*>(acc + addr),
-            static_cast<unsigned long long>(fx));
-  if (average) atomicAdd(cnt + addr, 1);
-}
+  gpt::TaxiMap M;
+  const int32_t *cm, *la, *hc, *vc;
+  int pd, nlocs, ns;
+  bool hansen;
 
-template <int NBLK, bool kDouble>
-__global__ void __launch_bounds__(kThreads)
+  __device__ TaxiQ(const QParams& P, int32_t* smem, const void* const* tab)
+      : M{P.nlocs, P.rows, P.cols, P.n_valid, P.all_valid, P.n_pass,
+          P.time_limit, P.r_goal, P.r_bad, P.r_any} {
+    const int nc = P.rows * P.cols;
+    int32_t* s_cm = smem;
+    int32_t* s_la = s_cm + nc * 4;
+    int32_t* s_hc = s_la + nc;
+    int32_t* s_vc = s_hc + nc;
+    const int32_t* t0 = static_cast<const int32_t*>(tab[0]);
+    const int32_t* t1 = static_cast<const int32_t*>(tab[1]);
+    const int32_t* t2 = static_cast<const int32_t*>(tab[2]);
+    const int32_t* t3 = static_cast<const int32_t*>(tab[3]);
+    for (int i = threadIdx.x; i < nc * 4; i += blockDim.x) s_cm[i] = t0[i];
+    for (int i = threadIdx.x; i < nc; i += blockDim.x) {
+      s_la[i] = t1[i];
+      s_hc[i] = t2[i];
+    }
+    for (int i = threadIdx.x; i < P.n_valid; i += blockDim.x) s_vc[i] = t3[i];
+    cm = s_cm;
+    la = s_la;
+    hc = s_hc;
+    vc = s_vc;
+    nlocs = P.nlocs;
+    pd = (nlocs + 1) * nlocs;
+    ns = nc * pd;
+    hansen = P.hansen != 0;
+  }
+  __device__ bool in_range(int s) const { return (unsigned)s < (unsigned)ns; }
+  __device__ int obs(int s) const {
+    if (!hansen) return s;
+    const int rc = s / pd, rem = s - (s / pd) * pd;
+    return (hc[rc] * (nlocs + 1) + rem / nlocs) * nlocs + rem % nlocs;
+  }
+  template <class RNG>
+  __device__ QStep step(const RNG& rng, int j, int s, int a, int& completed,
+                        int& elapsed) const {
+    const gpt::TaxiStep st =
+        gpt::taxi_step(M, cm, la, vc, rng, j, s, a, completed, elapsed);
+    return {st.s_mid, st.s_next, st.rew, st.done, st.reset};
+  }
+};
+
+// ROOMS, A actions: tab = wall bytes [ncells], valid cells, flat
+// displacements [A], observation index per cell [ncells].
+template <int A>
+struct RoomsQ {
+  static constexpr int kA = A;
+  static size_t smem_tables(const QParams& P) {
+    const int nc = P.rows * P.cols;
+    return sizeof(int32_t) * (nc + P.n_valid + A) + ((nc + 3) / 4) * 4;
+  }
+  gpt::RoomsMap M;
+  const int32_t *obs_t, *valid, *disp;
+  const uint8_t* wall;
+  int goal, fixed_agent, pfail24;
+
+  __device__ RoomsQ(const QParams& P, int32_t* smem, const void* const* tab)
+      : M{P.rows * P.cols, P.n_valid, P.time_limit, P.r_any, P.r_bad,
+          P.r_goal},
+        goal(P.goal), fixed_agent(P.fixed_agent), pfail24(P.pfail24) {
+    const int nc = M.ncells;
+    int32_t* s_obs = smem;
+    int32_t* s_valid = s_obs + nc;
+    int32_t* s_disp = s_valid + P.n_valid;
+    uint8_t* s_wall = reinterpret_cast<uint8_t*>(s_disp + A);
+    const uint8_t* t0 = static_cast<const uint8_t*>(tab[0]);
+    const int32_t* t1 = static_cast<const int32_t*>(tab[1]);
+    const int32_t* t2 = static_cast<const int32_t*>(tab[2]);
+    const int32_t* t3 = static_cast<const int32_t*>(tab[3]);
+    for (int i = threadIdx.x; i < nc; i += blockDim.x) {
+      s_wall[i] = t0[i];
+      s_obs[i] = t3[i];
+    }
+    for (int i = threadIdx.x; i < P.n_valid; i += blockDim.x) s_valid[i] = t1[i];
+    for (int i = threadIdx.x; i < A; i += blockDim.x) s_disp[i] = t2[i];
+    obs_t = s_obs;
+    valid = s_valid;
+    disp = s_disp;
+    wall = s_wall;
+  }
+  __device__ bool in_range(int s) const {
+    return (unsigned)s < (unsigned)M.ncells;
+  }
+  __device__ int obs(int s) const { return obs_t[s]; }
+  template <class RNG>
+  __device__ QStep step(const RNG& rng, int j, int s, int a, int& /*completed*/,
+                        int& elapsed) const {
+    const bool fail = gpt::r24(rng.draw(j)) < pfail24;
+    const int alt = gpt::rbits(rng.draw(j + 1), A - 1);
+    const gpt::RoomsMove mv = gpt::rooms_move(
+        M, wall, disp, s, goal, gpt::rooms_executed(fail, alt, a), elapsed);
+    const int spawn = fixed_agent >= 0
+                          ? fixed_agent
+                          : gpt::rooms_spawn(valid, M.n_valid, rng.draw(j + 2));
+    return {mv.agent, mv.reset ? spawn : mv.agent, mv.rew, mv.done, mv.reset};
+  }
+};
+
+template <int NBLK, bool kDouble, class Env>
+__global__ void __launch_bounds__(gpt::kTrainerThreads)
 fused_q_kernel(QParams P, int envs_per_thread,
                const int32_t* __restrict__ s_in, int32_t* __restrict__ s_out,
                float* __restrict__ rew_out, const float* __restrict__ q_in,
                float* q_out, long long* acc, int* cnt, int* ring,
-               const int32_t* __restrict__ cell_move,
-               const int32_t* __restrict__ loc_at,
-               const int32_t* __restrict__ hansen_cell,
-               const int32_t* __restrict__ valid_cells,
-               const int32_t* __restrict__ tape) {
+               const void* tab0, const void* tab1, const void* tab2,
+               const void* tab3, const int32_t* __restrict__ tape) {
+  constexpr int kA = Env::kA;
   cg::grid_group grid = cg::this_grid();
-  const int nc = P.rows * P.cols;
   extern __shared__ float smem[];
   float* s_q = smem;
-  int32_t* s_cm = reinterpret_cast<int32_t*>(s_q + P.nq);
-  int32_t* s_la = s_cm + nc * 4;
-  int32_t* s_hc = s_la + nc;
-  int32_t* s_vc = s_hc + nc;
   for (int i = threadIdx.x; i < P.nq; i += blockDim.x) s_q[i] = q_in[i];
-  for (int i = threadIdx.x; i < nc * 4; i += blockDim.x) s_cm[i] = cell_move[i];
-  for (int i = threadIdx.x; i < nc; i += blockDim.x) {
-    s_la[i] = loc_at[i];
-    s_hc[i] = hansen_cell[i];
-  }
-  for (int i = threadIdx.x; i < P.n_valid; i += blockDim.x) s_vc[i] = valid_cells[i];
+  const void* const tab[4] = {tab0, tab1, tab2, tab3};
+  const Env env(P, reinterpret_cast<int32_t*>(s_q + P.nq), tab);
   __syncthreads();
 
   const int B = P.num_envs;
   const int nthreads = gridDim.x * blockDim.x;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nlocs = P.nlocs, nsp = P.nsp;
-  const int pd = (nlocs + 1) * nlocs;
-  const gpt::TaxiMap M = {nlocs, P.rows, P.cols, P.n_valid, P.all_valid,
-                          P.n_pass, P.time_limit, P.r_goal, P.r_bad, P.r_any};
+  const int nsp = P.nsp;
   const int L = P.trace_len;
   const bool trace = !kDouble && L > 1;
   const bool average = P.average != 0;
   const int eps24 = __float2int_rz(__fmul_rn(P.eps, 16777216.0f));
   const int nq1 = P.nq / 2;  // double Q: table B starts here
 
-  auto obs_of = [&](int s) {
-    if (kDouble || !P.hansen) return s;  // double Q indexes by state
-    const int rc = s / pd, rem = s - (s / pd) * pd;
-    return (s_hc[rc] * (nlocs + 1) + rem / nlocs) * nlocs + rem % nlocs;
-  };
-
-  // per-env state; an env whose input state lies outside [0, ns) is
-  // inactive: it draws nothing that matters, updates nothing, and comes out
-  // as s' = -1 with a NaN reward sum, as in the twin
-  int s_l[kMaxEnvsPerThread], comp_l[kMaxEnvsPerThread];
-  int el_l[kMaxEnvsPerThread], age_l[kMaxEnvsPerThread];
-  float racc_l[kMaxEnvsPerThread];
+  // per-env state; an env whose input state is out of range is inactive:
+  // it draws nothing that matters, updates nothing, and comes out as
+  // s' = -1 with a NaN reward sum, as in the twin
+  int s_l[gpt::kMaxEnvsPerThread], comp_l[gpt::kMaxEnvsPerThread];
+  int el_l[gpt::kMaxEnvsPerThread], age_l[gpt::kMaxEnvsPerThread];
+  float racc_l[gpt::kMaxEnvsPerThread];
   for (int i = 0; i < envs_per_thread; ++i) {
     const long long e = gtid + (long long)i * nthreads;
     const int s = e < B ? s_in[e] : -1;
-    s_l[i] = (unsigned)s < (unsigned)(nc * pd) ? s : -1;
+    s_l[i] = env.in_range(s) ? s : -1;
     comp_l[i] = el_l[i] = age_l[i] = 0;
     racc_l[i] = 0.f;
   }
@@ -203,54 +264,54 @@ fused_q_kernel(QParams P, int envs_per_thread,
       const int s = s_l[i];
       int j = 0;
       // --- act ---
-      const int qidx = obs_of(s);
-      float va[5], vb[5];
-      lookup(s_q, qidx, nsp, va);
+      const int qidx = kDouble ? s : env.obs(s);  // double Q: by state
+      float va[kA], vb[kA];
+      gpt::lookup<kA>(s_q, qidx, nsp, va);
       float best_v;
       int greedy;
       if (kDouble) {
-        lookup(s_q + nq1, qidx, nsp, vb);
-        float vs[5];
+        gpt::lookup<kA>(s_q + nq1, qidx, nsp, vb);
+        float vs[kA];
 #pragma unroll
-        for (int a = 0; a < 5; ++a) vs[a] = __fadd_rn(va[a], vb[a]);
-        greedy = first_argmax(vs, best_v);
+        for (int a = 0; a < kA; ++a) vs[a] = __fadd_rn(va[a], vb[a]);
+        greedy = gpt::first_argmax<kA>(vs, best_v);
       } else {
-        greedy = first_argmax(va, best_v);
+        greedy = gpt::first_argmax<kA>(va, best_v);
       }
       const bool explore = gpt::r24(rng.draw(j++)) < eps24;
-      const int ra = gpt::rbits(rng.draw(j++), 5);
+      const int ra = gpt::rbits(rng.draw(j++), kA);
       const int a = explore ? ra : greedy;
       const int coin = kDouble ? gpt::rbits(rng.draw(j++), 2) : 0;
-      const float q_taken = (kDouble && coin) ? pick5(vb, a) : pick5(va, a);
+      const float q_taken =
+          (kDouble && coin) ? gpt::pick<kA>(vb, a) : gpt::pick<kA>(va, a);
       int age = age_l[i];
       // Watkins cut before the update (argmax ties count as greedy)
       if (trace && P.watkins_cut && q_taken < best_v) age = 0;
 
-      // --- taxi step: transition, task reset, full reset ---
+      // --- env step ---
       int completed = comp_l[i], elapsed = el_l[i];
-      const gpt::TaxiStep st = gpt::taxi_step(M, s_cm, s_la, s_vc, rng, j, s,
-                                              a, completed, elapsed);
+      const QStep st = env.step(rng, j, s, a, completed, elapsed);
 
-      // --- TD target from the state before the full reset ---
-      const int qidx2 = obs_of(st.s_mid);
-      float va2[5];
-      lookup(s_q, qidx2, nsp, va2);
+      // --- TD target from the state before the reset ---
+      const int qidx2 = kDouble ? st.s_td : env.obs(st.s_td);
+      float va2[kA];
+      gpt::lookup<kA>(s_q, qidx2, nsp, va2);
       float next_v;
       if (kDouble) {
         // select with the updating table, evaluate with the other one
-        float vb2[5], mx;
-        lookup(s_q + nq1, qidx2, nsp, vb2);
-        const int sel_a = first_argmax(va2, mx);
-        const int sel_b = first_argmax(vb2, mx);
-        next_v = coin == 0 ? pick5(vb2, sel_a) : pick5(va2, sel_b);
+        float vb2[kA], mx;
+        gpt::lookup<kA>(s_q + nq1, qidx2, nsp, vb2);
+        const int sel_a = gpt::first_argmax<kA>(va2, mx);
+        const int sel_b = gpt::first_argmax<kA>(vb2, mx);
+        next_v = coin == 0 ? gpt::pick<kA>(vb2, sel_a) : gpt::pick<kA>(va2, sel_b);
       } else {
         float next_max;
-        first_argmax(va2, next_max);
+        gpt::first_argmax<kA>(va2, next_max);
         next_v = next_max;
-        if (P.expected_sarsa) {
+        if (P.expected_sarsa) {  // Taxi only: 0.2 = 1/5 actions
           float sum = va2[0];
 #pragma unroll
-          for (int k = 1; k < 5; ++k) sum = __fadd_rn(sum, va2[k]);
+          for (int k = 1; k < kA; ++k) sum = __fadd_rn(sum, va2[k]);
           next_v = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, P.eps), next_max),
                              __fmul_rn(__fmul_rn(P.eps, 0.2f), sum));
         }
@@ -264,13 +325,13 @@ fused_q_kernel(QParams P, int envs_per_thread,
         age = min(age + 1, L);
         for (int k = 0; k < age; ++k) {
           const int slot = (t - k + L) % L;
-          accumulate(acc, cnt, ring[(long long)slot * B + e],
-                     __fmul_rn(P.coefs[k], wd), average);
+          gpt::accumulate(acc, cnt, ring[(long long)slot * B + e],
+                          __fmul_rn(P.coefs[k], wd), average);
         }
       } else {
-        accumulate(acc, cnt, addr, wd, average);
+        gpt::accumulate(acc, cnt, addr, wd, average);
       }
-      if (st.reset) age = 0;  // the trace dies at full resets, not task ones
+      if (st.reset) age = 0;  // the trace dies at resets, not Taxi's task ones
       s_l[i] = st.s_next;
       comp_l[i] = completed;
       el_l[i] = elapsed;
@@ -281,11 +342,8 @@ fused_q_kernel(QParams P, int envs_per_thread,
     // --- apply this step's update once every env has added to it ---
     grid.sync();
     for (int i = gtid; i < P.nq; i += nthreads) {
-      const int c = __ldcg(cnt + i);
-      float dq = __double2float_rn(__ll2double_rn(__ldcg(acc + i)) * kUnfix);
-      if (average) dq = __fdiv_rn(dq, (float)max(c & ~kOverflow, 1));
-      if (c & kOverflow) dq = __int_as_float(0x7fc00000);  // NaN
-      q_out[i] = __fadd_rn(s_q[i], dq);
+      q_out[i] = __fadd_rn(s_q[i],
+                           gpt::fix_delta(__ldcg(acc + i), __ldcg(cnt + i), average));
       acc[i] = 0;
       cnt[i] = 0;
     }
@@ -304,46 +362,26 @@ fused_q_kernel(QParams P, int envs_per_thread,
   }
 }
 
-template <int NBLK, bool kDouble>
+template <int NBLK, bool kDouble, class Env>
 int launch(const QParams* P, const void* s_in, void* s_out, void* rew_out,
            const void* q_in, void* q_out, void* acc, void* cnt, void* ring,
-           const void* cell_move, const void* loc_at, const void* hansen_cell,
-           const void* valid_cells, const void* tape, int* grid_out,
-           void* stream) {
+           const void* tab0, const void* tab1, const void* tab2,
+           const void* tab3, const void* tape, int* grid_out, void* stream) {
   if (P->n_sites > 4 * NBLK || P->trace_len > kMaxTrace || P->trace_len < 1)
     return (int)cudaErrorInvalidValue;
-  auto kern = fused_q_kernel<NBLK, kDouble>;
-  const int nc = P->rows * P->cols;
-  const size_t smem =
-      sizeof(float) * P->nq + sizeof(int32_t) * (nc * 6 + P->n_valid);
-  int dev = 0, num_sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                        smem);
+  auto kern = fused_q_kernel<NBLK, kDouble, Env>;
+  const size_t smem = sizeof(float) * P->nq + Env::smem_tables(*P);
+  int blocks = 0, ept = 0;
+  cudaError_t err = gpt::coop_geometry(kern, smem, P->num_envs, &blocks, &ept);
   if (err != cudaSuccess) return (int)err;
-  const int need = (P->num_envs + kThreads - 1) / kThreads;
-  const int blocks = std::min(need, per_sm * num_sms);
-  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long per_launch = (long long)blocks * kThreads;
-  int ept = (int)((P->num_envs + per_launch - 1) / per_launch);
-  if (ept > kMaxEnvsPerThread) return (int)cudaErrorInvalidConfiguration;
   grid_out[0] = blocks;
   grid_out[1] = ept;
   QParams p = *P;
   void* args[] = {&p, &ept, (void*)&s_in, &s_out, &rew_out, &q_in, &q_out,
-                  &acc, &cnt, &ring, &cell_move, &loc_at, &hansen_cell,
-                  &valid_cells, &tape};
+                  &acc, &cnt, &ring, (void*)&tab0, (void*)&tab1, (void*)&tab2,
+                  (void*)&tab3, (void*)&tape};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
-                                    dim3(kThreads), args, smem,
+                                    dim3(gpt::kTrainerThreads), args, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -351,26 +389,25 @@ int launch(const QParams* P, const void* s_in, void* s_out, void* rew_out,
 
 }  // namespace
 
-extern "C" int fused_q_launch(const QParams* P, const void* s_in, void* s_out,
-                              void* rew_out, const void* q_in, void* q_out,
-                              void* acc, void* cnt, void* ring,
-                              const void* cell_move, const void* loc_at,
-                              const void* hansen_cell, const void* valid_cells,
-                              const void* tape, int* grid_out, void* stream) {
-  return launch<2, false>(P, s_in, s_out, rew_out, q_in, q_out, acc, cnt, ring,
-                          cell_move, loc_at, hansen_cell, valid_cells, tape,
-                          grid_out, stream);
+#define Q_LAUNCH_ARGS                                                         \
+  const QParams *P, const void *s_in, void *s_out, void *rew_out,             \
+      const void *q_in, void *q_out, void *acc, void *cnt, void *ring,        \
+      const void *tab0, const void *tab1, const void *tab2, const void *tab3, \
+      const void *tape, int *grid_out, void *stream
+#define Q_LAUNCH_PASS                                                   \
+  P, s_in, s_out, rew_out, q_in, q_out, acc, cnt, ring, tab0, tab1, tab2, \
+      tab3, tape, grid_out, stream
+
+extern "C" int fused_q_launch(Q_LAUNCH_ARGS) {
+  return launch<2, false, TaxiQ>(Q_LAUNCH_PASS);
 }
 
-extern "C" int fused_double_q_launch(const QParams* P, const void* s_in,
-                                     void* s_out, void* rew_out,
-                                     const void* q_in, void* q_out, void* acc,
-                                     void* cnt, void* ring,
-                                     const void* cell_move, const void* loc_at,
-                                     const void* hansen_cell,
-                                     const void* valid_cells, const void* tape,
-                                     int* grid_out, void* stream) {
-  return launch<3, true>(P, s_in, s_out, rew_out, q_in, q_out, acc, cnt, ring,
-                         cell_move, loc_at, hansen_cell, valid_cells, tape,
-                         grid_out, stream);
+extern "C" int fused_double_q_launch(Q_LAUNCH_ARGS) {
+  return launch<3, true, TaxiQ>(Q_LAUNCH_PASS);
+}
+
+extern "C" int fused_q_rooms_launch(Q_LAUNCH_ARGS) {
+  if (P->n_act == 8) return launch<2, false, RoomsQ<8>>(Q_LAUNCH_PASS);
+  if (P->n_act == 4) return launch<2, false, RoomsQ<4>>(Q_LAUNCH_PASS);
+  return (int)cudaErrorInvalidValue;
 }

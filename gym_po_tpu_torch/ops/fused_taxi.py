@@ -32,8 +32,8 @@ import torch
 
 from ..envs.taxi import TaxiState
 from ._build import count_launch
-from .kernel_rng import MASK32, KernelRNG, W
-from .taxi_dynamics import TaxiDynamics, check_batch
+from .kernel_rng import MASK32, KernelRNG, W, check_batch
+from .taxi_dynamics import TaxiDynamics
 
 __all__ = ["make_fused_taxi_rollout", "state_policy_table"]
 

@@ -33,7 +33,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-__all__ = ["KernelRNG", "philox4x32_10", "philox_blocks", "W"]
+__all__ = ["KernelRNG", "philox4x32_10", "philox_blocks", "check_batch", "W"]
 
 W = 128
 MASK32 = 0xFFFFFFFF
@@ -153,3 +153,27 @@ class KernelRNG:
         u2 = self.runiform()
         two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32)
         return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+
+
+def check_batch(s: torch.Tensor, rows: int, rng_tape: bool,
+                tape_shape: Tuple[int, int],
+                tape: Tuple[torch.Tensor, ...]) -> None:
+    """Checks a kernel's ``[rows, 128]`` int32 state tile and its optional
+    tape."""
+    if not isinstance(s, torch.Tensor) or s.dtype != torch.int32:
+        raise ValueError("s must be an int32 tensor")
+    if tuple(s.shape) != (rows, W) or not s.is_contiguous():
+        raise ValueError(f"s must be contiguous with shape {(rows, W)}, got "
+                         f"{tuple(s.shape)}")
+    if len(tape) != int(rng_tape):
+        raise ValueError(f"run takes {int(rng_tape)} tape argument(s), got "
+                         f"{len(tape)}")
+    if rng_tape:
+        tp = tape[0]
+        if tuple(tp.shape) != tape_shape:
+            raise ValueError(f"rng tape must have shape {tape_shape}, got "
+                             f"{tuple(tp.shape)}")
+        if (tp.dtype != torch.int32 or tp.device != s.device
+                or not tp.is_contiguous()):
+            raise ValueError("rng tape must be a contiguous int32 tensor on "
+                             "s's device")

@@ -7,7 +7,8 @@ Sections (all of them when none is named):
 - ``sweep``: CUDA-event ms/call, us/step and train-steps/s of the one-step
   trainer on ``Taxi-v4`` (duplicates averaged) over K at B = 65,536 and
   over B at K = 256; then each option of the builders at the full width
-  (B = 65,536, K = 256); then K = 1 called 256 times in a row, through the
+  (B = 65,536, K = 256), the ROOMS trainers on ``Rooms-v0`` among them
+  (one-step Q, Watkins and Peng Q(lambda), the actor-critic); then K = 1 called 256 times in a row, through the
   wrapper and replayed from a CUDA graph: the other design, one launch per
   step, with and without the host's work per launch;
 - ``profile``: ``torch.profiler`` device time of 4 chained full-width calls
@@ -16,8 +17,9 @@ Sections (all of them when none is named):
   out (the two grid barriers of each step, the atomics, the reload of the
   table into shared memory, the Philox rounds), built under
   ``build/gym_po_tpu_torch/probe_q/`` and timed beside the source as it is,
-  to attribute the kernel's time.  The edited kernels compute wrong
-  results; only their times are read.
+  to attribute the kernel's time, for the Taxi trainers and the ROOMS Q
+  trainers.  The edited kernels compute wrong results; only their times
+  are read.
 
 Every line it prints is a measurement of this run; the first line is the
 card's name and power limit as ``nvidia-smi`` gives them.
@@ -65,6 +67,51 @@ def _setup(env_id="Taxi-v4", B=B_FULL, K=K_FULL, double=False, **opts):
     return run, call
 
 
+def _setup_rooms(kind: str, B=B_FULL, K=K_FULL, **opts):
+    """A chained full-width call of a ROOMS trainer on the ``Rooms-v0``
+    defaults: ``kind`` is ``q``, ``qlambda`` or ``ac``."""
+    import gym_po_tpu_torch as gp
+    from . import (
+        make_fused_ac_trainer_rooms,
+        make_fused_q_trainer_rooms,
+        make_fused_qlambda_trainer_rooms,
+    )
+
+    dev = torch.device("cuda")
+    env = gp.make("Rooms-v0", device=dev)
+    build = {"q": make_fused_q_trainer_rooms,
+             "qlambda": make_fused_qlambda_trainer_rooms,
+             "ac": make_fused_ac_trainer_rooms}[kind]
+    if kind != "ac":
+        opts.setdefault("average_duplicates", True)
+    run = build(env, B, K, **opts)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B)
+    a = st.agent_yx.to(torch.int32)
+    carry = {"a": (a[:, 0] * env.grid_np.shape[1] + a[:, 1]).reshape(-1, 128)
+             .contiguous(), "i": 0,
+             "t": [torch.zeros((32, 128), device=dev)
+                   for _ in range(2 if kind == "ac" else 1)]}
+
+    def call():
+        carry["i"] += 1
+        if kind == "ac":
+            *carry["t"], carry["a"], _ = run(carry["i"], 0.1, 0.2, *carry["t"],
+                                             carry["a"])
+        else:
+            carry["a"], carry["t"][0], _ = run(carry["i"], LR, EPS, carry["a"],
+                                               carry["t"][0])
+
+    return run, call
+
+
+ROOMS_OPTIONS = (
+    ("Rooms-v0 one-step Q", "q", {}),
+    ("Rooms-v0 Watkins Q(lambda) L=16", "qlambda", dict(lam=0.9, trace_len=16)),
+    ("Rooms-v0 Peng Q(lambda) L=16", "qlambda",
+     dict(lam=0.9, trace_len=16, watkins_cut=False)),
+)
+
+
 def _report(label: str, B: int, K: int, ms: float) -> None:
     print(f"{label} B={B} K={K}: {ms:.4f} ms/call {ms / K * 1e3:.3f} us/step "
           f"{B * K / ms * 1e3:.4e} train-steps/s", flush=True)
@@ -88,6 +135,9 @@ def sweep() -> None:
         ("double Q", dict(double=True)),
     ):
         _, call = _setup(**kw)
+        _report(f"option {label}", B_FULL, K_FULL, event_ms(call))
+    for label, kind, kw in ROOMS_OPTIONS + (("Rooms-v0 actor-critic", "ac", {}),):
+        _, call = _setup_rooms(kind, **kw)
         _report(f"option {label}", B_FULL, K_FULL, event_ms(call))
     _, call = _setup(K=1)
     ms = event_ms(lambda: [call() for _ in range(K_FULL)], reps=2)
@@ -137,32 +187,36 @@ def variants() -> None:
     from . import fused_qlearning as fq
     from ._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
 
-    cu = (CSRC / "fused_qlearning.cu").read_text()
-    cuh = (CSRC / "kernel_rng.cuh").read_text()
-    headers = {h.name: h.read_text() for h in CSRC.glob("*.cuh")}
+    sources = {h.name: h.read_text() for h in CSRC.glob("*.cuh")}
+    sources["fused_qlearning.cu"] = (CSRC / "fused_qlearning.cu").read_text()
+
+    def edited(name, old, new):
+        return {**sources, name: _edit(sources[name], old, new)}
+
     atomic = ("  atomicAdd(reinterpret_cast<unsigned long long*>(acc + addr),\n"
-              "            static_cast<unsigned long long>(fx));\n"
-              "  if (average) atomicAdd(cnt + addr, 1);")
+              "            static_cast<unsigned long long>(fx));")
+    no_atomics = edited("tabular.cuh", atomic,
+                        "  if (fx == 0x7fffffffffffffffLL) acc[addr] = fx;")
+    no_atomics["tabular.cuh"] = _edit(no_atomics["tabular.cuh"],
+                                      "if (average) atomicAdd(cnt + addr, 1);",
+                                      "(void)cnt;")
     cases = {
-        "as-is": (cu, cuh),
-        "no-grid-barriers": (cu.replace("grid.sync();", "__syncthreads();"),
-                             cuh),
-        "no-atomics": (_edit(cu, atomic,
-                             "  if (fx == 0x7fffffffffffffffLL) acc[addr] = fx;"),
-                       cuh),
-        "no-table-reload": (
-            _edit(cu, "s_q[i] = __ldcg(q_out + i);", "(void)0;"), cuh),
-        "philox-0-rounds": (cu, _edit(cuh, "for (int i = 0; i < 10; ++i)",
-                                      "for (int i = 0; i < 0; ++i)")),
+        "as-is": sources,
+        "no-grid-barriers": {**sources, "fused_qlearning.cu": sources[
+            "fused_qlearning.cu"].replace("grid.sync();", "__syncthreads();")},
+        "no-atomics": no_atomics,
+        "no-table-reload": edited("fused_qlearning.cu",
+                                  "s_q[i] = __ldcg(q_out + i);", "(void)0;"),
+        "philox-0-rounds": edited("kernel_rng.cuh",
+                                  "for (int i = 0; i < 10; ++i)",
+                                  "for (int i = 0; i < 0; ++i)"),
     }
     saved = fq._launcher
-    for name, (src, hdr) in cases.items():
+    for name, files in cases.items():
         d = BUILD_DIR / "probe_q" / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "fused_qlearning.cu").write_text(src)
-        for h, text in headers.items():
-            (d / h).write_text(text)
-        (d / "kernel_rng.cuh").write_text(hdr)
+        for f, text in files.items():
+            (d / f).write_text(text)
         out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"),
                               str(d / "fused_qlearning.cu")],
                              capture_output=True, text=True)
@@ -184,6 +238,10 @@ def variants() -> None:
                 _, call = _setup(**kw)
                 _report(f"variant {name} {label} (registers {','.join(regs)})",
                         B_FULL, K_FULL, event_ms(call))
+            for label, kind, kw in ROOMS_OPTIONS:
+                _, call = _setup_rooms(kind, **kw)
+                _report(f"variant {name} {label}", B_FULL, K_FULL,
+                        event_ms(call))
         finally:
             fq._launcher = saved
 

@@ -18,14 +18,14 @@ every step whatever the masks say.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .kernel_rng import KernelRNG, W
 
-__all__ = ["TaxiDynamics", "TaxiStep", "check_batch"]
+__all__ = ["TaxiDynamics", "TaxiStep"]
 
 
 class TaxiStep(NamedTuple):
@@ -137,25 +137,3 @@ class TaxiDynamics:
             completed=torch.where(reset, 0, completed),
             elapsed=torch.where(reset, 0, elapsed))
 
-
-def check_batch(s: torch.Tensor, rows: int, rng_tape: bool,
-                tape_shape: Tuple[int, int],
-                tape: Tuple[torch.Tensor, ...]) -> None:
-    """Checks a kernel's ``[rows, 128]`` int32 state and its optional tape."""
-    if not isinstance(s, torch.Tensor) or s.dtype != torch.int32:
-        raise ValueError("s must be an int32 tensor")
-    if tuple(s.shape) != (rows, W) or not s.is_contiguous():
-        raise ValueError(f"s must be contiguous with shape {(rows, W)}, got "
-                         f"{tuple(s.shape)}")
-    if len(tape) != int(rng_tape):
-        raise ValueError(f"run takes {int(rng_tape)} tape argument(s), got "
-                         f"{len(tape)}")
-    if rng_tape:
-        tp = tape[0]
-        if tuple(tp.shape) != tape_shape:
-            raise ValueError(f"rng tape must have shape {tape_shape}, got "
-                             f"{tuple(tp.shape)}")
-        if (tp.dtype != torch.int32 or tp.device != s.device
-                or not tp.is_contiguous()):
-            raise ValueError("rng tape must be a contiguous int32 tensor on "
-                             "s's device")

@@ -1,7 +1,7 @@
 """Environment registry, PyTorch port of :mod:`gym_po_tpu.registry`.
 
-Only the Taxi family is ported so far; ``make`` of any other id raises
-``KeyError`` listing what is available.  Every constructor takes the
+The Taxi family and ``Rooms-v0`` are ported so far; ``make`` of any other
+id raises ``KeyError`` listing what is available.  Every constructor takes the
 JAX package's kwargs plus ``device``.
 """
 
@@ -34,6 +34,7 @@ def registered_envs():
 
 
 def _register_defaults() -> None:
+    from .envs.rooms import Rooms
     from .envs.taxi import Taxi, EXTENDED_TAXI_MAP
 
     register("Taxi-v4", lambda **kw: Taxi(**kw))
@@ -43,6 +44,7 @@ def _register_defaults() -> None:
         "ExtendedHansenTaxi-v4",
         lambda **kw: Taxi(map=EXTENDED_TAXI_MAP, hansen_obs=True, **kw),
     )
+    register("Rooms-v0", lambda **kw: Rooms(**kw))
 
 
 _register_defaults()

@@ -15,8 +15,12 @@ import gym_po_tpu_torch as gpt_torch
 from gym_po_tpu_torch.entry import entry
 from gym_po_tpu_torch.ops import (
     bank_geometry,
+    make_fused_ac_trainer_rooms,
     make_fused_double_q_trainer,
     make_fused_q_trainer,
+    make_fused_q_trainer_rooms,
+    make_fused_qlambda_trainer_rooms,
+    make_fused_rooms_rollout,
     make_fused_taxi_rollout,
     q_to_banks,
 )
@@ -184,3 +188,142 @@ def test_q_trainer_kernel_diverging_lr_equals_twin(cuda, average):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     assert torch.isnan(got[1]).any()
+
+
+# ------------------------------------------------------------------ ROOMS
+def _rooms_cells(env, B, seed, random_goal=False):
+    """Flat agent (and goal) cells on walkable cells, on the env's device."""
+    rng = np.random.default_rng(seed)
+    GW = env.grid_np.shape[1]
+    valid = env.valid_states
+    agent = rng.choice(valid, B).astype(np.int32)
+    if random_goal or env.fixed_goal_yx is None:
+        goal = rng.choice(valid, B).astype(np.int32)
+    else:
+        goal = np.full(B, env.fixed_goal_yx[0] * GW + env.fixed_goal_yx[1],
+                       np.int32)
+    return (torch.as_tensor(agent, device=env.device).reshape(-1, 128),
+            torch.as_tensor(goal, device=env.device).reshape(-1, 128))
+
+
+def _tape(run, seed, device):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.integers(-2**31, 2**31, run.tape_shape,
+                                         dtype=np.int64).astype(np.int32),
+                            device=device),)
+
+
+ROLLOUT_CASES = [
+    ("4", {}, 128, True),
+    ("16", {"goal_xy": None, "action_type": "cardinal"}, 4, True),
+    ("32b", {"agent_xy": (1, 1)}, 4, False),
+]
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("layout,kw,rows_per_tile,stats", ROLLOUT_CASES)
+def test_fused_rooms_kernel_equals_twin(cuda, mode, layout, kw, rows_per_tile,
+                                        stats):
+    env = gpt_torch.make("Rooms-v0", layout=layout, time_limit=20, **kw)
+    B, K = 8192, 48
+    run = make_fused_rooms_rollout(env, B, K, rows_per_tile=rows_per_tile,
+                                   episode_stats=stats, rng_tape=mode == "tape")
+    a0, g0 = _rooms_cells(env, B, 1)
+    tape = _tape(run, 2, cuda) if mode == "tape" else ()
+    got = run(9, a0, g0, *tape)
+    want = run.twin(9, a0, g0, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert torch.unique(got[0]).numel() > 1
+
+
+def test_fused_rooms_kernel_out_of_range_agent_equals_twin(cuda):
+    env = gpt_torch.make("Rooms-v0", goal_xy=None, time_limit=20)
+    run = make_fused_rooms_rollout(env, 4096, 32, episode_stats=True)
+    a0, g0 = _rooms_cells(env, 4096, 3)
+    idx = torch.tensor([0, 777, 4095], device=cuda)
+    a0.view(-1)[idx] = torch.tensor([-1, env.grid_np.size, 2**31 - 1],
+                                    dtype=torch.int32, device=cuda)
+    got, want = run(6, a0, g0), run.twin(6, a0, g0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert (got[0].view(-1)[idx] == -1).all()
+
+
+# env kwargs, trainer kind ("q", "qlambda" or "ac"), options, lr.  Summed
+# duplicates take a small lr: at lr = 0.1 they diverge at B = 8,192 and the
+# table turns NaN (tested on Taxi above)
+ROOMS_TRAINER_CASES = [
+    ({}, "q", dict(average_duplicates=True), 0.1),
+    ({"obs_type": "hansen", "action_type": "cardinal"}, "q",
+     dict(average_duplicates=False), 0.002),
+    ({}, "qlambda", dict(lam=0.9, trace_len=16, average_duplicates=True), 0.1),
+    ({"layout": "16"}, "qlambda", dict(lam=0.8, trace_len=4,
+                                       watkins_cut=False), 0.002),
+    ({}, "ac", {}, 0.1),
+    ({"action_type": "cardinal", "agent_xy": (1, 1)}, "ac", {}, 0.1),
+]
+
+
+def _rooms_trainer(env, kind, B, K, opts, rng_tape):
+    build = {"q": make_fused_q_trainer_rooms,
+             "qlambda": make_fused_qlambda_trainer_rooms,
+             "ac": make_fused_ac_trainer_rooms}[kind]
+    return build(env, B, K, rng_tape=rng_tape, **opts)
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("kw,kind,opts,lr", ROOMS_TRAINER_CASES)
+def test_rooms_trainer_kernels_equal_twin(cuda, mode, kw, kind, opts, lr):
+    """Agents, reward sums and tables exact, the actor-critic's included:
+    its logf/expf are the library calls torch's log/exp make on the card."""
+    env = gpt_torch.make("Rooms-v0", time_limit=30, **kw)
+    B, K = 8192, 48
+    run = _rooms_trainer(env, kind, B, K, opts, mode == "tape")
+    a0, _ = _rooms_cells(env, B, 3)
+    tape = _tape(run, 4, cuda) if mode == "tape" else ()
+    rng = np.random.default_rng(5)
+    A = env.num_actions
+    if kind == "ac":
+        th = np.zeros((512, A), np.float32)
+        th[:env.observation_space.n] = rng.normal(
+            scale=0.3, size=(env.observation_space.n, A))
+        th = torch.as_tensor(q_to_banks(th), device=cuda)
+        if mode == "philox":
+            th = torch.zeros_like(th)
+        v = torch.zeros_like(th)
+        got = run(11, lr, 0.2, th, v, a0, *tape)
+        want = run.twin(11, lr, 0.2, th, v, a0, *tape)
+        moved = got[0] != th
+    else:
+        q = np.zeros((512, A), np.float32)
+        q[:env.observation_space.n] = rng.normal(
+            scale=0.1, size=(env.observation_space.n, A))
+        qb = torch.as_tensor(q_to_banks(q), device=cuda)
+        if mode == "philox":
+            qb = torch.zeros_like(qb)  # exact ties among actions
+        got = run(11, lr, 0.3, a0, qb, *tape)
+        want = run.twin(11, lr, 0.3, a0, qb, *tape)
+        moved = got[1] != qb
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert torch.count_nonzero(moved) > 0
+    assert all(torch.isfinite(g).all() for g in got)
+
+
+def test_rooms_trainers_refuse_what_the_kernels_do_not_take(cuda):
+    """n_obs > 512, no fixed goal, B not a multiple of 1024: refused before
+    any launch."""
+    for build in (make_fused_q_trainer_rooms, make_fused_qlambda_trainer_rooms,
+                  make_fused_ac_trainer_rooms):
+        with pytest.raises(ValueError, match="512"):
+            build(gpt_torch.make("Rooms-v0", layout="32"), 1024, 8)
+        with pytest.raises(ValueError, match="fixed goal"):
+            build(gpt_torch.make("Rooms-v0", goal_xy=None), 1024, 8)
+        with pytest.raises(ValueError, match="1024"):
+            build(gpt_torch.make("Rooms-v0"), 1536, 8)

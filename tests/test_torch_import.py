@@ -35,10 +35,16 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.ops._build
     import gym_po_tpu_torch.ops.probe_fused_taxi
     import gym_po_tpu_torch.ops.probe_fused_qlearning
+    import gym_po_tpu_torch.ops.fused_ac
+    import gym_po_tpu_torch.ops.fused_qlambda
+    import gym_po_tpu_torch.ops.fused_rooms
+    import gym_po_tpu_torch.obs
+    import gym_po_tpu_torch.utils
     import gym_po_tpu_torch.vector
     import chip_smoke
 
     env = gym_po_tpu_torch.make("ExtendedHansenTaxi-v4", device="cpu")
+    env = gym_po_tpu_torch.make("Rooms-v0", device="cpu")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """
@@ -56,7 +62,7 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok"), proc.stdout
     for env_id in ("Taxi-v4", "HansenTaxi-v4", "ExtendedTaxi-v4",
-                   "ExtendedHansenTaxi-v4"):
+                   "ExtendedHansenTaxi-v4", "Rooms-v0"):
         assert env_id in proc.stdout
 
 
@@ -64,9 +70,10 @@ def test_unported_env_raises_keyerror_listing_available():
     import gym_po_tpu_torch as gpt_torch
 
     with pytest.raises(KeyError, match="Available"):
-        gpt_torch.make("Rooms-v0")
+        gpt_torch.make("MultistoryFourRooms-v0")
     assert gpt_torch.registered_envs() == [
-        "ExtendedHansenTaxi-v4", "ExtendedTaxi-v4", "HansenTaxi-v4", "Taxi-v4",
+        "ExtendedHansenTaxi-v4", "ExtendedTaxi-v4", "HansenTaxi-v4",
+        "Rooms-v0", "Taxi-v4",
     ]
 
 
