@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths on the card, each through the entry
+Drives the port's four main paths on the card, each through the entry
 points a user calls, with the kernels' launch counts zeroed just before the
 path and read just after:
 
@@ -27,7 +27,15 @@ path and read just after:
    the kernel and the ``fused_q_learning`` entry point, Q(lambda) against
    one-step Q on layout '16', the actor-critic through the kernel and the
    ``fused_actor_critic`` entry point, each greedy policy evaluated by
-   ``vector.rollout`` (the first chunk of each run held against its twin).
+   ``vector.rollout`` (the first chunk of each run held against its twin);
+4. MultistoryFourRooms and RockSample: the fused MSRooms rollout
+   (``MultistoryFourRooms-v0`` at grid_z = 3) and the fused RockSample
+   rollout (RockSample[7,8]) at the headline's size (B = 2^20, K = 256),
+   RockSample(11, 11) with 11 rocks for the record, the MSRooms Q trainer
+   kernel at full width (B = 65,536, K = 256), then MSRooms learning at the
+   JAX package's hardware test's schedule through the kernel and the
+   ``fused_q_learning`` entry point, the greedy policy evaluated by
+   ``vector.rollout`` over 1,024 envs x 500 steps (> 1.0 goals per env).
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
@@ -38,8 +46,9 @@ known answers; every kernel against its plain twin on the card, exact, in
 tape mode and in Philox mode; distribution check against the step_vec
 rollout path (Taxi and ROOMS); kernel vs twin at the headline's shape;
 path 1 with the headline timing; path 2 with the trainers' timing and
-learning checks; path 3 with the ROOMS timings and learning checks.  The
-line before the last is the kernels' JSON record; the last line is the
+learning checks; path 3 with the ROOMS timings and learning checks; path 4
+with the MSRooms and RockSample timings and the MSRooms learning check.
+The line before the last is the kernels' JSON record; the last line is the
 result.
 """
 
@@ -712,15 +721,16 @@ def rooms_greedy_goals(dev, env, q, steps: int) -> float:
     return (traj.reward > 0.5).sum().item() / 1024
 
 
-def rooms_learn(dev, env, run, kind, sched, B, errs, name):
+def rooms_learn(dev, env, run, kind, sched, B, errs, name, cells=None):
     """The JAX hardware tests' loop: one trainer call per schedule entry,
     chunk ``i`` seeded ``i + 1``, from ``reset_vec`` seeded 0 and zero
-    tables; the first chunk held against the twin, exactly.  Returns the
+    tables; the first chunk held against the twin, exactly.  ``cells`` maps
+    the reset state to the agent tile (ROOMS' by default).  Returns the
     tables as numpy ``[n_obs, A]`` (and ``[n_obs]``)."""
     from gym_po_tpu_torch.ops import banks_to_q
 
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B)
-    a = rooms_cells(env, st.agent_yx)
+    a = cells(st) if cells else rooms_cells(env, st.agent_yx)
     tables = tuple(torch.zeros((32, 128), device=dev)
                    for _ in range(2 if kind == "ac" else 1))
     for i, (lr, eps) in enumerate(sched):
@@ -839,6 +849,374 @@ def rooms_path(dev, kern_ms, errs) -> None:
     rooms_learning(dev, errs)
 
 
+# ------------------------------------------- MultistoryFourRooms, RockSample
+# Path 4: the MSRooms rollout and Q trainer at the ROOMS path's sizes
+# (MultistoryFourRooms-v0 at grid_z = 3: three 13x13 floors, 312 walkable
+# cells, mdp obs, 4 cardinal actions, p_fail 1/3, fixed top-floor goal, random
+# ground-floor agent), learning at the JAX hardware test's schedule and
+# threshold (tests/test_fused_qlearning.py:542-570), and the RockSample
+# rollout at Smith & Simmons' RockSample[7,8] (the JAX tape test's size).
+MSROOMS_Z = 3
+SCHED_MSROOMS_Q = SCHED_ROOMS_Q  # one schedule in both JAX hardware tests
+MSROOMS_EVAL_STEPS = 500
+ROCKSAMPLE_HEAD = ((7, 7), 8)
+ROCKSAMPLE_WIDEST = ((11, 11), 11)  # 121 of the kernel's 128 cells
+# RockSample's rewards are +-10 and -100 (an illegal sample), a per-step s.d.
+# of about 25 under the random policy: the s.d. of an env's mean over 256
+# steps is about 1.6, so over 2^18 envs a path's mean reward/step has a
+# standard error of about 0.003, and 0.05 is more than ten standard errors of
+# the two paths' difference.  The good-rock share is a mean of 2^21 bits
+# (s.e. below 0.001 for independent bits), held to 0.01.
+ROCKSAMPLE_REW_ATOL, ROCKSAMPLE_BIT_ATOL = 0.05, 0.01
+
+
+def msrooms_cells(env, zyx: torch.Tensor) -> torch.Tensor:
+    """Flat cells ``[B // 128, 128]`` of ``[B, 3]`` MSRooms coordinates."""
+    zyx = zyx.to(torch.int32)
+    _, H, GW = env.grid_np.shape
+    return (zyx[:, 0] * H * GW + zyx[:, 1] * GW + zyx[:, 2]).reshape(
+        -1, 128).contiguous()
+
+
+def check_msrooms_cells(env, agent: torch.Tensor) -> None:
+    """Every agent sits on a walkable cell of the stacked floors."""
+    a = agent.reshape(-1).long()
+    if not ((a >= 0) & (a < env.grid_np.size)).all():
+        raise AssertionError("agent cell out of range")
+    walk = torch.as_tensor(env.grid_np.reshape(-1) > 0, device=a.device)
+    if not walk[a].all():
+        raise AssertionError("agent on a wall cell")
+
+
+def floor_share(env, agent: torch.Tensor) -> torch.Tensor:
+    z = agent.reshape(-1).long() // (env.grid_np.shape[1] * env.grid_np.shape[2])
+    return torch.bincount(z, minlength=env.grid_np.shape[0]).double() / z.numel()
+
+
+def rocksample_state(env, st):
+    """``(pos, mask)`` tiles of a RockSample state."""
+    from gym_po_tpu_torch.ops import rock_bitmask
+
+    pos = st.pos_yx[:, 0] * env.cols + st.pos_yx[:, 1]
+    return (pos.to(torch.int32).reshape(-1, 128).contiguous(),
+            rock_bitmask(st.rock_good).reshape(-1, 128).contiguous())
+
+
+def check_rocksample(env, pos: torch.Tensor, mask: torch.Tensor) -> None:
+    if not ((pos >= 0) & (pos < env.rows * env.cols)).all():
+        raise AssertionError("rover position out of range")
+    if not ((mask >= 0) & (mask < (1 << env.k))).all():
+        raise AssertionError("rock bitmask out of range")
+
+
+def good_share(env, mask: torch.Tensor) -> float:
+    bits = (mask.reshape(-1, 1) >> torch.arange(env.k, device=mask.device)) & 1
+    return bits.double().mean().item()
+
+
+# env kwargs, rows_per_tile (B = 65,536: 4 or 512 tiles), stats
+MSROOMS_ROLLOUT_CASES = [
+    (dict(grid_z=1), 128, False),
+    (dict(grid_z=3), 1, True),
+    (dict(grid_z=3, goal_xyz=None), 128, True),
+    (dict(grid_z=3, action_type="ordinal", agent_xyz=(1, 1, 0)), 128, False),
+]
+ROCKSAMPLE_CASES = [((5, 5), 5, 1, True), ((7, 7), 8, 128, False),
+                    ((11, 11), 11, 128, True)]
+
+
+def path4_rollout_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
+    """The MSRooms and RockSample rollout kernels == their twins, exactly,
+    on a random tape and in Philox mode (B = 65,536, K = 64)."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import (
+        make_fused_msrooms_rollout,
+        make_fused_rocksample_rollout,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(51)
+    for mode in ("tape", "philox"):
+        for kw, rpt, stats in MSROOMS_ROLLOUT_CASES:
+            env = gp.make("MultistoryFourRooms-v0", time_limit=40, device=dev,
+                          **kw)
+            run = make_fused_msrooms_rollout(env, B, K, rows_per_tile=rpt,
+                                             episode_stats=stats,
+                                             rng_tape=mode == "tape")
+            _, st = env.reset_vec(gen, B)
+            a0, g0 = msrooms_cells(env, st.agent_zyx), msrooms_cells(env, st.goal_zyx)
+            tape = (torch.randint(-2**31, 2**31, run.tape_shape, generator=gen,
+                                  dtype=torch.int32, device=dev),) \
+                if mode == "tape" else ()
+            got, want = run(3, a0, g0, *tape), run.twin(3, a0, g0, *tape)
+            torch.cuda.synchronize()
+            name = f"MultistoryFourRooms-v0 {kw} rows_per_tile={rpt}" + (
+                " episode_stats" if stats else "") + f" {mode}"
+            compare(name, got, want, errs["fused_msrooms"])
+            check_msrooms_cells(env, got[0])
+            if stats and got[5].sum().item() == 0:
+                raise AssertionError(f"{name}: no episode completed")
+            say("msrooms-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
+                f"floor shares {[round(x, 4) for x in floor_share(env, got[0]).tolist()]}")
+        for map_size, k, rpt, stats in ROCKSAMPLE_CASES:
+            env = gp.make("RockSample-v0", map_size=map_size, num_rocks=k,
+                          time_limit=25, device=dev)
+            run = make_fused_rocksample_rollout(env, B, K, rows_per_tile=rpt,
+                                                episode_stats=stats,
+                                                rng_tape=mode == "tape")
+            p0, m0 = rocksample_state(env, env.reset_vec(gen, B)[1])
+            tape = (torch.randint(-2**31, 2**31, run.tape_shape, generator=gen,
+                                  dtype=torch.int32, device=dev),) \
+                if mode == "tape" else ()
+            got, want = run(3, p0, m0, *tape), run.twin(3, p0, m0, *tape)
+            torch.cuda.synchronize()
+            name = f"RockSample{map_size + (k,)} rows_per_tile={rpt}" + (
+                " episode_stats" if stats else "") + f" {mode}"
+            compare(name, got, want, errs["fused_rocksample"])
+            check_rocksample(env, got[0], got[1])
+            if stats and got[5].sum().item() == 0:
+                raise AssertionError(f"{name}: no episode completed")
+            say("rocksample-check", f"kernel == twin exactly: {name}, B={B} "
+                f"K={K}, mean reward/step {got[2].mean().item() / K:.6f}")
+
+
+def path4_distribution_checks(dev, B=1 << 18, K=K_HEAD) -> None:
+    """Philox-mode rollout kernels against the step_vec path: MSRooms mean
+    reward/step and per-floor occupancy within DIST_ATOL; RockSample mean
+    reward/step and good-rock share within their stated tolerances."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import (
+        make_fused_msrooms_rollout,
+        make_fused_rocksample_rollout,
+    )
+    from gym_po_tpu_torch.vector import rollout
+
+    env = gp.make("MultistoryFourRooms-v0", grid_z=MSROOMS_Z, goal_xyz=None,
+                  time_limit=100, device=dev)
+    run = make_fused_msrooms_rollout(env, B, K)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B)
+    agent, _, rew = run(7, msrooms_cells(env, st.agent_zyx),
+                        msrooms_cells(env, st.goal_zyx))
+    check_msrooms_cells(env, agent)
+    fused_mean = rew.double().mean().item() / K
+    traj, (_, st_f) = rollout(env, torch.Generator(device=dev).manual_seed(1),
+                              None, B, K)
+    scan_mean = traj.reward.double().mean().item()
+    fs, ss = floor_share(env, agent), floor_share(env, msrooms_cells(env, st_f.agent_zyx))
+    gap = (fs - ss).abs().max().item()
+    say("msrooms-distribution", f"MultistoryFourRooms-v0 grid_z={MSROOMS_Z} "
+        f"random goal time_limit=100 B={B} K={K}: mean reward/step fused "
+        f"{fused_mean:.6f} vs step_vec {scan_mean:.6f}; floor shares fused "
+        f"{[round(x, 6) for x in fs.tolist()]} vs step_vec "
+        f"{[round(x, 6) for x in ss.tolist()]}, max gap {gap:.6f} (limit {DIST_ATOL})")
+    if abs(fused_mean - scan_mean) >= DIST_ATOL or gap >= DIST_ATOL:
+        raise AssertionError("MSRooms kernel's distribution differs from step_vec")
+
+    (rows, cols), k = ROCKSAMPLE_HEAD
+    env = gp.make("RockSample-v0", map_size=(rows, cols), num_rocks=k, device=dev)
+    run = make_fused_rocksample_rollout(env, B, K)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B)
+    pos, mask, rew = run(7, *rocksample_state(env, st))
+    check_rocksample(env, pos, mask)
+    fused_mean = rew.double().mean().item() / K
+    traj, (_, st_f) = rollout(env, torch.Generator(device=dev).manual_seed(1),
+                              None, B, K)
+    scan_mean = traj.reward.double().mean().item()
+    fb, sb = good_share(env, mask), st_f.rock_good.double().mean().item()
+    say("rocksample-distribution", f"RockSample{(rows, cols, k)} B={B} K={K}: "
+        f"mean reward/step fused {fused_mean:.6f} vs step_vec {scan_mean:.6f} "
+        f"(limit {ROCKSAMPLE_REW_ATOL}); good-rock share fused {fb:.6f} vs "
+        f"step_vec {sb:.6f} (limit {ROCKSAMPLE_BIT_ATOL})")
+    if (abs(fused_mean - scan_mean) >= ROCKSAMPLE_REW_ATOL
+            or abs(fb - sb) >= ROCKSAMPLE_BIT_ATOL):
+        raise AssertionError("RockSample kernel's distribution differs from step_vec")
+
+
+def msrooms_trainer_checks(dev, errs, plain_ms, terms) -> None:
+    """The MSRooms Q trainer kernel == its twin: on a random tape from a
+    random Q (B = 65,536, K = 64; grid_z 1 and 3, summed and averaged,
+    ordinal actions with a fixed agent), and in Philox mode at full width
+    from a zero Q, the twin's ms/call timed the way the kernel is, from the
+    same calls; ``terms`` gets the update terms of the first full-width
+    call, for the bound."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import make_fused_q_trainer_msrooms
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    # summed duplicates take a small lr: at B = 65,536 most envs sit on the
+    # ground floor's 104 observations, hundreds of terms per greedy entry
+    # per step, and lr = 0.002 diverged to NaN within K = 64
+    for kw, avg, lr in ((dict(grid_z=1), True, 0.1),
+                        (dict(grid_z=MSROOMS_Z), False, 0.0002),
+                        (dict(grid_z=MSROOMS_Z, action_type="ordinal",
+                              agent_xyz=(1, 1, 0)), True, 0.1)):
+        env = gp.make("MultistoryFourRooms-v0", time_limit=60, device=dev, **kw)
+        run = make_fused_q_trainer_msrooms(env, B_ROOMS_CHECK, K_ROOMS_TAPE,
+                                           average_duplicates=avg, rng_tape=True)
+        _, st = env.reset_vec(gen, B_ROOMS_CHECK)
+        a0 = msrooms_cells(env, st.agent_zyx)
+        q0 = 0.1 * torch.randn((32, 128), generator=gen, device=dev)
+        tape = torch.randint(-2**31, 2**31, run.tape_shape, generator=gen,
+                             dtype=torch.int32, device=dev)
+        got = run(3, lr, 0.3, a0, q0, tape)
+        want = run.twin(3, lr, 0.3, a0, q0, tape)
+        torch.cuda.synchronize()
+        name = f"fused_q_msrooms {kw} {'averaged' if avg else 'summed'}"
+        compare(f"{name} tape", got, want, errs)
+        check_msrooms_cells(env, got[0])
+        moved = int((got[1] != q0).sum())
+        if not 0 < moved < q0.numel():
+            raise AssertionError(f"{name}: Q moved nowhere or everywhere")
+        say("msrooms-trainer-tape", f"kernel == twin exactly: {name}, "
+            f"B={B_ROOMS_CHECK} K={K_ROOMS_TAPE} lr={lr} eps=0.3: entries "
+            f"moved {moved}, mean reward/step "
+            f"{got[2].mean().item() / K_ROOMS_TAPE:.6f}")
+
+    env = gp.make("MultistoryFourRooms-v0", grid_z=MSROOMS_Z, device=dev)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(4), B_TRAIN)
+    a0 = msrooms_cells(env, st.agent_zyx)
+    run = make_fused_q_trainer_msrooms(env, B_TRAIN, K_TRAIN,
+                                       average_duplicates=True)
+    q0 = torch.zeros((32, 128), device=dev)
+    outs = []
+    plain_ms["fused_q_msrooms"] = event_windows(
+        lambda i: outs.append(run.twin(100 + i, LR_TRAIN, EPS_TRAIN, a0, q0)),
+        windows=3, calls=1)
+    terms["fused_q_msrooms"] = int(run.twin.terms.item())
+    got = run(100, LR_TRAIN, EPS_TRAIN, a0, q0)
+    torch.cuda.synchronize()
+    compare("fused_q_msrooms Philox", got, outs[0], errs)
+    check_msrooms_cells(env, got[0])
+    say("msrooms-trainer-philox", f"kernel == twin exactly: fused_q_msrooms "
+        f"grid_z={MSROOMS_Z} B={B_TRAIN} K={K_TRAIN} lr={LR_TRAIN} "
+        f"eps={EPS_TRAIN} averaged, from Q = 0, grid {run.grid} (blocks, "
+        f"envs/thread); twin {plain_ms['fused_q_msrooms']:.3f} ms/call; "
+        f"{terms['fused_q_msrooms']} update terms")
+
+
+def path4_headline_checks(dev, errs, plain_ms):
+    """The two rollout kernels against their twins at the headline's shape
+    (B = 2^20, K = 256; the twins' first timed call), exact, not counted.
+    Returns the ``(run, env, state)`` of each, for the counted timings."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import (
+        make_fused_msrooms_rollout,
+        make_fused_rocksample_rollout,
+    )
+
+    menv = gp.make("MultistoryFourRooms-v0", grid_z=MSROOMS_Z, device=dev)
+    mrun = make_fused_msrooms_rollout(menv, B_HEAD, K_HEAD)
+    _, st = menv.reset_vec(torch.Generator(device=dev).manual_seed(0), B_HEAD)
+    mstate = (msrooms_cells(menv, st.agent_zyx), msrooms_cells(menv, st.goal_zyx))
+    (rows, cols), k = ROCKSAMPLE_HEAD
+    renv = gp.make("RockSample-v0", map_size=(rows, cols), num_rocks=k, device=dev)
+    rrun = make_fused_rocksample_rollout(renv, B_HEAD, K_HEAD)
+    rstate = rocksample_state(
+        renv, renv.reset_vec(torch.Generator(device=dev).manual_seed(0), B_HEAD)[1])
+    for key, run, state in (("fused_msrooms", mrun, mstate),
+                            ("fused_rocksample", rrun, rstate)):
+        twin_out = []
+        plain_ms[key] = 1e3 * time_windows(
+            lambda i: twin_out.append(run.twin(100 + i, *state)), windows=3,
+            calls=1)
+        compare(f"{key} headline shape B={B_HEAD} K={K_HEAD}", run(100, *state),
+                twin_out[0], errs[key])
+        del twin_out
+        say("path4-headline-check", f"kernel == twin exactly: {key} B={B_HEAD} "
+            f"K={K_HEAD}, Philox mode; twin {plain_ms[key]:.3f} ms/call")
+    return (mrun, menv, mstate), (rrun, renv, rstate)
+
+
+def path4_rollout_times(dev, card, heads, kern_ms) -> None:
+    """The counted rollout timings: MSRooms and RockSample[7,8] at B = 2^20,
+    K = 256, then RockSample(11, 11) with 11 rocks for the record."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import make_fused_rocksample_rollout
+
+    (mrun, menv, mstate), (rrun, renv, rstate) = heads
+    (wrows, wcols), wk = ROCKSAMPLE_WIDEST
+    wenv = gp.make("RockSample-v0", map_size=(wrows, wcols), num_rocks=wk,
+                   device=dev)
+    wrun = make_fused_rocksample_rollout(wenv, B_HEAD, K_HEAD)
+    wstate = rocksample_state(
+        wenv, wenv.reset_vec(torch.Generator(device=dev).manual_seed(0), B_HEAD)[1])
+    steps = B_HEAD * K_HEAD
+    for key, name, run, env, state in (
+            ("fused_msrooms", f"MultistoryFourRooms-v0 grid_z={MSROOMS_Z}",
+             mrun, menv, mstate),
+            ("fused_rocksample", f"RockSample{ROCKSAMPLE_HEAD[0] + (ROCKSAMPLE_HEAD[1],)}",
+             rrun, renv, rstate),
+            ("rocksample_widest", f"RockSample{(wrows, wcols, wk)}", wrun, wenv,
+             wstate)):
+        carry = {"s": state}
+
+        def call(i):
+            a, b, _ = run(1000 + i, *carry["s"])
+            carry["s"] = (a, b)
+
+        call(-1)  # warm-up
+        kern_ms[key] = 1e3 * time_windows(call, windows=5, calls=4)
+        if key == "fused_msrooms":
+            check_msrooms_cells(env, carry["s"][0])
+        else:
+            check_rocksample(env, *carry["s"])
+        say("path4-headline", f"fused rollout {name} B={B_HEAD} K={K_HEAD} on "
+            f"{card}: kernel {steps / kern_ms[key] * 1e3:.6e} env-steps/s "
+            f"({kern_ms[key]:.4f} ms/call, median of 5 windows x 4 calls)")
+
+
+def msrooms_path(dev, kern_ms, errs) -> None:
+    """Path 4's trainer part (counted): the MSRooms Q trainer at full width
+    (timed), then learning at the JAX hardware test's schedule through the
+    kernel (the first chunk held against its twin) and through
+    ``fused_q_learning``; the greedy policy through ``vector.rollout``."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import fused_q_learning
+    from gym_po_tpu_torch.ops import make_fused_q_trainer_msrooms
+
+    env = gp.make("MultistoryFourRooms-v0", grid_z=MSROOMS_Z, device=dev)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(5), B_TRAIN)
+    run = make_fused_q_trainer_msrooms(env, B_TRAIN, K_TRAIN,
+                                       average_duplicates=True)
+    carry = {"a": msrooms_cells(env, st.agent_zyx),
+             "q": torch.zeros((32, 128), device=dev)}
+
+    def call(i):
+        carry["a"], carry["q"], _ = run(1000 + i, LR_TRAIN, EPS_TRAIN,
+                                        carry["a"], carry["q"])
+
+    call(-1)  # warm-up
+    kern_ms["fused_q_msrooms"] = event_windows(call, windows=5, calls=4)
+    check_msrooms_cells(env, carry["a"])
+    if not torch.isfinite(carry["q"]).all():
+        raise AssertionError("fused_q_msrooms: non-finite Q")
+    say("msrooms-trainer-time", f"fused_q_msrooms grid_z={MSROOMS_Z} "
+        f"B={B_TRAIN} K={K_TRAIN} ({LR_TRAIN}, {EPS_TRAIN}) averaged: "
+        f"{kern_ms['fused_q_msrooms']:.4f} ms/call, "
+        f"{B_TRAIN * K_TRAIN / kern_ms['fused_q_msrooms'] * 1e3:.6e} "
+        f"train-steps/s (CUDA events, median of 5 windows x 4 chained calls)")
+
+    t0 = time.perf_counter()
+    run = make_fused_q_trainer_msrooms(env, B_LEARN, K_LEARN,
+                                       average_duplicates=True)
+    (q,) = rooms_learn(dev, env, run, "q", SCHED_MSROOMS_Q, B_LEARN, errs,
+                       f"fused Q on MultistoryFourRooms-v0 grid_z={MSROOMS_Z}",
+                       cells=lambda st: msrooms_cells(env, st.agent_zyx))
+    q2, hist = fused_q_learning(
+        env, 0, [(lr, eps, K_LEARN) for lr, eps in SCHED_MSROOMS_Q],
+        num_envs=B_LEARN, chunk_steps=K_LEARN, average_duplicates=True)
+    if not np.array_equal(q, q2):
+        raise AssertionError("fused_q_learning differs from the kernel loop")
+    goals = rooms_greedy_goals(dev, env, q, MSROOMS_EVAL_STEPS)
+    say("msrooms-learning", f"fused Q on MultistoryFourRooms-v0 grid_z="
+        f"{MSROOMS_Z}, B={B_LEARN}, 4 chunks of K={K_LEARN} {SCHED_MSROOMS_Q} "
+        f"(lr, eps): reward/step per chunk {', '.join(f'{h:.6f}' for h in hist)}; "
+        f"the fused_q_learning entry point gives the same table; greedy rollout "
+        f"1024 envs x {MSROOMS_EVAL_STEPS} steps: goals/env {goals:.4f} (> 1.0); "
+        f"took {time.perf_counter() - t0:.2f} s")
+    if goals <= 1.0:
+        raise AssertionError("fused Q did not learn MultistoryFourRooms-v0")
+
+
 def bound(nbytes: float, int_ops: float) -> tuple:
     """(ms, what bounds it): the larger of bytes over the memory rate and
     INT32 instructions over the card's issue rate at its top SM clock."""
@@ -872,7 +1250,8 @@ def main() -> int:
     say("device", f"{card} | torch {torch.__version__} CUDA {torch.version.cuda} "
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    sources = ("fused_taxi", "fused_qlearning", "fused_rooms", "fused_ac")
+    sources = ("fused_taxi", "fused_qlearning", "fused_rooms", "fused_ac",
+               "fused_msrooms", "fused_rocksample")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_library, sources))  # one nvcc each, together
@@ -909,6 +1288,12 @@ def main() -> int:
     rooms_distribution_check(dev)
     rooms_terms: dict = {}
     rooms_trainer_checks(dev, rooms_errs, plain_ms, rooms_terms)
+    p4_errs = {k: [] for k in ("fused_msrooms", "fused_q_msrooms",
+                               "fused_rocksample")}
+    path4_rollout_checks(dev, p4_errs)
+    path4_distribution_checks(dev)
+    msrooms_trainer_checks(dev, p4_errs["fused_q_msrooms"], plain_ms,
+                           rooms_terms)
 
     # plain versions first: the twin of the headline kernel, and the
     # step_vec rollout path
@@ -1020,6 +1405,19 @@ def main() -> int:
         launches[key] = LAUNCHES[key]
         if launches[key] <= 0:
             raise AssertionError(f"the ROOMS path did not go through {key}")
+
+    # path 4, MultistoryFourRooms and RockSample.  Plain versions first: the
+    # rollout twins at the headline's shape (their first calls held against
+    # the kernels, not counted); then, counted, the rollouts, the MSRooms
+    # trainer and the MSRooms learning run
+    heads = path4_headline_checks(dev, p4_errs, plain_ms)
+    LAUNCHES.clear()
+    path4_rollout_times(dev, card, heads, kern_ms)
+    msrooms_path(dev, kern_ms, p4_errs["fused_q_msrooms"])
+    for key in p4_errs:
+        launches[key] = LAUNCHES[key]
+        if launches[key] <= 0:
+            raise AssertionError(f"path 4 did not go through {key}")
     say("launches", "on the main paths: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
 
@@ -1051,6 +1449,15 @@ def main() -> int:
             ops = blocks + 3 * rooms_terms[key]
             nbytes = 12 * B_TRAIN + 8 * 32 * 128
         b_rooms[key] = bound(nbytes, ops)
+    # path 4: the rollouts read 8 B and write 12 B per env, one Philox block
+    # per env-step; the trainer as the ROOMS one (2 blocks, 3 per applied term)
+    for key, run_h in (("fused_msrooms", heads[0][0]),
+                       ("fused_rocksample", heads[1][0])):
+        b_rooms[key] = bound(20 * B_HEAD, PHILOX_BLOCK_OPS * philox_blocks(
+            run_h.n_sites) * B_HEAD * K_HEAD)
+    b_rooms["fused_q_msrooms"] = bound(
+        12 * B_TRAIN + 8 * 32 * 128,
+        PHILOX_BLOCK_OPS * 2 * B_TRAIN * K_TRAIN + 3 * rooms_terms["fused_q_msrooms"])
     say("bound", f"fused_taxi {b_taxi[0]:.4f} ms ({b_taxi[1]}); "
         + "; ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in b_rooms.items())
         + "; "
@@ -1093,14 +1500,17 @@ def main() -> int:
             ("fused_rooms", "fused_rooms.cu", "fused_rooms.py:46"),
             ("fused_q_rooms", "fused_qlearning.cu", "fused_qlearning.py:494"),
             ("fused_qlambda_rooms", "fused_qlearning.cu", "fused_qlambda.py:51"),
-            ("fused_ac", "fused_ac.cu", "fused_ac.py:41")):
+            ("fused_ac", "fused_ac.cu", "fused_ac.py:41"),
+            ("fused_msrooms", "fused_msrooms.cu", "fused_msrooms.py:34"),
+            ("fused_q_msrooms", "fused_qlearning.cu", "fused_qlearning.py:710"),
+            ("fused_rocksample", "fused_rocksample.cu", "fused_rocksample.py:40")):
         record.append({
             "name": key,
             "route": "cuda",
             "source": f"gym_po_tpu_torch/csrc/{source}",
             "replaces": f"gym_po_tpu/ops/{replaces}",
             "launches": launches[key],
-            "max_abs_err": max(rooms_errs[key]),
+            "max_abs_err": max({**rooms_errs, **p4_errs}[key]),
             "ms": kern_ms[key],
             "plain_ms": plain_ms[key],
             "bound_ms": b_rooms[key][0],

@@ -11,16 +11,17 @@ Two learners over the same table:
   (``info["terminal_state"]``); ``done`` cuts the bootstrap, truncation
   does not.
 * :func:`fused_q_learning` runs the whole trainer inside the hand-written
-  CUDA kernel of :mod:`gym_po_tpu_torch.ops.fused_qlearning` (Taxi and
-  ROOMS; Q(λ) on ROOMS through :mod:`~gym_po_tpu_torch.ops.fused_qlambda`),
-  chunk by chunk, over an lr/epsilon schedule.
+  CUDA kernel of :mod:`gym_po_tpu_torch.ops.fused_qlearning` (Taxi, ROOMS
+  and MultistoryFourRooms; Q(λ) on ROOMS through
+  :mod:`~gym_po_tpu_torch.ops.fused_qlambda`), chunk by chunk, over an
+  lr/epsilon schedule.
 
 :func:`fused_actor_critic` trains a tabular softmax actor-critic on ROOMS
 inside the kernel of :mod:`gym_po_tpu_torch.ops.fused_ac` the same way.
 
-All run on the env's device.  Not ported yet: the MultistoryFourRooms and
-CRooms branches of ``fused_q_learning`` (ROADMAP Queue 1 items 8 and 9),
-the ``mesh`` of both fused trainers (item 11), and
+All run on the env's device.  Not ported yet: the CRooms branch of
+``fused_q_learning`` (ROADMAP Queue 1 item 9), the ``mesh`` of both fused
+trainers (item 11), and
 ``make_xla_q_chunk_trainer`` with ``chunk_trainer="xla"``, the JAX
 package's stand-in for its kernel on its multi-device CPU test mesh (item
 11).
@@ -125,6 +126,14 @@ def _flat_agents(env, st) -> torch.Tensor:
     return (a[:, 0] * env.grid_np.shape[1] + a[:, 1]).reshape(-1, 128).contiguous()
 
 
+def _flat_agents_zyx(env, st) -> torch.Tensor:
+    """The flat-cell agent tile ``[B // 128, 128]`` of a
+    MultistoryFourRooms state."""
+    a = st.agent_zyx.to(torch.int32)
+    _, H, GW = env.grid_np.shape
+    return (a[:, 0] * H * GW + a[:, 1] * GW + a[:, 2]).reshape(-1, 128).contiguous()
+
+
 def _chunks(seed: int, schedule, chunk_steps: int):
     """``(chunk seed, step sizes)`` per chunk: each schedule phase runs
     ``ceil(num_steps / chunk_steps)`` chunks, chunk ``i`` (from 1) seeded
@@ -143,8 +152,8 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
                      q_init=None, average_duplicates: bool = True,
                      expected_sarsa: bool = False, lam: float = 0.0,
                      trace_len: int = 8, watkins_cut: bool = True, mesh=None):
-    """Tabular Q-learning inside the fused CUDA trainer kernel, on Taxi or
-    ROOMS (with a fixed goal).
+    """Tabular Q-learning inside the fused CUDA trainer kernel, on Taxi,
+    ROOMS or MultistoryFourRooms (with a fixed goal).
 
     ``schedule`` is ``[(lr, epsilon, num_steps), ...]``; each phase runs
     ``ceil(num_steps / chunk_steps)`` chunks of ``chunk_steps`` steps, and
@@ -152,15 +161,18 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
     ``(q [n_obs, n_act] float32 numpy, history)`` with one mean reward per
     step for each chunk.  Options are those of
     :func:`~gym_po_tpu_torch.ops.fused_qlearning.make_fused_q_trainer`;
-    ``expected_sarsa`` is Taxi's alone, and ``lam > 0`` on ROOMS runs
-    :func:`~gym_po_tpu_torch.ops.fused_qlambda.make_fused_qlambda_trainer_rooms`.
+    ``expected_sarsa`` is Taxi's alone, ``lam > 0`` on ROOMS runs
+    :func:`~gym_po_tpu_torch.ops.fused_qlambda.make_fused_qlambda_trainer_rooms`,
+    and MultistoryFourRooms takes neither, as in the JAX package.
     As in the JAX package, ``completed``, ``elapsed`` and the trace restart
     at every chunk.
     """
+    from ..envs.msrooms import MultistoryFourRooms
     from ..envs.rooms import Rooms
     from ..envs.taxi import Taxi
     from ..ops import (
         make_fused_q_trainer,
+        make_fused_q_trainer_msrooms,
         make_fused_q_trainer_rooms,
         make_fused_qlambda_trainer_rooms,
     )
@@ -169,13 +181,15 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
     if mesh is not None:
         raise ValueError("multi-device fused training is not ported yet "
                          "(ROADMAP Queue 1 item 11)")
-    if not isinstance(env, (Taxi, Rooms)):
+    if not isinstance(env, (Taxi, Rooms, MultistoryFourRooms)):
         raise ValueError(
-            f"no fused Q trainer for {type(env).__name__} in the port: Taxi "
-            "and Rooms are ported (MultistoryFourRooms comes with ROADMAP "
-            "Queue 1 item 8, CRooms with item 9)")
+            f"no fused Q trainer for {type(env).__name__} in the port: Taxi, "
+            "Rooms and MultistoryFourRooms are ported (CRooms comes with "
+            "ROADMAP Queue 1 item 9)")
     if expected_sarsa and not isinstance(env, Taxi):
         raise ValueError("expected_sarsa is Taxi-only")
+    if lam > 0.0 and isinstance(env, MultistoryFourRooms):
+        raise ValueError("lam > 0 (Watkins Q(λ)) supports Taxi and Rooms")
     dev = env.device
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed),
                           num_envs)
@@ -187,6 +201,11 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
             watkins_cut=watkins_cut,
         )
         s = st.s.reshape(-1, 128).contiguous()
+    elif isinstance(env, MultistoryFourRooms):
+        run = make_fused_q_trainer_msrooms(
+            env, num_envs, chunk_steps, gamma,
+            average_duplicates=average_duplicates)
+        s = _flat_agents_zyx(env, st)
     else:
         if lam > 0.0:
             run = make_fused_qlambda_trainer_rooms(

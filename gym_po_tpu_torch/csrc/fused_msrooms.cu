@@ -1,0 +1,158 @@
+// Fused K-step MultistoryFourRooms rollout for Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+// gym_po_tpu/ops/fused_msrooms.py::make_fused_msrooms_rollout (a Pallas
+// kernel over [R, 128] VMEM tiles, with the cell codes and both spawn banks
+// stored as stacks of 128-lane rows and every lookup a lane shuffle per
+// row).  It computes what that kernel computes, not its block structure:
+// one thread per env over the flat [B] layout, the K-step loop in registers
+// (agent, goal, elapsed, reward sum and the four episode-stat
+// accumulators), and the step's tables in shared memory: the cell codes
+// [Z * 169 bytes], the ground-floor (agent) and top-floor (goal) spawn
+// banks (104 cells each) and the A flat displacements.  The plain PyTorch
+// twin is gym_po_tpu_torch/ops/fused_msrooms.py.
+//
+// What bounds it on this card: not memory.  Each env reads 8 B of state and
+// writes 8 B (+4 B per f32 output) once per call, whatever K is; the tape,
+// in tape mode, is a test device.  The work is integer: one Philox4x32-10
+// block per step (3-5 draw sites), the u % n of each draw, two or three
+// shared-memory lookups and one division by the floor size.  The respawn
+// choices (random or fixed goal and agent) are template parameters, so
+// every draw site is a compile-time constant.  The step itself is
+// msrooms_step.cuh, shared with the Q trainer.
+//
+// Draw sites, in body order, every step whatever the masks say: commanded
+// action rbits(A), failure coin runiform() < p, alternative action
+// rbits(A - 1), goal respawn from the top-floor bank (random goal only),
+// agent respawn from the ground-floor bank (random agent only).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "kernel_rng.cuh"
+#include "msrooms_step.cuh"
+
+// Mirrored field for field by _MSRoomsParams in ops/fused_msrooms.py.
+struct MSRoomsParams {
+  int32_t num_envs, num_steps, rows_per_tile, n_sites;
+  int32_t ncells, floor_cells, up_to, down_to, n_agent, n_goal, n_act;
+  int32_t time_limit, episode_stats;
+  int32_t fixed_goal, fixed_agent;  // flat cells, -1 when drawn
+  uint32_t key0, key1;
+  float p_fail, r_step, r_wall, r_goal;
+};
+
+namespace {
+
+template <bool kRandGoal, bool kRandAgent>
+__global__ void fused_msrooms_kernel(MSRoomsParams P,
+                                     const int32_t* __restrict__ agent_in,
+                                     const int32_t* __restrict__ goal_in,
+                                     const uint8_t* __restrict__ cell,
+                                     const int32_t* __restrict__ agent_bank,
+                                     const int32_t* __restrict__ goal_bank,
+                                     const int32_t* __restrict__ disp,
+                                     const int32_t* __restrict__ tape,
+                                     int32_t* __restrict__ agent_out,
+                                     int32_t* __restrict__ goal_out,
+                                     float* __restrict__ rew_out,
+                                     float* __restrict__ ep_ret_out,
+                                     float* __restrict__ ep_len_out,
+                                     float* __restrict__ ep_cnt_out) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_abank = smem;
+  int32_t* s_gbank = s_abank + P.n_agent;
+  int32_t* s_disp = s_gbank + P.n_goal;
+  uint8_t* s_cell = reinterpret_cast<uint8_t*>(s_disp + P.n_act);
+  for (int i = threadIdx.x; i < P.n_agent; i += blockDim.x) s_abank[i] = agent_bank[i];
+  for (int i = threadIdx.x; i < P.n_goal; i += blockDim.x) s_gbank[i] = goal_bank[i];
+  for (int i = threadIdx.x; i < P.n_act; i += blockDim.x) s_disp[i] = disp[i];
+  for (int i = threadIdx.x; i < P.ncells; i += blockDim.x) s_cell[i] = cell[i];
+  __syncthreads();
+
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= P.num_envs) return;
+
+  int agent = agent_in[e], goal = goal_in[e];
+  // An agent outside [0, ncells) would index the tables out of bounds.
+  // Such an env reads no table and comes out as agent' = goal' = -1 with
+  // NaN sums, as in the twin.  The goal is only compared, never looked up.
+  if ((unsigned)agent >= (unsigned)P.ncells) {
+    const float nan = __int_as_float(0x7fc00000);
+    agent_out[e] = goal_out[e] = -1;
+    rew_out[e] = nan;
+    if (P.episode_stats) ep_ret_out[e] = ep_len_out[e] = ep_cnt_out[e] = nan;
+    return;
+  }
+  gpt::KernelRNG<2> rng(tape, P.key0, P.key1, e, P.num_steps,
+                        P.rows_per_tile, P.n_sites);
+  const gpt::MSRoomsMap M = {P.ncells, P.floor_cells, P.up_to, P.down_to,
+                             P.time_limit, P.r_step, P.r_wall, P.r_goal};
+  constexpr int kAgentSite = kRandGoal ? 4 : 3;
+  int elapsed = 0;
+  float racc = 0.f, cur_ret = 0.f, ep_ret = 0.f, ep_len = 0.f, ep_cnt = 0.f;
+  for (int t = 0; t < P.num_steps; ++t) {
+    rng.begin_step(t);
+    const int a_cmd = gpt::rbits(rng.draw(0), P.n_act);
+    const bool fail = gpt::runiform(rng.draw(1)) < P.p_fail;
+    const int alt = gpt::rbits(rng.draw(2), P.n_act - 1);
+    const gpt::RoomsMove mv =
+        gpt::msrooms_move(M, s_cell, s_disp, agent, goal,
+                          gpt::rooms_executed(fail, alt, a_cmd), elapsed);
+    // goal first, then agent: the JAX kernel's body order
+    const int g_new =
+        kRandGoal ? s_gbank[gpt::rbits(rng.draw(3), P.n_goal)] : P.fixed_goal;
+    const int a_new =
+        kRandAgent ? s_abank[gpt::rbits(rng.draw(kAgentSite), P.n_agent)]
+                   : P.fixed_agent;
+    goal = mv.reset ? g_new : goal;
+    agent = mv.reset ? a_new : mv.agent;
+    if (P.episode_stats) {
+      cur_ret = cur_ret + mv.rew;
+      if (mv.reset) {
+        ep_ret = ep_ret + cur_ret;
+        ep_len = ep_len + (float)mv.ep_len;
+        ep_cnt = ep_cnt + 1.f;
+        cur_ret = 0.f;
+      }
+    }
+    racc = racc + mv.rew;
+  }
+  agent_out[e] = agent;
+  goal_out[e] = goal;
+  rew_out[e] = racc;
+  if (P.episode_stats) {
+    ep_ret_out[e] = ep_ret;
+    ep_len_out[e] = ep_len;
+    ep_cnt_out[e] = ep_cnt;
+  }
+}
+
+}  // namespace
+
+extern "C" int fused_msrooms_launch(const MSRoomsParams* P, const void* agent_in,
+                                    const void* goal_in, const void* cell,
+                                    const void* agent_bank, const void* goal_bank,
+                                    const void* disp, const void* tape,
+                                    void* agent_out, void* goal_out, void* rew,
+                                    void* ep_ret, void* ep_len, void* ep_cnt,
+                                    void* stream) {
+  const bool rand_goal = P->fixed_goal < 0, rand_agent = P->fixed_agent < 0;
+  if (P->n_sites != 3 + rand_goal + rand_agent || P->n_sites > 8)
+    return (int)cudaErrorInvalidValue;  // KernelRNG<2>
+  const int threads = 256;
+  const int blocks = (P->num_envs + threads - 1) / threads;
+  const size_t smem = sizeof(int32_t) * (P->n_agent + P->n_goal + P->n_act) +
+                      ((P->ncells + 3) / 4) * 4;
+  auto kern = rand_goal ? (rand_agent ? fused_msrooms_kernel<true, true>
+                                      : fused_msrooms_kernel<true, false>)
+                        : (rand_agent ? fused_msrooms_kernel<false, true>
+                                      : fused_msrooms_kernel<false, false>);
+  kern<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      *P, (const int32_t*)agent_in, (const int32_t*)goal_in,
+      (const uint8_t*)cell, (const int32_t*)agent_bank,
+      (const int32_t*)goal_bank, (const int32_t*)disp, (const int32_t*)tape,
+      (int32_t*)agent_out, (int32_t*)goal_out, (float*)rew, (float*)ep_ret,
+      (float*)ep_len, (float*)ep_cnt);
+  return (int)cudaGetLastError();
+}

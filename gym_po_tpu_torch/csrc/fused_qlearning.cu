@@ -1,7 +1,7 @@
 // Fused tabular Q-learning for Hopper (sm_90a): the whole trainer, K steps
 // of acting, stepping and updating, in one launch.
 //
-// Replaces four TPU kernels:
+// Replaces five TPU kernels:
 //  * gym_po_tpu/ops/fused_qlearning.py::make_fused_q_trainer: epsilon-greedy
 //    Q-learning on Taxi's classic and extended maps, Q indexed by state or
 //    by Hansen obs, optional Expected-SARSA target, optional Watkins/Peng
@@ -15,7 +15,11 @@
 //    one-step Q and Watkins/Peng Q(lambda) on ROOMS with a fixed goal, Q
 //    indexed through a per-cell observation table, the update on the
 //    commanded action (entry point fused_q_rooms_launch; lambda = 0 is the
-//    one-step trainer, bit for bit).
+//    one-step trainer, bit for bit);
+//  * gym_po_tpu/ops/fused_qlearning.py::make_fused_q_trainer_msrooms:
+//    one-step Q on MultistoryFourRooms with a fixed goal, over flat zyx
+//    cells with the stair transit, Q indexed like ROOMS (entry point
+//    fused_q_msrooms_launch).
 // All are one kernel templated over the env (its step, its observation
 // index and its action count).  The plain PyTorch twins are
 // gym_po_tpu_torch/ops/fused_qlearning.py, ops/fused_double_q.py and
@@ -48,8 +52,8 @@
 //  * The update sums are the int64 fixed point of tabular.cuh.  Tabular Q
 //    from zeros is full of exact ties among actions, and a one-ulp
 //    difference would flip an argmax.
-//  * The env steps are taxi_step.cuh and rooms_step.cuh, shared with the
-//    rollouts.
+//  * The env steps are taxi_step.cuh, rooms_step.cuh and msrooms_step.cuh,
+//    shared with the rollouts.
 //  * Float arithmetic that the twin rounds per operation (the TD target, the
 //    Expected-SARSA blend, the trace weights) uses __fmul_rn/__fadd_rn/
 //    __fsub_rn, which nvcc never contracts into an FMA.
@@ -59,13 +63,16 @@
 // then the env's: Taxi's task pn, task d0, full-reset cell (rbits(rows) then
 // rbits(cols) when every cell is valid, else one rbits(n_valid)), reset pr,
 // reset dr0; ROOMS' failure coin r24() < int(p * 2^24), alternative action
-// rbits(A - 1), agent respawn (random agent only).
+// rbits(A - 1), agent respawn (random agent only); MultistoryFourRooms' the
+// same three, the respawn from the ground-floor bank always drawn and taken,
+// even where the env has a fixed agent (as the JAX kernel does).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kernel_rng.cuh"
+#include "msrooms_step.cuh"
 #include "rooms_step.cuh"
 #include "tabular.cuh"
 #include "taxi_step.cuh"
@@ -77,7 +84,9 @@ constexpr int kMaxTrace = 64;
 // Mirrored field for field by _QParams in ops/fused_qlearning.py.  Outside
 // the anonymous namespace: the extern "C" entry points take it, and a type
 // with internal linkage would give them internal linkage too.  ROOMS reads
-// rows x cols cells, r_goal, r_bad (a wall bump) and r_any (any other step).
+// rows x cols cells, r_goal, r_bad (a wall bump) and r_any (any other step);
+// MultistoryFourRooms the same, with rows = Z * H, cols = W and the three
+// stair fields.
 struct QParams {
   int32_t num_envs, num_steps, rows_per_tile, n_sites;
   int32_t nlocs, rows, cols, n_valid, all_valid, hansen;
@@ -91,6 +100,9 @@ struct QParams {
   // ROOMS: actions, fixed goal and agent (flat cells; -1: drawn), and the
   // failure threshold int(p * 2^24)
   int32_t n_act, goal, fixed_agent, pfail24;
+  // MultistoryFourRooms: cells per floor, and the in-floor cells that going
+  // up and going down land on
+  int32_t floor_cells, up_to, down_to;
 };
 
 namespace {
@@ -209,6 +221,61 @@ struct RoomsQ {
     const int spawn = fixed_agent >= 0
                           ? fixed_agent
                           : gpt::rooms_spawn(valid, M.n_valid, rng.draw(j + 2));
+    return {mv.agent, mv.reset ? spawn : mv.agent, mv.rew, mv.done, mv.reset};
+  }
+};
+
+// MultistoryFourRooms, A actions: tab = cell codes [ncells], ground-floor
+// cells (the agent's spawn bank), flat displacements [A], observation index
+// per cell [ncells].
+template <int A>
+struct MSRoomsQ {
+  static constexpr int kA = A;
+  static size_t smem_tables(const QParams& P) {
+    const int nc = P.rows * P.cols;
+    return sizeof(int32_t) * (nc + P.n_valid + A) + ((nc + 3) / 4) * 4;
+  }
+  gpt::MSRoomsMap M;
+  const int32_t *obs_t, *bank, *disp;
+  const uint8_t* cell;
+  int n_bank, goal, pfail24;
+
+  __device__ MSRoomsQ(const QParams& P, int32_t* smem, const void* const* tab)
+      : M{P.rows * P.cols, P.floor_cells, P.up_to, P.down_to, P.time_limit,
+          P.r_any, P.r_bad, P.r_goal},
+        n_bank(P.n_valid), goal(P.goal), pfail24(P.pfail24) {
+    const int nc = M.ncells;
+    int32_t* s_obs = smem;
+    int32_t* s_bank = s_obs + nc;
+    int32_t* s_disp = s_bank + P.n_valid;
+    uint8_t* s_cell = reinterpret_cast<uint8_t*>(s_disp + A);
+    const uint8_t* t0 = static_cast<const uint8_t*>(tab[0]);
+    const int32_t* t1 = static_cast<const int32_t*>(tab[1]);
+    const int32_t* t2 = static_cast<const int32_t*>(tab[2]);
+    const int32_t* t3 = static_cast<const int32_t*>(tab[3]);
+    for (int i = threadIdx.x; i < nc; i += blockDim.x) {
+      s_cell[i] = t0[i];
+      s_obs[i] = t3[i];
+    }
+    for (int i = threadIdx.x; i < P.n_valid; i += blockDim.x) s_bank[i] = t1[i];
+    for (int i = threadIdx.x; i < A; i += blockDim.x) s_disp[i] = t2[i];
+    obs_t = s_obs;
+    bank = s_bank;
+    disp = s_disp;
+    cell = s_cell;
+  }
+  __device__ bool in_range(int s) const {
+    return (unsigned)s < (unsigned)M.ncells;
+  }
+  __device__ int obs(int s) const { return obs_t[s]; }
+  template <class RNG>
+  __device__ QStep step(const RNG& rng, int j, int s, int a, int& /*completed*/,
+                        int& elapsed) const {
+    const bool fail = gpt::r24(rng.draw(j)) < pfail24;
+    const int alt = gpt::rbits(rng.draw(j + 1), A - 1);
+    const gpt::RoomsMove mv = gpt::msrooms_move(
+        M, cell, disp, s, goal, gpt::rooms_executed(fail, alt, a), elapsed);
+    const int spawn = bank[gpt::rbits(rng.draw(j + 2), n_bank)];
     return {mv.agent, mv.reset ? spawn : mv.agent, mv.rew, mv.done, mv.reset};
   }
 };
@@ -409,5 +476,12 @@ extern "C" int fused_double_q_launch(Q_LAUNCH_ARGS) {
 extern "C" int fused_q_rooms_launch(Q_LAUNCH_ARGS) {
   if (P->n_act == 8) return launch<2, false, RoomsQ<8>>(Q_LAUNCH_PASS);
   if (P->n_act == 4) return launch<2, false, RoomsQ<4>>(Q_LAUNCH_PASS);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int fused_q_msrooms_launch(Q_LAUNCH_ARGS) {
+  if (P->trace_len != 1) return (int)cudaErrorInvalidValue;
+  if (P->n_act == 4) return launch<2, false, MSRoomsQ<4>>(Q_LAUNCH_PASS);
+  if (P->n_act == 8) return launch<2, false, MSRoomsQ<8>>(Q_LAUNCH_PASS);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,12 @@
-"""Fused tabular Q-learning on Taxi and ROOMS: a hand-written CUDA kernel
-and its twin.
+"""Fused tabular Q-learning on Taxi, ROOMS and MultistoryFourRooms: a
+hand-written CUDA kernel and its twin.
 
 Port of the Pallas kernels
-:func:`gym_po_tpu.ops.fused_qlearning.make_fused_q_trainer` (Taxi) and
+:func:`gym_po_tpu.ops.fused_qlearning.make_fused_q_trainer` (Taxi),
 :func:`gym_po_tpu.ops.fused_qlearning.make_fused_q_trainer_rooms` (ROOMS
-with a fixed goal): K steps of epsilon-greedy acting, the env step, the TD
+with a fixed goal) and
+:func:`gym_po_tpu.ops.fused_qlearning.make_fused_q_trainer_msrooms`
+(MultistoryFourRooms with a fixed goal): K steps of epsilon-greedy acting, the env step, the TD
 target from the state before the reset (Taxi: after the task reset, before
 the full reset), and the batched update ``Q[obs, a] += lr * td`` (summed or
 averaged over duplicates) every step.  Every option of the JAX functions is
@@ -13,7 +15,8 @@ Hansen observation, Expected SARSA, and Watkins or Peng Q(lambda) over a
 ring of the last ``trace_len`` table addresses; on ROOMS Q indexed through
 a per-cell table of the env's own observation, the update on the
 commanded action, and the same Q(lambda)
-(:mod:`gym_po_tpu_torch.ops.fused_qlambda`).
+(:mod:`gym_po_tpu_torch.ops.fused_qlambda`); on MultistoryFourRooms the
+same as on ROOMS over flat zyx cells with the stair transit, one-step.
 
 The kernel (``csrc/fused_qlearning.cu``) is one persistent cooperative
 launch per call, templated over the env; its source note says what bounds
@@ -27,7 +30,8 @@ keeps the JAX package's contract: ``s`` int32 ``[B // 128, 128]``,
 ``q_banks`` f32 ``[nb, 128]``.  The banks are a reshape of the flat table:
 entry ``(obs, a)`` sits at flat index ``a * nsb * 128 + obs``
 (:func:`q_to_banks`, :func:`banks_to_q`).  On ROOMS ``s`` holds flat
-agent cells (``y * W + x``).  ``seed`` is an int (the Philox key).  On a CUDA tensor ``run`` launches the kernel (or raises); on a CPU
+agent cells (``y * W + x``), on MultistoryFourRooms ``z * H * W + y * W +
+x``.  ``seed`` is an int (the Philox key).  On a CUDA tensor ``run`` launches the kernel (or raises); on a CPU
 tensor it runs the twin.
 
 As in the JAX kernels, ``completed``, ``elapsed`` and the trace start from
@@ -45,12 +49,14 @@ import torch
 
 from ._build import count_launch
 from .kernel_rng import MASK32, KernelRNG, W, check_batch
+from .msrooms_dynamics import MSRoomsDynamics
 from .rooms_dynamics import RoomsDynamics
 from .taxi_dynamics import TaxiDynamics
 
 __all__ = [
     "make_fused_q_trainer",
     "make_fused_q_trainer_rooms",
+    "make_fused_q_trainer_msrooms",
     "bank_geometry",
     "fixed_point_sum",
     "q_to_banks",
@@ -146,7 +152,8 @@ class _QParams(ctypes.Structure):
         "r_goal", "r_bad", "r_any", "gamma", "lr", "eps")]
     _fields_ += [("coefs", ctypes.c_float * MAX_TRACE)]
     _fields_ += [(n, ctypes.c_int32) for n in (
-        "n_act", "goal", "fixed_agent", "pfail24")]
+        "n_act", "goal", "fixed_agent", "pfail24", "floor_cells", "up_to",
+        "down_to")]
 
 
 @functools.cache
@@ -267,33 +274,60 @@ class TaxiTrainerSpec(_TrainerSpec, TaxiDynamics):
                      (st.completed, st.elapsed))
 
 
-class RoomsTrainerSpec(_TrainerSpec, RoomsDynamics):
-    """The ROOMS step as the Q trainers see it: a fixed goal, Q indexed by
-    the per-cell observation table, the failure coin ``r24() <
-    int(p_fail * 2**24)``, the agent respawn at the last site.  Shared by
-    this module, :mod:`.fused_qlambda` and :mod:`.fused_ac`."""
+class _CellTrainerSpec(_TrainerSpec):
+    """The ROOMS-family step as the Q trainers see it, over flat cells: a
+    fixed goal, Q indexed by the per-cell observation table, ``elapsed``
+    carried, the failure coin ``r24() < int(p_fail * 2**24)`` and the
+    alternative action, then the agent respawn at the last site
+    (:meth:`respawn`).  A subclass also inherits its env's dynamics."""
 
-    entry = "fused_q_rooms_launch"
-
-    def __init__(self, env, num_envs: int, num_steps: int, what: str):
+    def _init_cells(self, dynamics, env, num_envs: int, num_steps: int,
+                    fixed_goal, what: str) -> None:
+        """Refuse what the kernel does not take, then set up ``dynamics``
+        (the subclass's dynamics class) with the observation table."""
         from ..core import Discrete
 
         if not isinstance(env.observation_space, Discrete):
             raise ValueError(f"{what} needs a Discrete observation space")
-        n_obs = int(env.observation_space.n)
-        if n_obs > NSB * W:
-            raise ValueError(f"n_obs={n_obs} > {NSB * W}: Q banks would "
+        self.n_obs = int(env.observation_space.n)
+        if self.n_obs > NSB * W:
+            raise ValueError(f"n_obs={self.n_obs} > {NSB * W}: Q banks would "
                              f"exceed {NB} rows")
-        if env.fixed_goal_yx is None:
+        if fixed_goal is None:
             raise ValueError(f"{what} requires a fixed goal")
         if int(env.num_actions) * NSB > NB:
             raise ValueError(f"{env.num_actions} actions exceed the {NB}-row "
                              "Q bank")
-        RoomsDynamics.__init__(self, env, obs_table=True)
+        dynamics.__init__(self, env, obs_table=True)
         self._init_batch(num_envs, num_steps)
-        self.n_obs = n_obs
         self.ns = self.ncells
         self.pfail24 = int(self.p_fail * (1 << 24))
+
+    def obs_of(self, tab, s: torch.Tensor) -> torch.Tensor:
+        return tab["obs"][s.long()]
+
+    def carry0(self, s: torch.Tensor):
+        return (torch.zeros_like(s),)  # elapsed
+
+    def q_step(self, rng: KernelRNG, tab, s, a, carry) -> QStep:
+        fail = rng.r24() < self.pfail24
+        alt = rng.rbits(self.n_act - 1)
+        mv = self.move(tab, s, self.goal, self.executed(fail, alt, a), carry[0])
+        spawn = self.respawn(tab, rng)
+        return QStep(mv.agent, torch.where(mv.reset, spawn, mv.agent), mv.rew,
+                     mv.done, mv.reset, (mv.elapsed,))
+
+
+class RoomsTrainerSpec(_CellTrainerSpec, RoomsDynamics):
+    """The ROOMS step as the Q trainers see it: the agent respawn draws a
+    walkable cell, or takes the fixed agent without a draw.  Shared by this
+    module, :mod:`.fused_qlambda` and :mod:`.fused_ac`."""
+
+    entry = "fused_q_rooms_launch"
+
+    def __init__(self, env, num_envs: int, num_steps: int, what: str):
+        self._init_cells(RoomsDynamics, env, num_envs, num_steps,
+                         env.fixed_goal_yx, what)
         # draw sites of the step, after the trainer's own: failure coin,
         # alternative action, agent respawn (fixed spawn: no draw)
         self.n_sites = 2 + int(self.fixed_agent < 0)
@@ -316,19 +350,43 @@ class RoomsTrainerSpec(_TrainerSpec, RoomsDynamics):
         P.r_any, P.r_bad, P.r_goal = self.rewards  # step, wall, goal
         return P
 
-    def obs_of(self, tab, s: torch.Tensor) -> torch.Tensor:
-        return tab["obs"][s.long()]
+    def respawn(self, tab, rng: KernelRNG):
+        return self.spawn(tab, rng) if self.fixed_agent < 0 else self.fixed_agent
 
-    def carry0(self, s: torch.Tensor):
-        return (torch.zeros_like(s),)  # elapsed
 
-    def q_step(self, rng: KernelRNG, tab, s, a, carry) -> QStep:
-        fail = rng.r24() < self.pfail24
-        alt = rng.rbits(self.n_act - 1)
-        mv = self.move(tab, s, self.goal, self.executed(fail, alt, a), carry[0])
-        spawn = self.spawn(tab, rng) if self.fixed_agent < 0 else self.fixed_agent
-        return QStep(mv.agent, torch.where(mv.reset, spawn, mv.agent), mv.rew,
-                     mv.done, mv.reset, (mv.elapsed,))
+class MSRoomsTrainerSpec(_CellTrainerSpec, MSRoomsDynamics):
+    """The MultistoryFourRooms step as the Q trainer sees it: the agent
+    respawn draws a ground-floor cell, and takes it even where the env has
+    a fixed agent, as the JAX kernel does (ROADMAP Queue 3)."""
+
+    entry = "fused_q_msrooms_launch"
+    n_sites = 3  # the step's: failure coin, alternative action, respawn
+
+    def __init__(self, env, num_envs: int, num_steps: int):
+        self._init_cells(MSRoomsDynamics, env, num_envs, num_steps,
+                         env.fixed_goal_zyx, "msrooms Q trainer")
+
+    def kernel_tables(self, device):
+        tab = self.tables_on(device)
+        return tab["cell"], tab["agent_bank"], tab["disp"], tab["obs"]
+
+    def params(self, n_sites: int, nsp: int, nq: int, seed: int, lr: float,
+               epsilon: float, gamma: float, average: bool) -> _QParams:
+        P = _QParams(
+            num_envs=self.num_envs, num_steps=self.num_steps,
+            rows_per_tile=self.R, n_sites=n_sites, rows=self.Z * self.H,
+            cols=self.W, n_valid=self.n_agent, time_limit=self.time_limit,
+            nsp=nsp, nq=nq, average=int(average), trace_len=1,
+            key0=seed & MASK32, key1=(seed >> 32) & MASK32, gamma=gamma,
+            lr=lr, eps=epsilon, n_act=self.n_act, goal=self.goal,
+            fixed_agent=-1, pfail24=self.pfail24, floor_cells=self.HW,
+            up_to=self.up_to, down_to=self.down_to,
+        )
+        P.r_any, P.r_bad, P.r_goal = self.rewards  # step, wall, goal
+        return P
+
+    def respawn(self, tab, rng: KernelRNG):
+        return self.spawn_agent(tab, rng)
 
 
 def first_argmax(vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -536,3 +594,23 @@ def make_fused_q_trainer_rooms(env, num_envs: int, num_steps: int,
     return make_rooms_trainer(env, num_envs, num_steps, gamma,
                               average_duplicates, 0.0, 1, True, rng_tape,
                               "fused_q_rooms", "rooms Q trainer")
+
+
+def make_fused_q_trainer_msrooms(env, num_envs: int, num_steps: int,
+                                 gamma: float = 0.99,
+                                 average_duplicates: bool = False,
+                                 rng_tape: bool = False):
+    """Build ``run(seed, lr, epsilon, agent, q_banks, *tape) -> (agent',
+    q_banks', reward_sums)`` for a :class:`MultistoryFourRooms` env with a
+    fixed goal.
+
+    ``agent`` is the flat zyx cell tile ``[B // 128, 128]``; Q (``[32,
+    128]`` banks, at most 512 observations, so at most 4 floors with mdp
+    obs) is indexed by the observation of the agent's cell, from the env's
+    own observation function, and updated on the commanded action.  The
+    agent respawns from the ground-floor bank, as in the JAX kernel.
+    """
+    spec = MSRoomsTrainerSpec(env, num_envs, num_steps)
+    return _make_trainer(spec, "fused_q_msrooms", gamma, average_duplicates,
+                         False, trace_coefs(gamma, 0.0, 1), False, False,
+                         rng_tape)

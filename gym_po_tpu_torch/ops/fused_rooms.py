@@ -17,6 +17,10 @@ and ``run.n_sites`` are the same.  On a CUDA tensor ``run`` launches the
 kernel (or raises); on a CPU tensor it runs the twin.  Draws follow
 :mod:`gym_po_tpu_torch.ops.kernel_rng` (tape, or Philox keyed on ``seed``).
 As in the JAX kernel, ``elapsed`` starts from zero at every call.
+
+:func:`rooms_family_rollout` is the wrapper and twin around any rooms-family
+rollout kernel and its env step; the MultistoryFourRooms rollout
+(:mod:`.fused_msrooms`) uses it too.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from ._build import count_launch
 from .kernel_rng import MASK32, KernelRNG, W, check_batch
 from .rooms_dynamics import RoomsDynamics
 
-__all__ = ["make_fused_rooms_rollout"]
+__all__ = ["make_fused_rooms_rollout", "rooms_family_rollout"]
 
 
 class _RoomsParams(ctypes.Structure):
@@ -47,11 +51,12 @@ class _RoomsParams(ctypes.Structure):
 
 
 @functools.cache
-def _launcher():
+def _launcher(kernel: str, params_cls, n_tables: int):
     from ._build import load_library
 
-    fn = load_library("fused_rooms").fused_rooms_launch
-    fn.argtypes = [ctypes.POINTER(_RoomsParams)] + [ctypes.c_void_p] * 13
+    fn = getattr(load_library(kernel), f"{kernel}_launch")
+    fn.argtypes = ([ctypes.POINTER(params_cls)]
+                   + [ctypes.c_void_p] * (10 + n_tables))
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,13 +73,29 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
     tile height); ``rng_tape=True`` makes ``run`` take a trailing int32 tape
     of shape ``run.tape_shape`` in place of Philox.
     """
+    dyn = RoomsDynamics(env)
+    return rooms_family_rollout(
+        dyn, "fused_rooms", _RoomsParams, dict(n_valid=dyn.n_valid),
+        ("wall", "valid", "disp"), num_envs, num_steps, rows_per_tile,
+        episode_stats, rng_tape)
+
+
+def rooms_family_rollout(dyn, kernel: str, params_cls, params: dict,
+                         tables, num_envs: int, num_steps: int,
+                         rows_per_tile: int, episode_stats: bool,
+                         rng_tape: bool):
+    """``run`` and its twin for a rollout kernel of the rooms family over
+    the env step ``dyn`` (:class:`RoomsDynamics` or
+    :class:`~gym_po_tpu_torch.ops.msrooms_dynamics.MSRoomsDynamics`).  The
+    kernel ``csrc/<kernel>.cu`` takes ``params_cls`` (the fields every
+    family member shares, and ``params``) and the tables named in
+    ``tables`` after the agent and goal tiles."""
     if num_envs % W:
         raise ValueError("num_envs must be a multiple of 128")
     R = min(rows_per_tile, num_envs // W)
     if num_envs % (R * W):
         raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
     grid = num_envs // (R * W)
-    dyn = RoomsDynamics(env)
     p_fail = np.float32(dyn.p_fail)
     rand_goal, rand_agent = dyn.goal < 0, dyn.fixed_agent < 0
     # draw sites per step, in body order: commanded action, failure coin,
@@ -113,8 +134,8 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
             mv = dyn.move(tab, agent, goal, dyn.executed(fail, alt, a_cmd),
                           elapsed)
             # goal first, then agent: the JAX kernel's body order
-            g_new = dyn.spawn(tab, rng) if rand_goal else dyn.goal
-            a_new = dyn.spawn(tab, rng) if rand_agent else dyn.fixed_agent
+            g_new = dyn.spawn_goal(tab, rng) if rand_goal else dyn.goal
+            a_new = dyn.spawn_agent(tab, rng) if rand_agent else dyn.fixed_agent
             goal = torch.where(mv.reset, g_new, goal)
             agent = torch.where(mv.reset, a_new, mv.agent)
             elapsed = mv.elapsed
@@ -147,13 +168,13 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
         outs += [torch.empty(agent.shape, dtype=torch.float32,
                              device=agent.device) for _ in range(n_out - 2)]
         stats = outs[3:] if episode_stats else [None] * 3
-        P = _RoomsParams(
+        P = params_cls(
             num_envs=num_envs, num_steps=num_steps, rows_per_tile=R,
-            n_sites=n_sites, ncells=dyn.ncells, n_valid=dyn.n_valid,
-            n_act=dyn.n_act, time_limit=dyn.time_limit,
-            episode_stats=int(episode_stats), fixed_goal=dyn.goal,
-            fixed_agent=dyn.fixed_agent, key0=seed & MASK32,
-            key1=(seed >> 32) & MASK32, p_fail=p_fail)
+            n_sites=n_sites, ncells=dyn.ncells, n_act=dyn.n_act,
+            time_limit=dyn.time_limit, episode_stats=int(episode_stats),
+            fixed_goal=dyn.goal, fixed_agent=dyn.fixed_agent,
+            key0=seed & MASK32, key1=(seed >> 32) & MASK32, p_fail=p_fail,
+            **params)
         P.r_step, P.r_wall, P.r_goal = dyn.rewards
 
         def ptr(x):
@@ -161,14 +182,14 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
 
         with torch.cuda.device(agent.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _launcher()(
-                ctypes.byref(P), ptr(agent), ptr(goal), ptr(tab["wall"]),
-                ptr(tab["valid"]), ptr(tab["disp"]),
+            err = _launcher(kernel, params_cls, len(tables))(
+                ctypes.byref(P), ptr(agent), ptr(goal),
+                *(ptr(tab[t]) for t in tables),
                 ptr(tape[0] if rng_tape else None), ptr(outs[0]),
                 ptr(outs[1]), ptr(outs[2]), *map(ptr, stats), stream)
         if err:
-            raise RuntimeError(f"fused_rooms launch failed: CUDA error {err}")
-        count_launch(run, "fused_rooms")
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+        count_launch(run, kernel)
         return tuple(outs)
 
     run.twin = twin

@@ -118,3 +118,5 @@ class RoomsDynamics:
     def spawn(self, tab, rng: KernelRNG) -> torch.Tensor:
         """A uniform walkable cell per env from one draw site."""
         return tab["valid"][rng.rbits(self.n_valid).long()]
+
+    spawn_goal = spawn_agent = spawn  # one bank for both

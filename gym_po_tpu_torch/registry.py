@@ -1,6 +1,7 @@
 """Environment registry, PyTorch port of :mod:`gym_po_tpu.registry`.
 
-The Taxi family and ``Rooms-v0`` are ported so far; ``make`` of any other
+The Taxi family, ``Rooms-v0``, ``MultistoryFourRooms-v0`` and
+``RockSample-v0`` are ported so far; ``make`` of any other
 id raises ``KeyError`` listing what is available.  Every constructor takes the
 JAX package's kwargs plus ``device``.
 """
@@ -34,6 +35,8 @@ def registered_envs():
 
 
 def _register_defaults() -> None:
+    from .envs.msrooms import MultistoryFourRooms
+    from .envs.rocksample import RockSample
     from .envs.rooms import Rooms
     from .envs.taxi import Taxi, EXTENDED_TAXI_MAP
 
@@ -45,6 +48,8 @@ def _register_defaults() -> None:
         lambda **kw: Taxi(map=EXTENDED_TAXI_MAP, hansen_obs=True, **kw),
     )
     register("Rooms-v0", lambda **kw: Rooms(**kw))
+    register("MultistoryFourRooms-v0", lambda **kw: MultistoryFourRooms(**kw))
+    register("RockSample-v0", lambda **kw: RockSample(**kw))
 
 
 _register_defaults()

@@ -17,9 +17,12 @@ from gym_po_tpu_torch.ops import (
     bank_geometry,
     make_fused_ac_trainer_rooms,
     make_fused_double_q_trainer,
+    make_fused_msrooms_rollout,
     make_fused_q_trainer,
+    make_fused_q_trainer_msrooms,
     make_fused_q_trainer_rooms,
     make_fused_qlambda_trainer_rooms,
+    make_fused_rocksample_rollout,
     make_fused_rooms_rollout,
     make_fused_taxi_rollout,
     q_to_banks,
@@ -327,3 +330,149 @@ def test_rooms_trainers_refuse_what_the_kernels_do_not_take(cuda):
             build(gpt_torch.make("Rooms-v0", goal_xy=None), 1024, 8)
         with pytest.raises(ValueError, match="1024"):
             build(gpt_torch.make("Rooms-v0"), 1536, 8)
+
+
+# ------------------------------------------------------ MultistoryFourRooms
+def _msrooms_cells(env, B, seed):
+    """Flat agents on every floor, goals from the top-floor bank (or the
+    fixed one), on the env's device."""
+    rng = np.random.default_rng(seed)
+    walk = np.flatnonzero(env.grid_np.reshape(-1) > 0)
+    agent = rng.choice(walk, B).astype(np.int32)
+    goal = rng.choice(env.valid_goal_states, B).astype(np.int32)
+    if env.fixed_goal_zyx is not None:
+        goal[:] = np.ravel_multi_index(tuple(env.fixed_goal_zyx), env.grid_np.shape)
+    return (torch.as_tensor(agent, device=env.device).reshape(-1, 128),
+            torch.as_tensor(goal, device=env.device).reshape(-1, 128))
+
+
+MSROOMS_CASES = [
+    (dict(grid_z=3), 128, True),
+    (dict(grid_z=3, goal_xyz=None), 4, True),
+    (dict(grid_z=1, action_type="ordinal", agent_xyz=(1, 1, 0)), 4, False),
+]
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("kw,rows_per_tile,stats", MSROOMS_CASES)
+def test_fused_msrooms_kernel_equals_twin(cuda, mode, kw, rows_per_tile, stats):
+    env = gpt_torch.make("MultistoryFourRooms-v0", time_limit=20, **kw)
+    B, K = 8192, 48
+    run = make_fused_msrooms_rollout(env, B, K, rows_per_tile=rows_per_tile,
+                                     episode_stats=stats, rng_tape=mode == "tape")
+    a0, g0 = _msrooms_cells(env, B, 1)
+    tape = _tape(run, 2, cuda) if mode == "tape" else ()
+    got = run(9, a0, g0, *tape)
+    want = run.twin(9, a0, g0, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert torch.unique(got[0]).numel() > 1
+
+
+def test_fused_msrooms_kernel_out_of_range_agent_equals_twin(cuda):
+    env = gpt_torch.make("MultistoryFourRooms-v0", grid_z=2, goal_xyz=None,
+                         time_limit=20)
+    run = make_fused_msrooms_rollout(env, 4096, 32, episode_stats=True)
+    a0, g0 = _msrooms_cells(env, 4096, 3)
+    idx = torch.tensor([0, 777, 4095], device=cuda)
+    a0.view(-1)[idx] = torch.tensor([-1, env.grid_np.size, 2**31 - 1],
+                                    dtype=torch.int32, device=cuda)
+    got, want = run(6, a0, g0), run.twin(6, a0, g0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert (got[0].view(-1)[idx] == -1).all()
+
+
+# env kwargs, averaged duplicates, lr (summed duplicates take a small lr)
+MSROOMS_TRAINER_CASES = [
+    (dict(grid_z=3), True, 0.1),
+    (dict(grid_z=3), False, 0.002),
+    (dict(grid_z=2, action_type="ordinal", obs_type="hansen",
+          agent_xyz=(1, 1, 0)), True, 0.1),
+]
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("kw,average,lr", MSROOMS_TRAINER_CASES)
+def test_msrooms_trainer_kernel_equals_twin(cuda, mode, kw, average, lr):
+    env = gpt_torch.make("MultistoryFourRooms-v0", time_limit=30, **kw)
+    B, K = 8192, 48
+    run = make_fused_q_trainer_msrooms(env, B, K, average_duplicates=average,
+                                       rng_tape=mode == "tape")
+    a0, _ = _msrooms_cells(env, B, 3)
+    tape = _tape(run, 4, cuda) if mode == "tape" else ()
+    A = env.num_actions
+    q = np.zeros((512, A), np.float32)
+    q[:env.observation_space.n] = np.random.default_rng(5).normal(
+        scale=0.1, size=(env.observation_space.n, A))
+    qb = torch.as_tensor(q_to_banks(q), device=cuda)
+    if mode == "philox":
+        qb = torch.zeros_like(qb)  # exact ties among actions
+    got = run(11, lr, 0.3, a0, qb, *tape)
+    want = run.twin(11, lr, 0.3, a0, qb, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert torch.count_nonzero(got[1] != qb) > 0
+    assert all(torch.isfinite(g).all() for g in got)
+
+
+def test_msrooms_trainer_refuses_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError, match="512"):
+        make_fused_q_trainer_msrooms(
+            gpt_torch.make("MultistoryFourRooms-v0", grid_z=5), 1024, 8)
+    with pytest.raises(ValueError, match="fixed goal"):
+        make_fused_q_trainer_msrooms(
+            gpt_torch.make("MultistoryFourRooms-v0", goal_xyz=None), 1024, 8)
+    with pytest.raises(ValueError, match="1024"):
+        make_fused_q_trainer_msrooms(
+            gpt_torch.make("MultistoryFourRooms-v0"), 1536, 8)
+
+
+# --------------------------------------------------------------- RockSample
+def _rocksample_state(env, B, seed):
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, env.rows * env.cols, B).astype(np.int32)
+    mask = rng.integers(0, 1 << env.k, B).astype(np.int32)
+    return (torch.as_tensor(pos, device=env.device).reshape(-1, 128),
+            torch.as_tensor(mask, device=env.device).reshape(-1, 128))
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("map_size,k,stats", [((5, 5), 5, True),
+                                              ((7, 7), 8, False),
+                                              ((11, 11), 11, True)])
+def test_fused_rocksample_kernel_equals_twin(cuda, mode, map_size, k, stats):
+    env = gpt_torch.make("RockSample-v0", map_size=map_size, num_rocks=k,
+                         time_limit=25)
+    B, K = 8192, 48
+    run = make_fused_rocksample_rollout(env, B, K, rows_per_tile=4,
+                                        episode_stats=stats,
+                                        rng_tape=mode == "tape")
+    p0, m0 = _rocksample_state(env, B, 1)
+    tape = _tape(run, 2, cuda) if mode == "tape" else ()
+    got = run(9, p0, m0, *tape)
+    want = run.twin(9, p0, m0, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert (got[2] > 0).any() and (got[2] < 0).any()
+
+
+def test_fused_rocksample_kernel_out_of_range_pos_equals_twin(cuda):
+    env = gpt_torch.make("RockSample-v0", map_size=(7, 7), num_rocks=8)
+    run = make_fused_rocksample_rollout(env, 4096, 32, episode_stats=True)
+    p0, m0 = _rocksample_state(env, 4096, 3)
+    idx = torch.tensor([0, 777, 4095], device=cuda)
+    p0.view(-1)[idx] = torch.tensor([-1, 49, 2**31 - 1], dtype=torch.int32,
+                                    device=cuda)
+    got, want = run(6, p0, m0), run.twin(6, p0, m0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert (got[0].view(-1)[idx] == -1).all()

@@ -38,6 +38,11 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.ops.fused_ac
     import gym_po_tpu_torch.ops.fused_qlambda
     import gym_po_tpu_torch.ops.fused_rooms
+    import gym_po_tpu_torch.ops.fused_msrooms
+    import gym_po_tpu_torch.ops.fused_rocksample
+    import gym_po_tpu_torch.ops.msrooms_dynamics
+    import gym_po_tpu_torch.envs.msrooms
+    import gym_po_tpu_torch.envs.rocksample
     import gym_po_tpu_torch.obs
     import gym_po_tpu_torch.utils
     import gym_po_tpu_torch.vector
@@ -45,6 +50,8 @@ _BLOCKED_IMPORT = textwrap.dedent(
 
     env = gym_po_tpu_torch.make("ExtendedHansenTaxi-v4", device="cpu")
     env = gym_po_tpu_torch.make("Rooms-v0", device="cpu")
+    env = gym_po_tpu_torch.make("MultistoryFourRooms-v0", grid_z=3, device="cpu")
+    env = gym_po_tpu_torch.make("RockSample-v0", device="cpu")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """
@@ -62,7 +69,8 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok"), proc.stdout
     for env_id in ("Taxi-v4", "HansenTaxi-v4", "ExtendedTaxi-v4",
-                   "ExtendedHansenTaxi-v4", "Rooms-v0"):
+                   "ExtendedHansenTaxi-v4", "Rooms-v0", "MultistoryFourRooms-v0",
+                   "RockSample-v0"):
         assert env_id in proc.stdout
 
 
@@ -70,10 +78,10 @@ def test_unported_env_raises_keyerror_listing_available():
     import gym_po_tpu_torch as gpt_torch
 
     with pytest.raises(KeyError, match="Available"):
-        gpt_torch.make("MultistoryFourRooms-v0")
+        gpt_torch.make("CRooms-v0")
     assert gpt_torch.registered_envs() == [
         "ExtendedHansenTaxi-v4", "ExtendedTaxi-v4", "HansenTaxi-v4",
-        "Rooms-v0", "Taxi-v4",
+        "MultistoryFourRooms-v0", "RockSample-v0", "Rooms-v0", "Taxi-v4",
     ]
 
 
