@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths on the card, each through the entry
+Drives the port's five main paths on the card, each through the entry
 points a user calls, with the kernels' launch counts zeroed just before the
 path and read just after:
 
@@ -35,19 +35,30 @@ path and read just after:
    kernel at full width (B = 65,536, K = 256), then MSRooms learning at the
    JAX package's hardware test's schedule through the kernel and the
    ``fused_q_learning`` entry point, the greedy policy evaluated by
-   ``vector.rollout`` over 1,024 envs x 500 steps (> 1.0 goals per env).
+   ``vector.rollout`` over 1,024 envs x 500 steps (> 1.0 goals per env);
+5. the continuous envs: the fused CRooms rollout (``CRooms-v0`` defaults:
+   layout '4', continuous 'yx' actions, no velocity, fixed goal) and the
+   fused point-mass ``TagContinuous-v0`` and ``HeavenHellContinuous-v0``
+   rollouts at the headline's size (B = 2^20, K = 256), the CRooms Q
+   trainer kernel (ordinal actions) at full width (B = 65,536, K = 256),
+   then CRooms learning at the JAX package's hardware test's schedule
+   through the kernel and the ``fused_q_learning`` entry point (the last
+   chunk's reward/step > 0.02).
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
 
 Phases: device; build of ``gym_po_tpu_torch/csrc`` (into
 ``build/gym_po_tpu_torch/``, one nvcc per source, in parallel); Philox
-known answers; every kernel against its plain twin on the card, exact, in
+known answers; the Box-Muller normal's logf/cosf against torch's over every
+uniform a draw can give (counts reported); every kernel against its plain twin on the card, exact, in
 tape mode and in Philox mode; distribution check against the step_vec
 rollout path (Taxi and ROOMS); kernel vs twin at the headline's shape;
 path 1 with the headline timing; path 2 with the trainers' timing and
 learning checks; path 3 with the ROOMS timings and learning checks; path 4
-with the MSRooms and RockSample timings and the MSRooms learning check.
+with the MSRooms and RockSample timings and the MSRooms learning check;
+path 5 with the CRooms, Tag and HeavenHell timings and the CRooms learning
+check.
 The line before the last is the kernels' JSON record; the last line is the
 result.
 """
@@ -102,13 +113,17 @@ SCHED_ROOMS_AC = [(0.1, 0.2)] * 4
 B_QLAMBDA, K_QLAMBDA = 1024, 512
 
 # bounds: H100 SXM memory rate (NVIDIA H100 datasheet); INT32 issue is
-# 16 lanes per SM partition, 4 partitions per SM (Hopper white paper);
-# Philox4x32-10 is 80 INT32 instructions a block (10 rounds of 2 IMUL.HI,
-# 2 IMUL, 2 three-input XOR, 2 key IADD).  Every other integer operation
-# counts as free, so each bound is a lower bound.
+# 16 lanes per SM partition, 4 partitions per SM (Hopper white paper).
+# Philox4x32-10 takes 55 INT32 operations per env for a block of one step:
+# rounds 2-10 are 2 widening products (hi and lo, 4 operations) and 2
+# three-input XORs each; round 1's products take only the env index and the
+# block index (the counter is (env, step, block, 0)), so once per env, and
+# leave one XOR with the step; the key schedule is the same for every env,
+# once per call.  Every other integer operation counts as free, so each
+# bound is a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
-PHILOX_BLOCK_OPS = 80
+PHILOX_BLOCK_OPS = 55
 
 
 def say(phase: str, msg: str) -> None:
@@ -1217,6 +1232,441 @@ def msrooms_path(dev, kern_ms, errs) -> None:
         raise AssertionError("fused Q did not learn MultistoryFourRooms-v0")
 
 
+# ---------------------------------------------- continuous envs (path 5)
+# Path 5: the CRooms rollout on the CRooms-v0 defaults (layout '4': 17x17
+# cells of size 1, 200 walkable; continuous 'yx' actions, s.d. 0.1, power
+# 1.0; no velocity; goal fixed at the layout's end; time limit 500), the
+# point-mass TagContinuous-v0 and HeavenHellContinuous-v0 rollouts (time
+# limit 500) at the headline's size, and the CRooms Q trainer with ordinal
+# actions at the trainers' width.  Fused vs step_vec at the JAX hardware
+# tests' shapes and tolerances (tests/test_fused_crooms.py:56-68,
+# tests/test_fused_tag.py:81-115); learning at the JAX hardware test's
+# schedule and threshold (tests/test_fused_q_crooms.py:73-89).
+CROOMS_SCAN_KW = dict(goal_xy=None, use_velocity=True, step_reward=-0.01,
+                      wall_reward=-0.1)
+B_CROOMS_SCAN, K_CROOMS_SCAN, CROOMS_SCAN_ATOL = 4096, 128, 0.003
+B_TAG_SCAN, TAG_SCAN_ATOL = 8192, 5e-4
+SCHED_CROOMS_Q = SCHED_ROOMS_Q  # one schedule in both JAX hardware tests
+CROOMS_LEARN_MIN = 0.02  # last chunk's reward/step
+
+
+def crooms_tiles(st, vel=None):
+    """``(py, px, vy, vx, gy, gx)`` tiles of a CRooms state (``vel`` in
+    place of its velocities)."""
+    vel = st.vel_yx if vel is None else vel
+    cols = (st.agent_yx[:, 0], st.agent_yx[:, 1], vel[:, 0], vel[:, 1],
+            st.goal_yx[:, 0], st.goal_yx[:, 1])
+    return tuple(c.reshape(-1, 128).contiguous() for c in cols)
+
+
+def tag_tiles(st):
+    return tuple(c.reshape(-1, 128).contiguous() for c in (
+        st.agent_xy[:, 0], st.agent_xy[:, 1], st.target_xy[:, 0],
+        st.target_xy[:, 1]))
+
+
+def hh_tiles(st):
+    return (st.agent_xy[:, 0].reshape(-1, 128).contiguous(),
+            st.agent_xy[:, 1].reshape(-1, 128).contiguous(),
+            st.heaven_right.to(torch.int32).reshape(-1, 128))
+
+
+def random_vel(env, gen, B):
+    """Velocities uniform in [-1, 1) when the env integrates them, else
+    None (the reset's zeros)."""
+    if not env.use_velocity:
+        return None
+    return torch.rand((B, 2), generator=gen, device=env.device) * 2 - 1
+
+
+def check_crooms(env, py, px, vy=None, vx=None) -> None:
+    """Every agent in [0, pos_hi] on a walkable cell, speeds within 5.  At
+    a cell size other than 1 only finiteness is held: the reference's
+    spawns place agents at cell centers of size 1 (a quirk the port keeps),
+    which may lie past the grid until the first move clips them."""
+    if vy is not None and not ((vy.abs() <= 5) & (vx.abs() <= 5)).all():
+        raise AssertionError("CRooms velocity past its clip")
+    if env.cell_size != 1.0:
+        if not (torch.isfinite(py).all() and torch.isfinite(px).all()):
+            raise AssertionError("CRooms position not finite")
+        return
+    hi = env._pos_hi.astype(np.float32)
+    if not (((py >= 0) & (py <= float(hi[0])) & (px >= 0)
+             & (px <= float(hi[1]))).all()):
+        raise AssertionError("CRooms position out of range")
+    cy = torch.floor(py / env.cell_size).long().reshape(-1)
+    cx = torch.floor(px / env.cell_size).long().reshape(-1)
+    grid = torch.as_tensor(env.grid_np, device=py.device)
+    if not (grid[cy, cx] >= 0).all():
+        raise AssertionError("CRooms agent rests inside a wall")
+
+
+def check_tag(a0, a1, t0, t1) -> None:
+    from gym_po_tpu_torch.envs.tag import CAGE
+
+    if not all((x.abs() <= CAGE).all() for x in (a0, a1, t0, t1)):
+        raise AssertionError("Tag agent or target outside the cage")
+
+
+def check_hh(x, y, h) -> None:
+    from gym_po_tpu_torch.envs.tag import BAR, STEM
+
+    stem = (x >= STEM[0]) & (x <= STEM[1]) & (y >= STEM[2]) & (y <= STEM[3])
+    bar = (x >= BAR[0]) & (x <= BAR[1]) & (y >= BAR[2]) & (y <= BAR[3])
+    if not (stem | bar).all():
+        raise AssertionError("HeavenHell agent outside the T-maze")
+    if not ((h == 0) | (h == 1)).all():
+        raise AssertionError("HeavenHell heaven flag not 0/1")
+
+
+# env kwargs (time limit 40), rows_per_tile (B = 65,536: 4 or 512 tiles),
+# episode stats: fixed and random goal, with and without velocity
+CROOMS_ROLLOUT_CASES = [
+    ({}, 128, False),
+    (dict(use_velocity=True), 1, True),
+    (dict(goal_xy=None), 128, True),
+    (dict(goal_xy=None, use_velocity=True, layout="16", cell_size=0.5,
+          agent_xy=(1, 1), step_reward=-0.01, wall_reward=-0.1), 128, False),
+]
+# env kwargs (time limit 60), averaged duplicates, lr: summed duplicates take
+# a small lr (hundreds of terms per entry per step at B = 65,536)
+CROOMS_TRAINER_CASES = [
+    (dict(action_type="ordinal"), True, 0.1),
+    (dict(action_type="ordinal", use_velocity=True), False, 0.0002),
+    (dict(action_type="ordinal", use_velocity=True, agent_xy=(1, 1)), True, 0.1),
+    (dict(action_type="cardinal", obs_type="hansen", step_reward=-0.01),
+     False, 0.0002),
+]
+
+
+def libm_check(dev) -> None:
+    """The Box-Muller normal over every uniform a draw can give
+    (u = k 2^-24, k < 2^24, the second uniform a permutation of the first):
+    the kernels' logf, cosf and gpt::rnormal (``rnormal_parts_launch`` in
+    ``csrc/fused_crooms.cu``) against the twin's ``torch.log``/``torch.cos``
+    on the card and its ``rnormal`` formula.  Prints the counts of values
+    that differ; the kernel == twin checks are the gate."""
+    import ctypes
+    import math
+
+    from gym_po_tpu_torch.ops import kernel_rng
+    from gym_po_tpu_torch.ops._build import load_library
+    from gym_po_tpu_torch.utils.numerics import sqrt_rn
+
+    fn = load_library("fused_crooms").rnormal_parts_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = 1 << 24
+    k = torch.arange(n, dtype=torch.int64, device=dev)
+    perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(8),
+                          device=dev)
+    words = k << 8
+    w1 = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    w2 = w1[perm].contiguous()
+    lg, cs, nrm = (torch.empty(n, device=dev) for _ in range(3))
+    err = fn(w1.data_ptr(), w2.data_ptr(), lg.data_ptr(), cs.data_ptr(),
+             nrm.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rnormal_parts_launch failed: CUDA error {err}")
+    u1 = k.to(torch.float32) * (2.0**-24)
+    u2 = u1[perm]
+    t_lg = kernel_rng._log(torch.clamp(u1, min=1e-12))
+    t_cs = kernel_rng._cos(torch.tensor(2.0 * math.pi, dtype=torch.float32) * u2)
+    t_nrm = sqrt_rn(-2.0 * t_lg) * t_cs
+    torch.cuda.synchronize()
+    counts = [int((a != b).sum()) for a, b in ((lg, t_lg), (cs, t_cs),
+                                               (nrm, t_nrm))]
+    say("libm", f"over all 2^24 uniforms: logf != torch.log at {counts[0]}, "
+        f"cosf(2 pi u) != torch.cos at {counts[1]}, rnormal != twin at "
+        f"{counts[2]} (max abs {(nrm - t_nrm).abs().max().item():.3e})")
+
+
+def path5_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
+    """The four path-5 kernels == their twins, exactly, on a random tape and
+    in Philox mode (B = 65,536, K = 64; the trainer from a random Q)."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import (
+        make_fused_crooms_rollout,
+        make_fused_heavenhell_rollout,
+        make_fused_q_trainer_crooms,
+        make_fused_tag_rollout,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(71)
+
+    def tape_for(run, mode):
+        if mode != "tape":
+            return ()
+        return (torch.randint(-2**31, 2**31, run.tape_shape, generator=gen,
+                              dtype=torch.int32, device=dev),)
+
+    for mode in ("tape", "philox"):
+        for kw, rpt, stats in CROOMS_ROLLOUT_CASES:
+            env = gp.make("CRooms-v0", time_limit=40, device=dev, **kw)
+            run = make_fused_crooms_rollout(env, B, K, rows_per_tile=rpt,
+                                            episode_stats=stats,
+                                            rng_tape=mode == "tape")
+            _, st = env.reset_vec(gen, B)
+            s6 = crooms_tiles(st, random_vel(env, gen, B))
+            tape = tape_for(run, mode)
+            got, want = run(3, *s6, *tape), run.twin(3, *s6, *tape)
+            torch.cuda.synchronize()
+            name = f"CRooms-v0 {kw} rows_per_tile={rpt}" + (
+                " episode_stats" if stats else "") + f" {mode}"
+            compare(name, got, want, errs["fused_crooms"])
+            check_crooms(env, *got[:4])
+            if stats and got[9].sum().item() == 0:
+                raise AssertionError(f"{name}: no episode completed")
+            hit = (f", zero-speed share {(got[2] == 0).double().mean().item():.4f}"
+                   if env.use_velocity else "")
+            say("crooms-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
+                f"mean reward/step {got[6].mean().item() / K:.6f}{hit}")
+        for rpt, stats in ((128, False), (1, True)):
+            env = gp.make("TagContinuous-v0", time_limit=40, device=dev)
+            run = make_fused_tag_rollout(env, B, K, rows_per_tile=rpt,
+                                         episode_stats=stats,
+                                         rng_tape=mode == "tape")
+            s4 = tag_tiles(env.reset_vec(gen, B)[1])
+            tape = tape_for(run, mode)
+            got, want = run(3, *s4, *tape), run.twin(3, *s4, *tape)
+            torch.cuda.synchronize()
+            name = f"TagContinuous-v0 rows_per_tile={rpt}" + (
+                " episode_stats" if stats else "") + f" {mode}"
+            compare(name, got, want, errs["fused_tag"])
+            check_tag(*got[:4])
+            say("tag-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
+                f"mean reward/step {got[4].mean().item() / K:.6f}")
+
+            env = gp.make("HeavenHellContinuous-v0", time_limit=40, device=dev)
+            run = make_fused_heavenhell_rollout(env, B, K, rows_per_tile=rpt,
+                                                episode_stats=not stats,
+                                                rng_tape=mode == "tape")
+            s3 = hh_tiles(env.reset_vec(gen, B)[1])
+            tape = tape_for(run, mode)
+            got, want = run(3, *s3, *tape), run.twin(3, *s3, *tape)
+            torch.cuda.synchronize()
+            name = f"HeavenHellContinuous-v0 rows_per_tile={rpt}" + (
+                " episode_stats" if not stats else "") + f" {mode}"
+            compare(name, got, want, errs["fused_heavenhell"])
+            check_hh(*got[:3])
+            if got[2].dtype != torch.int32:
+                raise AssertionError(f"{name}: heaven tile is {got[2].dtype}")
+            say("heavenhell-check", f"kernel == twin exactly: {name}, B={B} "
+                f"K={K}, mean reward/step {got[3].mean().item() / K:.6f}, "
+                f"heaven share {got[2].double().mean().item():.4f}")
+        for kw, avg, lr in CROOMS_TRAINER_CASES:
+            env = gp.make("CRooms-v0", time_limit=60, device=dev, **kw)
+            run = make_fused_q_trainer_crooms(env, B, K, average_duplicates=avg,
+                                              rng_tape=mode == "tape")
+            _, st = env.reset_vec(gen, B)
+            s4 = crooms_tiles(st, random_vel(env, gen, B))[:4]
+            q0 = 0.1 * torch.randn((32, 128), generator=gen, device=dev)
+            tape = tape_for(run, mode)
+            got = run(3, lr, 0.3, *s4, q0, *tape)
+            want = run.twin(3, lr, 0.3, *s4, q0, *tape)
+            torch.cuda.synchronize()
+            name = (f"fused_q_crooms {kw} {'averaged' if avg else 'summed'} "
+                    f"{mode}")
+            compare(name, got, want, errs["fused_q_crooms"])
+            check_crooms(env, *got[:4])
+            moved = int((got[4] != q0).sum())
+            if not 0 < moved < q0.numel():
+                raise AssertionError(f"{name}: Q moved nowhere or everywhere")
+            say("crooms-trainer-check", f"kernel == twin exactly: {name}, "
+                f"B={B} K={K} lr={lr} eps=0.3: entries moved {moved}, mean "
+                f"reward/step {got[5].mean().item() / K:.6f}")
+
+
+def path5_distribution_checks(dev) -> None:
+    """Philox-mode rollouts against the step_vec path, at the JAX hardware
+    tests' shapes and tolerances: mean reward/step."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import (
+        make_fused_crooms_rollout,
+        make_fused_heavenhell_rollout,
+        make_fused_tag_rollout,
+    )
+    from gym_po_tpu_torch.vector import rollout
+
+    cases = (
+        ("CRooms-v0", CROOMS_SCAN_KW, make_fused_crooms_rollout, crooms_tiles,
+         B_CROOMS_SCAN, K_CROOMS_SCAN, CROOMS_SCAN_ATOL),
+        ("TagContinuous-v0", {}, make_fused_tag_rollout, tag_tiles,
+         B_TAG_SCAN, K_HEAD, TAG_SCAN_ATOL),
+        ("HeavenHellContinuous-v0", {}, make_fused_heavenhell_rollout, hh_tiles,
+         B_TAG_SCAN, K_HEAD, TAG_SCAN_ATOL))
+    for env_id, kw, make, tiles, B, K, atol in cases:
+        env = gp.make(env_id, device=dev, **kw)
+        run = make(env, B, K, episode_stats=True)
+        _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B)
+        out = run(5, *tiles(st))
+        n = len(tiles(st))
+        fused_mean = out[n].double().mean().item() / K
+        traj, _ = rollout(env, torch.Generator(device=dev).manual_seed(1), None,
+                          B, K)
+        scan_mean = traj.reward.double().mean().item()
+        say("path5-distribution", f"{env_id} {kw or ''} B={B} K={K}: mean "
+            f"reward/step fused {fused_mean:.6f} vs step_vec {scan_mean:.6f} "
+            f"(limit {atol}); fused episodes/env "
+            f"{out[n + 3].double().mean().item():.4f}")
+        if abs(fused_mean - scan_mean) >= atol:
+            raise AssertionError(f"{env_id} kernel's distribution differs "
+                                 "from step_vec")
+
+
+def path5_trainer_philox(dev, errs, plain_ms) -> None:
+    """The CRooms Q trainer kernel == its twin at full width in Philox mode
+    from a zero Q (``CRooms-v0`` with ordinal actions), the twin's ms/call
+    timed the way the kernel is, from the same calls."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import make_fused_q_trainer_crooms
+
+    env = gp.make("CRooms-v0", action_type="ordinal", device=dev)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(4), B_TRAIN)
+    s4 = crooms_tiles(st)[:4]
+    run = make_fused_q_trainer_crooms(env, B_TRAIN, K_TRAIN,
+                                      average_duplicates=True)
+    q0 = torch.zeros((32, 128), device=dev)
+    outs = []
+    plain_ms["fused_q_crooms"] = event_windows(
+        lambda i: outs.append(run.twin(100 + i, LR_TRAIN, EPS_TRAIN, *s4, q0)),
+        windows=3, calls=1)
+    got = run(100, LR_TRAIN, EPS_TRAIN, *s4, q0)
+    torch.cuda.synchronize()
+    compare("fused_q_crooms Philox", got, outs[0], errs)
+    check_crooms(env, *got[:4])
+    say("crooms-trainer-philox", f"kernel == twin exactly: fused_q_crooms "
+        f"CRooms-v0 ordinal B={B_TRAIN} K={K_TRAIN} lr={LR_TRAIN} "
+        f"eps={EPS_TRAIN} averaged, from Q = 0, grid {run.grid} (blocks, "
+        f"envs/thread); twin {plain_ms['fused_q_crooms']:.3f} ms/call")
+
+
+def path5_headline_checks(dev, errs, plain_ms):
+    """The three rollout kernels against their twins at the headline's
+    shape (B = 2^20, K = 256, the registry defaults; the twins' first timed
+    call), exact, not counted.  Returns ``{key: (run, env, state)}``."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import (
+        make_fused_crooms_rollout,
+        make_fused_heavenhell_rollout,
+        make_fused_tag_rollout,
+    )
+
+    heads = {}
+    for key, env_id, make, tiles in (
+            ("fused_crooms", "CRooms-v0", make_fused_crooms_rollout,
+             crooms_tiles),
+            ("fused_tag", "TagContinuous-v0", make_fused_tag_rollout, tag_tiles),
+            ("fused_heavenhell", "HeavenHellContinuous-v0",
+             make_fused_heavenhell_rollout, hh_tiles)):
+        env = gp.make(env_id, device=dev)
+        run = make(env, B_HEAD, K_HEAD)
+        state = tiles(env.reset_vec(torch.Generator(device=dev).manual_seed(0),
+                                    B_HEAD)[1])
+        twin_out = []
+        plain_ms[key] = 1e3 * time_windows(
+            lambda i: twin_out.append(run.twin(100 + i, *state)), windows=3,
+            calls=1)
+        compare(f"{key} headline shape B={B_HEAD} K={K_HEAD}", run(100, *state),
+                twin_out[0], errs[key])
+        del twin_out
+        heads[key] = (run, env, state)
+        say("path5-headline-check", f"kernel == twin exactly: {key} {env_id} "
+            f"B={B_HEAD} K={K_HEAD}, Philox mode; twin {plain_ms[key]:.3f} "
+            "ms/call")
+    return heads
+
+
+def path5_rollout_times(card, heads, kern_ms) -> None:
+    """The counted rollout timings at B = 2^20, K = 256."""
+    checks = {"fused_crooms": lambda env, s: check_crooms(env, *s[:4]),
+              "fused_tag": lambda env, s: check_tag(*s),
+              "fused_heavenhell": lambda env, s: check_hh(*s)}
+    steps = B_HEAD * K_HEAD
+    for key, (run, env, state) in heads.items():
+        carry = {"s": state}
+
+        def call(i):
+            carry["s"] = run(1000 + i, *carry["s"])[:len(state)]
+
+        call(-1)  # warm-up
+        kern_ms[key] = 1e3 * time_windows(call, windows=5, calls=4)
+        checks[key](env, carry["s"])
+        say("path5-headline", f"fused rollout {key} {type(env).__name__} "
+            f"B={B_HEAD} K={K_HEAD} "
+            f"on {card}: kernel {steps / kern_ms[key] * 1e3:.6e} env-steps/s "
+            f"({kern_ms[key]:.4f} ms/call, median of 5 windows x 4 calls)")
+
+
+def crooms_trainer_path(dev, kern_ms, errs) -> None:
+    """Path 5's trainer part (counted): the CRooms Q trainer at full width
+    (timed), then learning at the JAX hardware test's schedule through the
+    kernel (the first chunk held against its twin) and through
+    ``fused_q_learning``; the last chunk's reward/step > 0.02."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import fused_q_learning
+    from gym_po_tpu_torch.ops import banks_to_q, make_fused_q_trainer_crooms
+
+    env = gp.make("CRooms-v0", action_type="ordinal", device=dev)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(5), B_TRAIN)
+    run = make_fused_q_trainer_crooms(env, B_TRAIN, K_TRAIN,
+                                      average_duplicates=True)
+    carry = {"s": crooms_tiles(st)[:4], "q": torch.zeros((32, 128), device=dev)}
+
+    def call(i):
+        *s, carry["q"], _ = run(1000 + i, LR_TRAIN, EPS_TRAIN, *carry["s"],
+                                carry["q"])
+        carry["s"] = s
+
+    call(-1)  # warm-up
+    kern_ms["fused_q_crooms"] = event_windows(call, windows=5, calls=4)
+    check_crooms(env, *carry["s"])
+    if not torch.isfinite(carry["q"]).all():
+        raise AssertionError("fused_q_crooms: non-finite Q")
+    say("crooms-trainer-time", f"fused_q_crooms CRooms-v0 ordinal B={B_TRAIN} "
+        f"K={K_TRAIN} ({LR_TRAIN}, {EPS_TRAIN}) averaged: "
+        f"{kern_ms['fused_q_crooms']:.4f} ms/call, "
+        f"{B_TRAIN * K_TRAIN / kern_ms['fused_q_crooms'] * 1e3:.6e} "
+        f"train-steps/s (CUDA events, median of 5 windows x 4 chained calls)")
+
+    # the JAX hardware test's loop: reset positions, zero velocities, zero Q
+    t0 = time.perf_counter()
+    run = make_fused_q_trainer_crooms(env, B_LEARN, K_LEARN,
+                                      average_duplicates=True)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B_LEARN)
+    s = list(crooms_tiles(st)[:4])
+    s[2], s[3] = torch.zeros_like(s[2]), torch.zeros_like(s[3])
+    qb = torch.zeros((32, 128), device=dev)
+    rates = []
+    for i, (lr, eps) in enumerate(SCHED_CROOMS_Q):
+        want = run.twin(i + 1, lr, eps, *s, qb) if i == 0 else None
+        *s, qb, rew = run(i + 1, lr, eps, *s, qb)
+        rates.append(rew.double().mean().item() / K_LEARN)
+        if want is not None:
+            torch.cuda.synchronize()
+            compare("fused Q on CRooms-v0, chunk 1", (*s, qb, rew), want, errs)
+            say("crooms-learning", f"kernel == twin exactly: fused Q on "
+                f"CRooms-v0 ordinal, chunk 1, B={B_LEARN} K={K_LEARN} "
+                f"lr/eps {lr}/{eps}, grid {run.grid} (blocks, envs/thread)")
+            del want
+    check_crooms(env, *s)
+    n_obs, A = int(env.observation_space.n), env.num_actions
+    q = banks_to_q(qb.cpu().numpy(), 512, na=A)[:n_obs]
+    q2, hist = fused_q_learning(
+        env, 0, [(lr, eps, K_LEARN) for lr, eps in SCHED_CROOMS_Q],
+        num_envs=B_LEARN, chunk_steps=K_LEARN, average_duplicates=True)
+    if not np.array_equal(q, q2):
+        raise AssertionError("fused_q_learning differs from the kernel loop")
+    say("crooms-learning", f"fused Q on CRooms-v0 ordinal, B={B_LEARN}, 4 "
+        f"chunks of K={K_LEARN} {SCHED_CROOMS_Q} (lr, eps): reward/step per "
+        f"chunk {', '.join(f'{r:.6f}' for r in rates)} (last > "
+        f"{CROOMS_LEARN_MIN}); fused_q_learning: the same table, "
+        f"{', '.join(f'{h:.6f}' for h in hist)}; took "
+        f"{time.perf_counter() - t0:.2f} s")
+    if rates[-1] <= CROOMS_LEARN_MIN or hist[-1] <= CROOMS_LEARN_MIN:
+        raise AssertionError("fused Q did not learn CRooms-v0")
+
+
 def bound(nbytes: float, int_ops: float) -> tuple:
     """(ms, what bounds it): the larger of bytes over the memory rate and
     INT32 instructions over the card's issue rate at its top SM clock."""
@@ -1230,6 +1680,7 @@ def bound(nbytes: float, int_ops: float) -> tuple:
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1238,6 +1689,7 @@ def main() -> int:
     from gym_po_tpu_torch.entry import entry
     from gym_po_tpu_torch.ops import (
         KernelRNG,
+        make_fused_q_trainer_crooms,
         make_fused_taxi_rollout,
         philox4x32_10,
     )
@@ -1251,7 +1703,8 @@ def main() -> int:
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     sources = ("fused_taxi", "fused_qlearning", "fused_rooms", "fused_ac",
-               "fused_msrooms", "fused_rocksample")
+               "fused_msrooms", "fused_rocksample", "fused_crooms",
+               "fused_q_crooms", "fused_tag")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_library, sources))  # one nvcc each, together
@@ -1294,6 +1747,12 @@ def main() -> int:
     path4_distribution_checks(dev)
     msrooms_trainer_checks(dev, p4_errs["fused_q_msrooms"], plain_ms,
                            rooms_terms)
+    p5_errs = {k: [] for k in ("fused_crooms", "fused_tag", "fused_heavenhell",
+                               "fused_q_crooms")}
+    libm_check(dev)
+    path5_checks(dev, p5_errs)
+    path5_distribution_checks(dev)
+    path5_trainer_philox(dev, p5_errs["fused_q_crooms"], plain_ms)
 
     # plain versions first: the twin of the headline kernel, and the
     # step_vec rollout path
@@ -1418,6 +1877,19 @@ def main() -> int:
         launches[key] = LAUNCHES[key]
         if launches[key] <= 0:
             raise AssertionError(f"path 4 did not go through {key}")
+
+    # path 5, the continuous envs.  Plain versions first: the rollout twins
+    # at the headline's shape (their first calls held against the kernels,
+    # not counted); then, counted, the rollouts, the CRooms trainer and the
+    # CRooms learning run
+    heads5 = path5_headline_checks(dev, p5_errs, plain_ms)
+    LAUNCHES.clear()
+    path5_rollout_times(card, heads5, kern_ms)
+    crooms_trainer_path(dev, kern_ms, p5_errs["fused_q_crooms"])
+    for key in p5_errs:
+        launches[key] = LAUNCHES[key]
+        if launches[key] <= 0:
+            raise AssertionError(f"path 5 did not go through {key}")
     say("launches", "on the main paths: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
 
@@ -1458,6 +1930,21 @@ def main() -> int:
     b_rooms["fused_q_msrooms"] = bound(
         12 * B_TRAIN + 8 * 32 * 128,
         PHILOX_BLOCK_OPS * 2 * B_TRAIN * K_TRAIN + 3 * rooms_terms["fused_q_msrooms"])
+    # path 5: the rollouts read their state tiles and write them and the
+    # reward sums once per env (CRooms 24 + 28 B, Tag 16 + 20, HeavenHell
+    # 12 + 16), their Philox blocks per env-step (3, 6, 2); the CRooms
+    # trainer reads 16 B and writes 20 B per env, Q in and out, 4 blocks per
+    # env-step and 3 per update term, one term per env-step (every env is
+    # live every step).  The transcendentals are not counted.
+    for key, nbytes in (("fused_crooms", 52), ("fused_tag", 36),
+                        ("fused_heavenhell", 28)):
+        b_rooms[key] = bound(nbytes * B_HEAD, PHILOX_BLOCK_OPS * philox_blocks(
+            heads5[key][0].n_sites) * B_HEAD * K_HEAD)
+    run_q = make_fused_q_trainer_crooms(
+        gp.make("CRooms-v0", action_type="ordinal", device=dev), B_TRAIN, K_TRAIN)
+    b_rooms["fused_q_crooms"] = bound(
+        36 * B_TRAIN + 8 * 32 * 128,
+        (PHILOX_BLOCK_OPS * philox_blocks(run_q.n_sites) + 3) * B_TRAIN * K_TRAIN)
     say("bound", f"fused_taxi {b_taxi[0]:.4f} ms ({b_taxi[1]}); "
         + "; ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in b_rooms.items())
         + "; "
@@ -1503,20 +1990,25 @@ def main() -> int:
             ("fused_ac", "fused_ac.cu", "fused_ac.py:41"),
             ("fused_msrooms", "fused_msrooms.cu", "fused_msrooms.py:34"),
             ("fused_q_msrooms", "fused_qlearning.cu", "fused_qlearning.py:710"),
-            ("fused_rocksample", "fused_rocksample.cu", "fused_rocksample.py:40")):
+            ("fused_rocksample", "fused_rocksample.cu", "fused_rocksample.py:40"),
+            ("fused_crooms", "fused_crooms.cu", "fused_crooms.py:36"),
+            ("fused_tag", "fused_tag.cu", "fused_tag.py:59"),
+            ("fused_heavenhell", "fused_tag.cu", "fused_tag.py:219"),
+            ("fused_q_crooms", "fused_q_crooms.cu", "fused_q_crooms.py:35")):
         record.append({
             "name": key,
             "route": "cuda",
             "source": f"gym_po_tpu_torch/csrc/{source}",
             "replaces": f"gym_po_tpu/ops/{replaces}",
             "launches": launches[key],
-            "max_abs_err": max({**rooms_errs, **p4_errs}[key]),
+            "max_abs_err": max({**rooms_errs, **p4_errs, **p5_errs}[key]),
             "ms": kern_ms[key],
             "plain_ms": plain_ms[key],
             "bound_ms": b_rooms[key][0],
             "bound_by": b_rooms[key][1],
             "library_ms": None,
         })
+    say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

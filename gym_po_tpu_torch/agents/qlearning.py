@@ -13,15 +13,15 @@ Two learners over the same table:
 * :func:`fused_q_learning` runs the whole trainer inside the hand-written
   CUDA kernel of :mod:`gym_po_tpu_torch.ops.fused_qlearning` (Taxi, ROOMS
   and MultistoryFourRooms; Q(λ) on ROOMS through
-  :mod:`~gym_po_tpu_torch.ops.fused_qlambda`), chunk by chunk, over an
+  :mod:`~gym_po_tpu_torch.ops.fused_qlambda`; CRooms through
+  :mod:`~gym_po_tpu_torch.ops.fused_q_crooms`), chunk by chunk, over an
   lr/epsilon schedule.
 
 :func:`fused_actor_critic` trains a tabular softmax actor-critic on ROOMS
 inside the kernel of :mod:`gym_po_tpu_torch.ops.fused_ac` the same way.
 
-All run on the env's device.  Not ported yet: the CRooms branch of
-``fused_q_learning`` (ROADMAP Queue 1 item 9), the ``mesh`` of both fused
-trainers (item 11), and
+All run on the env's device.  Not ported yet: the ``mesh`` of both fused
+trainers (ROADMAP Queue 1 item 11), and
 ``make_xla_q_chunk_trainer`` with ``chunk_trainer="xla"``, the JAX
 package's stand-in for its kernel on its multi-device CPU test mesh (item
 11).
@@ -153,7 +153,8 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
                      expected_sarsa: bool = False, lam: float = 0.0,
                      trace_len: int = 8, watkins_cut: bool = True, mesh=None):
     """Tabular Q-learning inside the fused CUDA trainer kernel, on Taxi,
-    ROOMS or MultistoryFourRooms (with a fixed goal).
+    ROOMS, MultistoryFourRooms or CRooms with a discrete action type (each
+    with a fixed goal).
 
     ``schedule`` is ``[(lr, epsilon, num_steps), ...]``; each phase runs
     ``ceil(num_steps / chunk_steps)`` chunks of ``chunk_steps`` steps, and
@@ -163,15 +164,19 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
     :func:`~gym_po_tpu_torch.ops.fused_qlearning.make_fused_q_trainer`;
     ``expected_sarsa`` is Taxi's alone, ``lam > 0`` on ROOMS runs
     :func:`~gym_po_tpu_torch.ops.fused_qlambda.make_fused_qlambda_trainer_rooms`,
-    and MultistoryFourRooms takes neither, as in the JAX package.
+    and MultistoryFourRooms and CRooms take neither, as in the JAX package.
+    On CRooms the agents start at their reset positions with zero velocity,
+    and four float tiles carry the state from chunk to chunk.
     As in the JAX package, ``completed``, ``elapsed`` and the trace restart
     at every chunk.
     """
+    from ..envs.crooms import CRooms
     from ..envs.msrooms import MultistoryFourRooms
     from ..envs.rooms import Rooms
     from ..envs.taxi import Taxi
     from ..ops import (
         make_fused_q_trainer,
+        make_fused_q_trainer_crooms,
         make_fused_q_trainer_msrooms,
         make_fused_q_trainer_rooms,
         make_fused_qlambda_trainer_rooms,
@@ -181,19 +186,25 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
     if mesh is not None:
         raise ValueError("multi-device fused training is not ported yet "
                          "(ROADMAP Queue 1 item 11)")
-    if not isinstance(env, (Taxi, Rooms, MultistoryFourRooms)):
+    if not isinstance(env, (Taxi, Rooms, MultistoryFourRooms, CRooms)):
         raise ValueError(
-            f"no fused Q trainer for {type(env).__name__} in the port: Taxi, "
-            "Rooms and MultistoryFourRooms are ported (CRooms comes with "
-            "ROADMAP Queue 1 item 9)")
+            f"no fused Q trainer for {type(env).__name__}: Taxi, Rooms, "
+            "MultistoryFourRooms and CRooms have one")
     if expected_sarsa and not isinstance(env, Taxi):
         raise ValueError("expected_sarsa is Taxi-only")
-    if lam > 0.0 and isinstance(env, MultistoryFourRooms):
+    if lam > 0.0 and isinstance(env, (MultistoryFourRooms, CRooms)):
         raise ValueError("lam > 0 (Watkins Q(λ)) supports Taxi and Rooms")
     dev = env.device
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed),
                           num_envs)
-    if isinstance(env, Taxi):
+    if isinstance(env, CRooms):
+        run = make_fused_q_trainer_crooms(
+            env, num_envs, chunk_steps, gamma,
+            average_duplicates=average_duplicates)
+        z = torch.zeros((num_envs // 128, 128), dtype=torch.float32, device=dev)
+        s = [st.agent_yx[:, 0].reshape(-1, 128).contiguous(),
+             st.agent_yx[:, 1].reshape(-1, 128).contiguous(), z, z.clone()]
+    elif isinstance(env, Taxi):
         run = make_fused_q_trainer(
             env, num_envs, chunk_steps, gamma,
             average_duplicates=average_duplicates,
@@ -228,7 +239,10 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
     qb = torch.as_tensor(q_to_banks(q0, nsb), device=dev)
     history = []
     for chunk_seed, (lr, eps) in _chunks(seed, schedule, chunk_steps):
-        s, qb, rew = run(chunk_seed, lr, eps, s, qb)
+        if isinstance(env, CRooms):
+            *s, qb, rew = run(chunk_seed, lr, eps, *s, qb)
+        else:
+            s, qb, rew = run(chunk_seed, lr, eps, s, qb)
         history.append(rew.mean())  # read once at the end
     history = [h / chunk_steps for h in torch.stack(history).tolist()] \
         if history else []

@@ -16,9 +16,13 @@ Observation semantics re-derived from reference
 * Hansen vector: per-neighbor {0 wall, 1 empty, 2 goal} (``:106-131``)
 
 Keyword-flag parsing of ``obs_type`` (substring matching on 'vector', 'goal',
-'room', 'mdp', 'hansen'/'hansen8', 'grid') mirrors reference
-``rooms.py:19-67``.  The continuous branch (``cell_size``) and ``lidar``
-come with the continuous rooms env and raise ``NotImplementedError`` here.
+'room', 'mdp', 'hansen'/'hansen8', 'grid', 'lidar') mirrors reference
+``rooms.py:19-67``.  Continuous variants (``cell_size`` given) discretize
+coordinates by ``floor(x / cell_size)`` before every lookup (reference
+``crooms.py:16-88``; ``coord_to_grid`` in ``rooms/utils.py:15-20``); their
+'mdp' vector is the raw coordinates.  ``lidar`` (continuous only) is the
+JAX package's fixed-count ray march against the wall grid plus the goal
+offset: the reference declares it but never implements it.
 """
 
 from __future__ import annotations
@@ -60,13 +64,13 @@ def make_rooms_obs(
     cell_size: Optional[float] = None,
     device=None,
 ) -> Tuple[Space, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]:
-    """Build ``(space, obs_fn(agent, goal) -> obs)`` for a rooms-family grid
-    with discrete (int cell) coordinates; the lookup tables live on
-    ``device``."""
-    if cell_size is not None or "lidar" in obs_type:
-        raise NotImplementedError(
-            "continuous-coordinate observations (cell_size, lidar) are not "
-            "ported yet: they come with the continuous rooms env")
+    """Build ``(space, obs_fn(agent, goal) -> obs)`` for a rooms-family grid;
+    the lookup tables live on ``device``.
+
+    ``cell_size=None``: discrete (int cell) coordinates.  Otherwise
+    continuous coordinates of any float dtype, pre-discretized by
+    ``cell_size``."""
+    continuous = cell_size is not None
     is_vector = "vector" in obs_type
     has_goal = "goal" in obs_type
     H, W = grid.shape
@@ -86,7 +90,25 @@ def make_rooms_obs(
     def grid_at(yx):
         return lookup(grid_flat, yx)
 
-    a_max = np.asarray(grid.shape, np.int64) - 2
+    if continuous:
+        def to_cell(x):
+            return torch.floor(x / cell_size).to(torch.int32)
+
+        # computed in float64, as the reference's numpy bound
+        a_max = np.asarray(grid.shape, np.float64) - 1 - 1e-6
+        mdp_low, mdp_dtype = 1.0, torch.float32
+
+        def mdp_vec(x):
+            return x  # the raw coordinates, in their own dtype
+    else:
+        def to_cell(x):
+            return x
+
+        a_max = np.asarray(grid.shape, np.int64) - 2
+        mdp_low, mdp_dtype = 1, torch.int32
+
+        def mdp_vec(x):
+            return x.to(torch.int32)
 
     if "room" in obs_type:
         n = n_room_states(grid)
@@ -94,24 +116,24 @@ def make_rooms_obs(
             space = Discrete(int(n**2))
 
             def obs(agent, goal):
-                return grid_at(agent) + n * grid_at(goal)
+                return grid_at(to_cell(agent)) + n * grid_at(to_cell(goal))
         else:
             space = Discrete(int(n))
 
             def obs(agent, goal):
-                return grid_at(agent)
+                return grid_at(to_cell(agent))
     elif "mdp" in obs_type:
         if is_vector:
             if has_goal:
-                space = Box(1, np.tile(a_max, 2), (4,), dtype=torch.int32)
+                space = Box(mdp_low, np.tile(a_max, 2), (4,), dtype=mdp_dtype)
 
                 def obs(agent, goal):
-                    return torch.cat((agent, goal), -1).to(torch.int32)
+                    return mdp_vec(torch.cat((agent, goal), -1))
             else:
-                space = Box(1, a_max, (2,), dtype=torch.int32)
+                space = Box(mdp_low, a_max, (2,), dtype=mdp_dtype)
 
                 def obs(agent, goal):
-                    return agent.to(torch.int32)
+                    return mdp_vec(agent)
         else:
             n = n_discrete_states(grid)
             sg_flat = torch.as_tensor(state_grid(grid).reshape(-1),
@@ -120,12 +142,13 @@ def make_rooms_obs(
                 space = Discrete(int(n**2))
 
                 def obs(agent, goal):
-                    return lookup(sg_flat, agent) + n * lookup(sg_flat, goal)
+                    return (lookup(sg_flat, to_cell(agent))
+                            + n * lookup(sg_flat, to_cell(goal)))
             else:
                 space = Discrete(int(n))
 
                 def obs(agent, goal):
-                    return lookup(sg_flat, agent)
+                    return lookup(sg_flat, to_cell(agent))
     elif "hansen" in obs_type:
         base_n = 8 if "8" in obs_type else 4
         offs = torch.as_tensor(
@@ -133,6 +156,7 @@ def make_rooms_obs(
             dtype=torch.int32, device=device)
 
         def neighbor_vals(agent, goal):
+            agent, goal = to_cell(agent), to_cell(goal)
             nb = agent[..., None, :] + offs  # [..., k, 2]
             empty = (grid_at(nb) >= 0).to(torch.int32)
             is_goal = (nb == goal[..., None, :]).all(-1)  # [..., k]
@@ -172,6 +196,7 @@ def make_rooms_obs(
                                device=device)  # [n*n, 2]
 
         def obs(agent, goal):
+            agent, goal = to_cell(agent), to_cell(goal)
             coords = agent[..., None, :] + mg_t  # [..., n*n, 2]
             oob = ((coords[..., 0] < 0) | (coords[..., 1] < 0)
                    | (coords[..., 0] >= H) | (coords[..., 1] >= W))
@@ -180,6 +205,45 @@ def make_rooms_obs(
             is_goal = (coords == goal[..., None, :]).all(-1)
             sq = torch.where(is_goal, 2, (grid_at(coords) >= 0).to(torch.int32))
             return sq.to(torch.int32).reshape(*agent.shape[:-1], obs_n, obs_n)
+    elif "lidar" in obs_type:
+        # fixed-angle ray march against the wall grid, a fixed number of
+        # probes, plus the relative goal offset (JAX package
+        # obs/observations.py:186-242)
+        if not continuous:
+            raise NotImplementedError("lidar obs requires a continuous env")
+        bins = obs_n if obs_n > 2 else 8
+        max_range = float(np.hypot(H, W)) * cell_size
+        step_len = 0.5 * cell_size
+        n_march = int(np.ceil(max_range / step_len))
+        angles = np.linspace(0.0, 2 * np.pi, bins, endpoint=False)
+        dirs = torch.as_tensor(np.stack([np.sin(angles), np.cos(angles)], -1),
+                               dtype=torch.float32, device=device)  # (dy, dx)
+        ts = torch.arange(1, n_march + 1, dtype=torch.float32) * step_len
+        space = Box(
+            np.concatenate([np.zeros(bins), -np.asarray(a_max, np.float64)]),
+            np.concatenate([np.full(bins, max_range),
+                            np.asarray(a_max, np.float64)]),
+            (bins + 2,), dtype=torch.float32)
+
+        def ray_ranges(agent):
+            pos = agent.to(torch.float32)[..., None, :]  # [..., 1, 2]
+            hit = torch.full((*agent.shape[:-1], bins), max_range,
+                             dtype=torch.float32, device=agent.device)
+            for t in ts:  # the first probe that lands on a wall, else max
+                probe = pos + dirs * t  # [..., bins, 2]
+                cy = torch.clamp(torch.floor(probe[..., 0] / cell_size), 0,
+                                 H - 1).to(torch.int32)
+                cx = torch.clamp(torch.floor(probe[..., 1] / cell_size), 0,
+                                 W - 1).to(torch.int32)
+                inside = ((probe[..., 0] >= 0) & (probe[..., 0] < H * cell_size)
+                          & (probe[..., 1] >= 0) & (probe[..., 1] < W * cell_size))
+                wall = (grid_at(torch.stack([cy, cx], -1)) < 0) | ~inside
+                hit = torch.where(wall & (t < hit), t, hit)
+            return hit
+
+        def obs(agent, goal):
+            rel = (goal - agent).to(torch.float32)
+            return torch.cat([ray_ranges(agent), rel], -1)
     else:
         raise NotImplementedError(f"Observation type {obs_type!r} not recognized")
 

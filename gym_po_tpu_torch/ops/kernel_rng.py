@@ -24,6 +24,14 @@ every step.  Two modes:
 uint32 arithmetic is done in int64 and masked with ``0xFFFFFFFF``: torch's
 CPU coverage of uint32 is partial.  The 32x32->64 Philox product is split
 into 16-bit halves so that no int64 product overflows.
+
+``rnormal`` calls the module-level ``_log`` and ``_cos`` (``torch.log`` and
+``torch.cos``).  On the card they are the same f32 ``logf``/``cosf`` the
+kernels call; on the CPU torch's libm and XLA's differ in the last bit for a
+few per cent of inputs, so a test that holds a twin to the JAX package's
+kernel bit for bit sets these two names to XLA's functions.  Its square
+root is :func:`~gym_po_tpu_torch.utils.numerics.sqrt_rn`, correctly rounded
+on every device, as XLA's and the kernels' are.
 """
 
 from __future__ import annotations
@@ -33,10 +41,14 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..utils.numerics import sqrt_rn
+
 __all__ = ["KernelRNG", "philox4x32_10", "philox_blocks", "check_batch", "W"]
 
 W = 128
 MASK32 = 0xFFFFFFFF
+_log = torch.log  # the transcendentals rnormal calls (see the module note)
+_cos = torch.cos
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
@@ -152,7 +164,7 @@ class KernelRNG:
         u1 = torch.clamp(self.runiform(), min=1e-12)
         u2 = self.runiform()
         two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32)
-        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+        return sqrt_rn(-2.0 * _log(u1)) * _cos(two_pi * u2)
 
 
 def check_batch(s: torch.Tensor, rows: int, rng_tape: bool,

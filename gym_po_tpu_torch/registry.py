@@ -1,9 +1,11 @@
 """Environment registry, PyTorch port of :mod:`gym_po_tpu.registry`.
 
-The Taxi family, ``Rooms-v0``, ``MultistoryFourRooms-v0`` and
-``RockSample-v0`` are ported so far; ``make`` of any other
-id raises ``KeyError`` listing what is available.  Every constructor takes the
-JAX package's kwargs plus ``device``.
+The Taxi family, ``Rooms-v0``, ``CRooms-v0``, ``MultistoryFourRooms-v0``,
+``RockSample-v0``, ``TagContinuous-v0`` and ``HeavenHellContinuous-v0`` are
+ported so far (not yet: ``CarFlag-v0``, ``DiscreteCarFlag-v0`` and the
+articulated ant); ``make`` of any other id raises ``KeyError`` listing what
+is available.  Every constructor takes the JAX package's kwargs plus
+``device``.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ def registered_envs():
 
 
 def _register_defaults() -> None:
+    from .envs.crooms import CRooms
     from .envs.msrooms import MultistoryFourRooms
     from .envs.rocksample import RockSample
     from .envs.rooms import Rooms
+    from .envs.tag import HeavenHellContinuous, TagContinuous
     from .envs.taxi import Taxi, EXTENDED_TAXI_MAP
 
     register("Taxi-v4", lambda **kw: Taxi(**kw))
@@ -48,8 +52,11 @@ def _register_defaults() -> None:
         lambda **kw: Taxi(map=EXTENDED_TAXI_MAP, hansen_obs=True, **kw),
     )
     register("Rooms-v0", lambda **kw: Rooms(**kw))
+    register("CRooms-v0", lambda **kw: CRooms(**kw))
     register("MultistoryFourRooms-v0", lambda **kw: MultistoryFourRooms(**kw))
     register("RockSample-v0", lambda **kw: RockSample(**kw))
+    register("TagContinuous-v0", lambda **kw: TagContinuous(**kw))
+    register("HeavenHellContinuous-v0", lambda **kw: HeavenHellContinuous(**kw))
 
 
 _register_defaults()

@@ -16,14 +16,18 @@ from gym_po_tpu_torch.entry import entry
 from gym_po_tpu_torch.ops import (
     bank_geometry,
     make_fused_ac_trainer_rooms,
+    make_fused_crooms_rollout,
     make_fused_double_q_trainer,
+    make_fused_heavenhell_rollout,
     make_fused_msrooms_rollout,
     make_fused_q_trainer,
+    make_fused_q_trainer_crooms,
     make_fused_q_trainer_msrooms,
     make_fused_q_trainer_rooms,
     make_fused_qlambda_trainer_rooms,
     make_fused_rocksample_rollout,
     make_fused_rooms_rollout,
+    make_fused_tag_rollout,
     make_fused_taxi_rollout,
     q_to_banks,
 )
@@ -476,3 +480,102 @@ def test_fused_rocksample_kernel_out_of_range_pos_equals_twin(cuda):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     assert (got[0].view(-1)[idx] == -1).all()
+
+
+# ------------------------------------------------- continuous envs (path 5)
+def _crooms_state(env, B, seed):
+    """(py, px, vy, vx, gy, gx) tiles from reset_vec, with random
+    velocities when the env integrates them."""
+    _, st = env.reset_vec(torch.Generator(device=env.device).manual_seed(seed), B)
+    gen = torch.Generator(device=env.device).manual_seed(seed + 1)
+    vel = (torch.rand((B, 2), generator=gen, device=env.device) * 2 - 1
+           if env.use_velocity else st.vel_yx)
+    cols = (st.agent_yx[:, 0], st.agent_yx[:, 1], vel[:, 0], vel[:, 1],
+            st.goal_yx[:, 0], st.goal_yx[:, 1])
+    return tuple(c.reshape(-1, 128).contiguous() for c in cols)
+
+
+CROOMS_CASES = [
+    ({}, 128, False),
+    ({"use_velocity": True, "goal_xy": None}, 4, True),
+    ({"layout": "16", "cell_size": 0.5, "goal_xy": None, "agent_xy": (1, 1),
+      "step_reward": -0.01, "wall_reward": -0.1}, 128, True),
+]
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("kw,rows_per_tile,stats", CROOMS_CASES)
+def test_fused_crooms_kernel_equals_twin(cuda, mode, kw, rows_per_tile, stats):
+    env = gpt_torch.make("CRooms-v0", time_limit=20, **kw)
+    B, K = 8192, 48
+    run = make_fused_crooms_rollout(env, B, K, rows_per_tile=rows_per_tile,
+                                    episode_stats=stats, rng_tape=mode == "tape")
+    state = _crooms_state(env, B, 3)
+    tape = _tape(run, 4, cuda) if mode == "tape" else ()
+    got, want = run(9, *state, *tape), run.twin(9, *state, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert torch.unique(got[0]).numel() > 100  # wall resamples and moves
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("stats", [False, True])
+def test_fused_tag_kernels_equal_twins(cuda, mode, stats):
+    B, K = 8192, 48
+    tag = gpt_torch.make("TagContinuous-v0", time_limit=20)
+    run = make_fused_tag_rollout(tag, B, K, rows_per_tile=4, episode_stats=stats,
+                                 rng_tape=mode == "tape")
+    _, st = tag.reset_vec(torch.Generator(device=cuda).manual_seed(5), B)
+    state = tuple(c.reshape(-1, 128).contiguous() for c in (
+        st.agent_xy[:, 0], st.agent_xy[:, 1], st.target_xy[:, 0],
+        st.target_xy[:, 1]))
+    tape = _tape(run, 6, cuda) if mode == "tape" else ()
+    got, want = run(9, *state, *tape), run.twin(9, *state, *tape)
+    hh = gpt_torch.make("HeavenHellContinuous-v0", time_limit=20)
+    run_h = make_fused_heavenhell_rollout(hh, B, K, episode_stats=stats,
+                                          rng_tape=mode == "tape")
+    _, st = hh.reset_vec(torch.Generator(device=cuda).manual_seed(7), B)
+    state_h = (st.agent_xy[:, 0].reshape(-1, 128).contiguous(),
+               st.agent_xy[:, 1].reshape(-1, 128).contiguous(),
+               st.heaven_right.to(torch.int32).reshape(-1, 128))
+    tape_h = _tape(run_h, 8, cuda) if mode == "tape" else ()
+    got_h, want_h = run_h(9, *state_h, *tape_h), run_h.twin(9, *state_h, *tape_h)
+    torch.cuda.synchronize()
+    assert run.launches == run_h.launches == 1
+    for g, w in zip(got + got_h, want + want_h):
+        assert g.is_cuda and torch.equal(g, w)
+    assert got_h[2].dtype == torch.int32
+    if stats:  # every env truncated at least twice
+        assert (got[7] >= 2).all() and (got_h[6] >= 2).all()
+
+
+CROOMS_TRAINER_CASES = [
+    ({}, True, 0.1),
+    ({"use_velocity": True}, False, 0.002),
+    ({"action_type": "cardinal", "agent_xy": (1, 1), "obs_type": "hansen",
+      "step_reward": -0.01}, True, 0.1),
+]
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("kw,average,lr", CROOMS_TRAINER_CASES)
+def test_crooms_trainer_kernel_equals_twin(cuda, mode, kw, average, lr):
+    kw = {"action_type": "ordinal", **kw}
+    env = gpt_torch.make("CRooms-v0", time_limit=30, **kw)
+    B, K = 8192, 32
+    run = make_fused_q_trainer_crooms(env, B, K, average_duplicates=average,
+                                      rng_tape=mode == "tape")
+    py, px, vy, vx, _, _ = _crooms_state(env, B, 11)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    qb = (torch.zeros((32, 128), device=cuda) if mode == "philox"
+          else 0.1 * torch.randn((32, 128), generator=gen, device=cuda))
+    tape = _tape(run, 13, cuda) if mode == "tape" else ()
+    got = run(5, lr, 0.3, py, px, vy, vx, qb, *tape)
+    want = run.twin(5, lr, 0.3, py, px, vy, vx, qb, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert 0 < int((got[4] != qb).sum()) < qb.numel()

@@ -43,6 +43,13 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.ops.msrooms_dynamics
     import gym_po_tpu_torch.envs.msrooms
     import gym_po_tpu_torch.envs.rocksample
+    import gym_po_tpu_torch.envs.crooms
+    import gym_po_tpu_torch.envs.tag
+    import gym_po_tpu_torch.ops.crooms_dynamics
+    import gym_po_tpu_torch.ops.fused_crooms
+    import gym_po_tpu_torch.ops.fused_q_crooms
+    import gym_po_tpu_torch.ops.fused_tag
+    import gym_po_tpu_torch.ops.state_rollout
     import gym_po_tpu_torch.obs
     import gym_po_tpu_torch.utils
     import gym_po_tpu_torch.vector
@@ -52,6 +59,9 @@ _BLOCKED_IMPORT = textwrap.dedent(
     env = gym_po_tpu_torch.make("Rooms-v0", device="cpu")
     env = gym_po_tpu_torch.make("MultistoryFourRooms-v0", grid_z=3, device="cpu")
     env = gym_po_tpu_torch.make("RockSample-v0", device="cpu")
+    env = gym_po_tpu_torch.make("CRooms-v0", device="cpu")
+    env = gym_po_tpu_torch.make("TagContinuous-v0", device="cpu")
+    env = gym_po_tpu_torch.make("HeavenHellContinuous-v0", device="cpu")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """
@@ -70,7 +80,8 @@ def test_port_imports_with_jax_blocked():
     assert proc.stdout.startswith("ok"), proc.stdout
     for env_id in ("Taxi-v4", "HansenTaxi-v4", "ExtendedTaxi-v4",
                    "ExtendedHansenTaxi-v4", "Rooms-v0", "MultistoryFourRooms-v0",
-                   "RockSample-v0"):
+                   "RockSample-v0", "CRooms-v0", "TagContinuous-v0",
+                   "HeavenHellContinuous-v0"):
         assert env_id in proc.stdout
 
 
@@ -78,10 +89,11 @@ def test_unported_env_raises_keyerror_listing_available():
     import gym_po_tpu_torch as gpt_torch
 
     with pytest.raises(KeyError, match="Available"):
-        gpt_torch.make("CRooms-v0")
+        gpt_torch.make("CarFlag-v0")
     assert gpt_torch.registered_envs() == [
-        "ExtendedHansenTaxi-v4", "ExtendedTaxi-v4", "HansenTaxi-v4",
-        "MultistoryFourRooms-v0", "RockSample-v0", "Rooms-v0", "Taxi-v4",
+        "CRooms-v0", "ExtendedHansenTaxi-v4", "ExtendedTaxi-v4",
+        "HansenTaxi-v4", "HeavenHellContinuous-v0", "MultistoryFourRooms-v0",
+        "RockSample-v0", "Rooms-v0", "TagContinuous-v0", "Taxi-v4",
     ]
 
 

@@ -126,10 +126,14 @@ def test_observations_equal_jax_on_every_walkable_cell(layout, obs_type, obs_n):
 
 
 def test_unported_observations_raise():
+    """What neither package builds raises in both: lidar on discrete
+    coordinates and an unknown model.  (The continuous branch and lidar on
+    continuous coordinates are in tests/test_torch_crooms.py.)"""
     grid = tlayouts.layout_grid("4")
-    for kw in ({"obs_type": "lidar"}, {"obs_type": "mdp", "cell_size": 1.0}):
-        with pytest.raises(NotImplementedError):
-            torch_make_obs(grid=grid, **kw)
+    for kw in ({"obs_type": "lidar"}, {"obs_type": "sonar", "cell_size": 1.0}):
+        for make in (jax_make_obs, torch_make_obs):
+            with pytest.raises(NotImplementedError):
+                make(grid=grid, **kw)
 
 
 ENV_CASES = [
