@@ -16,21 +16,26 @@
 //
 // What bounds it on this card: as for the Q trainers (fused_qlearning.cu),
 // the step-to-step dependence.  It is one persistent cooperative launch
-// with grid.sync() twice per step.  Each env adds A + 1 int64 fixed-point
+// with one grid.sync() per step.  Each env adds A + 1 int64 fixed-point
 // terms and one count per step (the count of an observation is the count of
-// every one of its A + 1 entries, so one word serves them all) into tables
-// of A * 512 + 512 entries: at A = 8, 10 atomics per env-step onto at most
-// 4,608 addresses, so the atomics weigh more than in the Q trainer.  The
-// per-env work is three Philox blocks (11 draw sites), A Gumbel draws of two
-// logf each and A expf.  The bytes are tiny.
+// every one of its A + 1 entries, so one word serves them all) onto the
+// A + 1 entries of its observation: at A = 8, 10 adds per env-step onto at
+// most 9 * n_obs entries.  The per-env work is three Philox blocks (11 draw
+// sites), A Gumbel draws of two logf each and A expf.  The bytes are tiny.
 //
 // Design:
 //  * Geometry, lookups and fixed-point sums from tabular.cuh; the ROOMS
 //    step from rooms_step.cuh.  Each block keeps theta's A * 512 used
-//    entries and v's 512 (banks 0..3) in shared memory.
-//  * The apply runs one thread per observation: it reads the observation's
-//    count word once, applies its A + 1 entries and clears them, so no
-//    count is cleared while another thread still reads it.
+//    entries and v's 512 (banks 0..3) in shared memory, and reads them
+//    there for the whole call.
+//  * The updates go through gpt::BlockSums<A + 1>: each block sums its
+//    envs' terms in shared memory, one count word per observation and its
+//    A + 1 sums at j * slab_stride(n_obs) + obs (theta's action j, v at
+//    j = A); one thread per observation then adds them to the step's global
+//    accumulator, once per block.  After the step's one grid barrier every
+//    block applies the sums to its own theta and v, one thread per
+//    observation, and theta and v reach th_out and v_out once, after the
+//    last step.
 //  * The Gumbel uniform is (r24 + 0.5) * 2^-24, strictly inside (0, 1);
 //    the transcendentals are logf and expf, not the fast intrinsics, and
 //    the build has no --use_fast_math; every other float operation is a
@@ -59,33 +64,42 @@ struct ACParams {
   int32_t goal, fixed_agent, pfail24;
   uint32_t key0, key1;
   float r_step, r_wall, r_goal, gamma, alpha_pi, alpha_v;
+  int32_t n_obs;  // observations (at most nsp)
 };
 
 namespace {
 
 template <int NBLK, int A>
-__global__ void __launch_bounds__(gpt::kTrainerThreads)
+__global__ void __launch_bounds__(gpt::kTrainerThreads, gpt::kMinBlocksPerSM)
 fused_ac_kernel(ACParams P, int envs_per_thread,
                 const int32_t* __restrict__ agent_in,
                 int32_t* __restrict__ agent_out, float* __restrict__ rew_out,
                 const float* __restrict__ th_in, const float* __restrict__ v_in,
-                float* th_out, float* v_out, long long* acc_th,
-                long long* acc_v, int* cnt, const uint8_t* __restrict__ wall,
+                float* th_out, float* v_out, long long* acc, int* cnt,
+                const uint8_t* __restrict__ wall,
                 const int32_t* __restrict__ valid,
                 const int32_t* __restrict__ disp,
                 const int32_t* __restrict__ obs_t,
                 const int32_t* __restrict__ tape) {
   cg::grid_group grid = cg::this_grid();
   const int nsp = P.nsp, nth = A * nsp, nc = P.ncells;
+  const int no = gpt::slab_stride(P.n_obs);
   extern __shared__ float smem[];
   float* s_th = smem;
   float* s_v = s_th + nth;
-  int32_t* s_obs = reinterpret_cast<int32_t*>(s_v + nsp);
+  // theta and v are read from the block's copy until the end: every entry
+  // takes its "+ 0" here (-0 becomes +0), as each step's whole-table add
+  // does in the twin
+  for (int i = threadIdx.x; i < nth; i += blockDim.x)
+    s_th[i] = P.num_steps ? __fadd_rn(th_in[i], 0.f) : th_in[i];
+  for (int i = threadIdx.x; i < nsp; i += blockDim.x)
+    s_v[i] = P.num_steps ? __fadd_rn(v_in[i], 0.f) : v_in[i];
+  // sums j * no + obs: theta's action j < A, v at j = A
+  const gpt::BlockSums<A + 1> sums(s_v + nsp, acc, cnt, no);
+  int32_t* s_obs = static_cast<int32_t*>(sums.end());
   int32_t* s_valid = s_obs + nc;
   int32_t* s_disp = s_valid + P.n_valid;
   uint8_t* s_wall = reinterpret_cast<uint8_t*>(s_disp + A);
-  for (int i = threadIdx.x; i < nth; i += blockDim.x) s_th[i] = th_in[i];
-  for (int i = threadIdx.x; i < nsp; i += blockDim.x) s_v[i] = v_in[i];
   for (int i = threadIdx.x; i < nc; i += blockDim.x) {
     s_obs[i] = obs_t[i];
     s_wall[i] = wall[i];
@@ -167,45 +181,41 @@ fused_ac_kernel(ACParams P, int envs_per_thread,
           __fadd_rn(mv.rew, __fmul_rn(__fmul_rn(P.gamma, v_next),
                                       mv.done ? 0.0f : 1.0f)),
           s_v[qidx]);
-      bool ok = gpt::fix_add(acc_v, qidx, __fmul_rn(P.alpha_v, delta));
+      bool ok = sums.add(A, qidx, __fmul_rn(P.alpha_v, delta));
       const float ad = __fmul_rn(P.alpha_pi, delta);
 #pragma unroll
       for (int a = 0; a < A; ++a) {
         const float grad = __fsub_rn(a == a_cmd ? 1.0f : 0.0f, __fdiv_rn(ex[a], z));
-        ok &= gpt::fix_add(acc_th, a * nsp + qidx, __fmul_rn(ad, grad));
+        ok &= sums.add(a, qidx, __fmul_rn(ad, grad));
       }
-      atomicAdd(cnt + qidx, 1);
-      if (!ok) atomicOr(cnt + qidx, gpt::kOverflow);
+      sums.count(qidx);
+      if (!ok) sums.flag(t, qidx);
 
       s_l[i] = mv.reset ? spawn : mv.agent;
       el_l[i] = elapsed;
       racc_l[i] = racc_l[i] + mv.rew;
     }
 
-    // --- apply, one thread per observation, once every env has added ---
+    // --- the block's sums out, one barrier, every block applies them ---
+    __syncthreads();
+    sums.flush(t);
     grid.sync();
-    for (int o = gtid; o < nsp; o += nthreads) {
-      const int c = __ldcg(cnt + o);
-      v_out[o] = __fadd_rn(s_v[o], gpt::fix_delta(__ldcg(acc_v + o), c, true));
-      acc_v[o] = 0;
+    sums.apply(t, [&](int o, int k, const long long* g) {
+      s_v[o] = __fadd_rn(s_v[o], gpt::fix_delta(__ldcg(g + A * no + o), k, true));
 #pragma unroll
       for (int a = 0; a < A; ++a) {
-        const int k = a * nsp + o;
-        th_out[k] = __fadd_rn(s_th[k], gpt::fix_delta(__ldcg(acc_th + k), c, true));
-        acc_th[k] = 0;
+        float& th = s_th[a * nsp + o];
+        th = __fadd_rn(th, gpt::fix_delta(__ldcg(g + a * no + o), k, true));
       }
-      cnt[o] = 0;
-    }
-    grid.sync();
-    for (int i = threadIdx.x; i < nth; i += blockDim.x) s_th[i] = __ldcg(th_out + i);
-    for (int i = threadIdx.x; i < nsp; i += blockDim.x) s_v[i] = __ldcg(v_out + i);
+    });
+    sums.clear_ahead(t);
     __syncthreads();
   }
-  if (P.num_steps == 0)
-    for (int i = gtid; i < nth || i < nsp; i += nthreads) {
-      if (i < nth) th_out[i] = th_in[i];
-      if (i < nsp) v_out[i] = v_in[i];
-    }
+  // every block holds the same tables
+  for (int i = gtid; i < nth || i < nsp; i += nthreads) {
+    if (i < nth) th_out[i] = s_th[i];
+    if (i < nsp) v_out[i] = s_v[i];
+  }
 
   for (int i = 0; i < envs_per_thread; ++i) {
     const long long e = gtid + (long long)i * nthreads;
@@ -218,13 +228,15 @@ fused_ac_kernel(ACParams P, int envs_per_thread,
 template <int NBLK, int A>
 int launch(const ACParams* P, const void* agent_in, void* agent_out,
            void* rew_out, const void* th_in, const void* v_in, void* th_out,
-           void* v_out, void* acc_th, void* acc_v, void* cnt, const void* wall,
+           void* v_out, void* acc, void* cnt, const void* wall,
            const void* valid, const void* disp, const void* obs_t,
            const void* tape, int* grid_out, void* stream) {
-  if (P->n_sites > 4 * NBLK || P->nq < A * P->nsp)
+  if (P->n_sites > 4 * NBLK || P->nq < A * P->nsp || P->n_obs < 1 ||
+      gpt::slab_stride(P->n_obs) > P->nsp)
     return (int)cudaErrorInvalidValue;
   auto kern = fused_ac_kernel<NBLK, A>;
   const size_t smem = sizeof(float) * (A + 1) * P->nsp +
+                      gpt::BlockSums<A + 1>::smem_bytes(gpt::slab_stride(P->n_obs)) +
                       sizeof(int32_t) * (P->ncells + P->n_valid + A) +
                       ((P->ncells + 3) / 4) * 4;
   int blocks = 0, ept = 0;
@@ -234,9 +246,9 @@ int launch(const ACParams* P, const void* agent_in, void* agent_out,
   grid_out[1] = ept;
   ACParams p = *P;
   void* args[] = {&p, &ept, (void*)&agent_in, &agent_out, &rew_out,
-                  (void*)&th_in, (void*)&v_in, &th_out, &v_out, &acc_th,
-                  &acc_v, &cnt, (void*)&wall, (void*)&valid, (void*)&disp,
-                  (void*)&obs_t, (void*)&tape};
+                  (void*)&th_in, (void*)&v_in, &th_out, &v_out, &acc, &cnt,
+                  (void*)&wall, (void*)&valid, (void*)&disp, (void*)&obs_t,
+                  (void*)&tape};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
                                     dim3(gpt::kTrainerThreads), args, smem,
                                     (cudaStream_t)stream);
@@ -246,23 +258,24 @@ int launch(const ACParams* P, const void* agent_in, void* agent_out,
 
 }  // namespace
 
+// acc: 3 x (A + 1) * slab_stride(n_obs) int64 and cnt: 3 x slab_stride(n_obs)
+// int32 scratch, buffers 0 and 1 zero
 extern "C" int fused_ac_launch(const ACParams* P, const void* agent_in,
                                void* agent_out, void* rew_out,
                                const void* th_in, const void* v_in,
-                               void* th_out, void* v_out, void* acc_th,
-                               void* acc_v, void* cnt, const void* wall,
-                               const void* valid, const void* disp,
-                               const void* obs_t, const void* tape,
-                               int* grid_out, void* stream) {
+                               void* th_out, void* v_out, void* acc, void* cnt,
+                               const void* wall, const void* valid,
+                               const void* disp, const void* obs_t,
+                               const void* tape, int* grid_out, void* stream) {
   // A Gumbel draws + failure coin + alternative + respawn: 11 sites at
   // A = 8 (three Philox blocks), 7 at A = 4 (two)
   if (P->n_act == 8)
     return launch<3, 8>(P, agent_in, agent_out, rew_out, th_in, v_in, th_out,
-                        v_out, acc_th, acc_v, cnt, wall, valid, disp, obs_t,
-                        tape, grid_out, stream);
+                        v_out, acc, cnt, wall, valid, disp, obs_t, tape,
+                        grid_out, stream);
   if (P->n_act == 4)
     return launch<2, 4>(P, agent_in, agent_out, rew_out, th_in, v_in, th_out,
-                        v_out, acc_th, acc_v, cnt, wall, valid, disp, obs_t,
-                        tape, grid_out, stream);
+                        v_out, acc, cnt, wall, valid, disp, obs_t, tape,
+                        grid_out, stream);
   return (int)cudaErrorInvalidValue;
 }

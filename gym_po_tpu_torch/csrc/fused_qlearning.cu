@@ -28,27 +28,41 @@
 // What bounds it on this card: the step-to-step dependence, not bytes or
 // arithmetic.  Every step reads the Q table that all B envs updated in the
 // step before, so the TPU kernel is one program over the whole batch (grid
-// of 1).  Here it is one persistent cooperative launch: grid.sync() twice
-// per step (after the accumulation, after the apply), each a grid-wide
-// barrier, plus B integer atomics per step (L B with a trace) into a table
-// of at most 7,168 entries.  On an H100 at B = 65,536 a Taxi step takes
-// about 12 us: half of it the two barriers, a third the atomics
-// (probe_fused_qlearning.py, figures in PERF.md); the per-env work (two
-// Philox blocks, a few div/mod, a dozen shared-memory lookups) is small
-// beside that.  The bytes are tiny: 4 B of state in and out per env per
-// call, and the table of at most 28 KB.  The other way to order the steps,
-// one launch per step, measured 1.7x slower per step replayed from a CUDA
-// graph.
+// of 1).  Here it is one persistent cooperative launch with grid-wide
+// barriers between the steps, and every env's update terms (L per env-step
+// with a trace) are summed across the grid each step into a table of at
+// most 7,168 entries.  The per-env work (two Philox blocks, a few div/mod,
+// a dozen shared-memory lookups) is small beside that.  The bytes are tiny:
+// 4 B of state in and out per env per call, and the table of at most 28 KB.
+// The other way to order the steps, one launch per step, measured 1.7x
+// slower per step replayed from a CUDA graph (PERF.md).
+//
+// Two step designs, chosen at compile time by kTrace (trace_len > 1):
+//  * One-step (Q, double Q, E-SARSA): every term is a global int64 atomic
+//    plus a count atomic, grid.sync() after the adds, one slice of the grid
+//    applies the sums into q_out, grid.sync() again, and every block
+//    reloads its copy of the table from q_out.
+//  * With a trace (Watkins/Peng Q(lambda)), where the L terms of an env
+//    land on the entries along its recent path and pile onto the greedy
+//    actions': each block sums its terms in shared memory
+//    (gpt::BlockSums), then adds each entry it touched to the global
+//    accumulator once; one grid.sync() per step, after which every block
+//    applies the step's sums to its own copy of the table, and the three
+//    accumulators rotate so that none needs clearing between the barriers.
+//    The table reaches q_out once, after the last step.  The ring of the
+//    last L addresses of each env lives in shared memory
+//    ([L][slots][threads]) when it fits beside the table and the sums, and
+//    in the [L, B] scratch buffer otherwise (large B).
 //
 // Design:
 //  * The grid is sized from the occupancy API to what is co-resident, and
 //    each thread owns the envs gtid + i*nthreads for all K steps; their
 //    state, counters, trace age and reward sum stay in thread-local arrays.
-//    The trace ring (L table addresses per env) is a [L, B] scratch buffer.
 //  * Each block keeps a copy of the flat Q table in shared memory for the
 //    lookups, beside the env's tables.  Entry (obs, a) sits at flat index
 //    a*nsp + obs; the TPU's [nb, 128] lane banks and MXU mask scatter are
-//    not carried over.
+//    not carried over.  The trace's ring and sums index the entries
+//    compactly, a * slab_stride(n_obs) + obs.
 //  * The update sums are the int64 fixed point of tabular.cuh.  Tabular Q
 //    from zeros is full of exact ties among actions, and a one-ulp
 //    difference would flip an argmax.
@@ -103,6 +117,7 @@ struct QParams {
   // MultistoryFourRooms: cells per floor, and the in-floor cells that going
   // up and going down land on
   int32_t floor_cells, up_to, down_to;
+  int32_t n_obs;  // values of the Q index (obs, or state for double Q)
 };
 
 namespace {
@@ -280,30 +295,59 @@ struct MSRoomsQ {
   }
 };
 
-template <int NBLK, bool kDouble, class Env>
-__global__ void __launch_bounds__(gpt::kTrainerThreads)
-fused_q_kernel(QParams P, int envs_per_thread,
-               const int32_t* __restrict__ s_in, int32_t* __restrict__ s_out,
-               float* __restrict__ rew_out, const float* __restrict__ q_in,
-               float* q_out, long long* acc, int* cnt, int* ring,
-               const void* tab0, const void* tab1, const void* tab2,
-               const void* tab3, const int32_t* __restrict__ tape) {
+// Shared memory beside the table: with a trace, the block's update sums
+// over kA * slab_stride(n_obs) entries, then the ring when it is on chip
+// (slots envs per thread), then the env's tables.
+template <int kA, bool kTrace>
+size_t trace_smem(const QParams& P, int slots) {
+  if (!kTrace) return 0;
+  return gpt::BlockSums<1>::smem_bytes(kA * gpt::slab_stride(P.n_obs)) +
+         sizeof(int) * (size_t)slots * P.trace_len * gpt::kTrainerThreads;
+}
+
+#define Q_KERNEL_ARGS                                                         \
+  QParams P, int envs_per_thread, int ring_slots,                             \
+      const int32_t *__restrict__ s_in, int32_t *__restrict__ s_out,          \
+      float *__restrict__ rew_out, const float *__restrict__ q_in,            \
+      float *q_out, long long *acc, int *cnt, int *ring, const void *tab0,    \
+      const void *tab1, const void *tab2, const void *tab3,                   \
+      const int32_t *__restrict__ tape
+#define Q_KERNEL_PASS                                                        \
+  P, envs_per_thread, ring_slots, s_in, s_out, rew_out, q_in, q_out, acc,    \
+      cnt, ring, tab0, tab1, tab2, tab3, tape
+
+// The K steps of one trainer launch; the two kernels below differ only in
+// their launch bounds.
+template <int NBLK, bool kDouble, bool kTrace, class Env>
+__device__ __forceinline__ void train_steps(Q_KERNEL_ARGS) {
   constexpr int kA = Env::kA;
+  static_assert(!(kTrace && kDouble), "the trace is single-table");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   float* s_q = smem;
-  for (int i = threadIdx.x; i < P.nq; i += blockDim.x) s_q[i] = q_in[i];
+  // with a trace the table is read from the block's own copy until the
+  // end: every entry takes its "+ 0" here (-0 becomes +0), as each step's
+  // whole-table add does in the twin
+  for (int i = threadIdx.x; i < P.nq; i += blockDim.x)
+    s_q[i] = kTrace && P.num_steps ? __fadd_rn(q_in[i], 0.f) : q_in[i];
+  const int no = gpt::slab_stride(P.n_obs);
+  const gpt::BlockSums<1> sums(s_q + P.nq, acc, cnt, kTrace ? kA * no : 0);
+  int* s_ring = static_cast<int*>(sums.end());
+  const int L = P.trace_len;
   const void* const tab[4] = {tab0, tab1, tab2, tab3};
-  const Env env(P, reinterpret_cast<int32_t*>(s_q + P.nq), tab);
+  const Env env(P, s_ring + (kTrace ? ring_slots * L * blockDim.x : 0), tab);
   __syncthreads();
 
   const int B = P.num_envs;
   const int nthreads = gridDim.x * blockDim.x;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nsp = P.nsp;
-  const int L = P.trace_len;
-  const bool trace = !kDouble && L > 1;
   const bool average = P.average != 0;
+  // the trace ring: L compact addresses per env, [L][slots][threads] in
+  // shared memory, or [L, B] in global memory
+  int* const ring_base = ring_slots ? s_ring : ring;
+  const long long ring_stride =
+      ring_slots ? (long long)ring_slots * blockDim.x : (long long)B;
   const int eps24 = __float2int_rz(__fmul_rn(P.eps, 16777216.0f));
   const int nq1 = P.nq / 2;  // double Q: table B starts here
 
@@ -353,7 +397,7 @@ fused_q_kernel(QParams P, int envs_per_thread,
           (kDouble && coin) ? gpt::pick<kA>(vb, a) : gpt::pick<kA>(va, a);
       int age = age_l[i];
       // Watkins cut before the update (argmax ties count as greedy)
-      if (trace && P.watkins_cut && q_taken < best_v) age = 0;
+      if (kTrace && P.watkins_cut && q_taken < best_v) age = 0;
 
       // --- env step ---
       int completed = comp_l[i], elapsed = el_l[i];
@@ -386,17 +430,17 @@ fused_q_kernel(QParams P, int envs_per_thread,
       const float target = __fadd_rn(
           st.rew, __fmul_rn(__fmul_rn(P.gamma, next_v), st.done ? 0.0f : 1.0f));
       const float wd = __fmul_rn(P.lr, __fsub_rn(target, q_taken));
-      const int addr = coin * nq1 + a * nsp + qidx;
-      if (trace) {
-        ring[(long long)(t % L) * B + e] = addr;
+      if constexpr (kTrace) {
+        int* const my_ring =
+            ring_base + (ring_slots ? i * blockDim.x + threadIdx.x : e);
+        my_ring[(t % L) * ring_stride] = a * no + qidx;
         age = min(age + 1, L);
         for (int k = 0; k < age; ++k) {
           const int slot = (t - k + L) % L;
-          gpt::accumulate(acc, cnt, ring[(long long)slot * B + e],
-                          __fmul_rn(P.coefs[k], wd), average);
+          sums.term(t, my_ring[slot * ring_stride], __fmul_rn(P.coefs[k], wd));
         }
       } else {
-        gpt::accumulate(acc, cnt, addr, wd, average);
+        gpt::accumulate(acc, cnt, coin * nq1 + a * nsp + qidx, wd, average);
       }
       if (st.reset) age = 0;  // the trace dies at resets, not Taxi's task ones
       s_l[i] = st.s_next;
@@ -406,20 +450,33 @@ fused_q_kernel(QParams P, int envs_per_thread,
       racc_l[i] = racc_l[i] + st.rew;
     }
 
-    // --- apply this step's update once every env has added to it ---
-    grid.sync();
-    for (int i = gtid; i < P.nq; i += nthreads) {
-      q_out[i] = __fadd_rn(s_q[i],
-                           gpt::fix_delta(__ldcg(acc + i), __ldcg(cnt + i), average));
-      acc[i] = 0;
-      cnt[i] = 0;
+    if constexpr (kTrace) {
+      // --- the block's sums out, one barrier, every block applies them ---
+      __syncthreads();
+      sums.flush(t);
+      grid.sync();
+      sums.apply(t, [&](int c, int k, const long long* g) {
+        float& q = s_q[(c / no) * nsp + c % no];
+        q = __fadd_rn(q, gpt::fix_delta(__ldcg(g + c), k, average));
+      });
+      sums.clear_ahead(t);
+      __syncthreads();
+    } else {
+      // --- apply this step's update once every env has added to it ---
+      grid.sync();
+      for (int i = gtid; i < P.nq; i += nthreads) {
+        q_out[i] = __fadd_rn(s_q[i],
+                             gpt::fix_delta(__ldcg(acc + i), __ldcg(cnt + i), average));
+        acc[i] = 0;
+        cnt[i] = 0;
+      }
+      grid.sync();
+      for (int i = threadIdx.x; i < P.nq; i += blockDim.x) s_q[i] = __ldcg(q_out + i);
+      __syncthreads();
     }
-    grid.sync();
-    for (int i = threadIdx.x; i < P.nq; i += blockDim.x) s_q[i] = __ldcg(q_out + i);
-    __syncthreads();
   }
-  if (P.num_steps == 0)
-    for (int i = gtid; i < P.nq; i += nthreads) q_out[i] = q_in[i];
+  if (kTrace || P.num_steps == 0)  // every block holds the same table
+    for (int i = gtid; i < P.nq; i += nthreads) q_out[i] = kTrace ? s_q[i] : q_in[i];
 
   for (int i = 0; i < envs_per_thread; ++i) {
     const long long e = gtid + (long long)i * nthreads;
@@ -430,23 +487,52 @@ fused_q_kernel(QParams P, int envs_per_thread,
 }
 
 template <int NBLK, bool kDouble, class Env>
+__global__ void __launch_bounds__(gpt::kTrainerThreads)
+fused_q_kernel(Q_KERNEL_ARGS) {
+  train_steps<NBLK, kDouble, false, Env>(Q_KERNEL_PASS);
+}
+
+// with a trace: at most 64 registers, so that B = 2^20 still launches
+template <int NBLK, class Env>
+__global__ void __launch_bounds__(gpt::kTrainerThreads, gpt::kMinBlocksPerSM)
+fused_q_trace_kernel(Q_KERNEL_ARGS) {
+  train_steps<NBLK, false, true, Env>(Q_KERNEL_PASS);
+}
+
+template <int NBLK, bool kDouble, bool kTrace, class Env>
+auto trainer_kernel() {
+  if constexpr (kTrace) return fused_q_trace_kernel<NBLK, Env>;
+  else return fused_q_kernel<NBLK, kDouble, Env>;
+}
+
+template <int NBLK, bool kDouble, bool kTrace, class Env>
 int launch(const QParams* P, const void* s_in, void* s_out, void* rew_out,
            const void* q_in, void* q_out, void* acc, void* cnt, void* ring,
            const void* tab0, const void* tab1, const void* tab2,
            const void* tab3, const void* tape, int* grid_out, void* stream) {
-  if (P->n_sites > 4 * NBLK || P->trace_len > kMaxTrace || P->trace_len < 1)
+  if (P->n_sites > 4 * NBLK || P->trace_len > kMaxTrace || P->trace_len < 1 ||
+      kTrace != (P->trace_len > 1) ||
+      (kTrace && (P->n_obs < 1 || Env::kA * gpt::slab_stride(P->n_obs) > P->nq)))
     return (int)cudaErrorInvalidValue;
-  auto kern = fused_q_kernel<NBLK, kDouble, Env>;
-  const size_t smem = sizeof(float) * P->nq + Env::smem_tables(*P);
-  int blocks = 0, ept = 0;
-  cudaError_t err = gpt::coop_geometry(kern, smem, P->num_envs, &blocks, &ept);
+  auto kern = trainer_kernel<NBLK, kDouble, kTrace, Env>();
+  size_t smem = sizeof(float) * P->nq + Env::smem_tables(*P) +
+                trace_smem<Env::kA, kTrace>(*P, 0);
+  int blocks = 0, ept = 0, slots = 0;
+  cudaError_t err =
+      kTrace ? gpt::coop_geometry_slots(kern, smem,
+                                        trace_smem<Env::kA, kTrace>(*P, 1) -
+                                            trace_smem<Env::kA, kTrace>(*P, 0),
+                                        P->num_envs, &blocks, &ept, &slots, &smem)
+             : gpt::coop_geometry(kern, smem, P->num_envs, &blocks, &ept);
   if (err != cudaSuccess) return (int)err;
+  if (kTrace && !slots && !ring) return (int)cudaErrorInvalidValue;
   grid_out[0] = blocks;
   grid_out[1] = ept;
+  grid_out[2] = slots;
   QParams p = *P;
-  void* args[] = {&p, &ept, (void*)&s_in, &s_out, &rew_out, &q_in, &q_out,
-                  &acc, &cnt, &ring, (void*)&tab0, (void*)&tab1, (void*)&tab2,
-                  (void*)&tab3, (void*)&tape};
+  void* args[] = {&p, &ept, &slots, (void*)&s_in, &s_out, &rew_out, &q_in,
+                  &q_out, &acc, &cnt, &ring, (void*)&tab0, (void*)&tab1,
+                  (void*)&tab2, (void*)&tab3, (void*)&tape};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
                                     dim3(gpt::kTrainerThreads), args, smem,
                                     (cudaStream_t)stream);
@@ -465,23 +551,31 @@ int launch(const QParams* P, const void* s_in, void* s_out, void* rew_out,
   P, s_in, s_out, rew_out, q_in, q_out, acc, cnt, ring, tab0, tab1, tab2, \
       tab3, tape, grid_out, stream
 
+// grid_out: blocks, envs per thread, and the trace ring's env slots per
+// thread in shared memory (0: the ring is in global memory, or no trace)
 extern "C" int fused_q_launch(Q_LAUNCH_ARGS) {
-  return launch<2, false, TaxiQ>(Q_LAUNCH_PASS);
+  if (P->trace_len > 1) return launch<2, false, true, TaxiQ>(Q_LAUNCH_PASS);
+  return launch<2, false, false, TaxiQ>(Q_LAUNCH_PASS);
 }
 
 extern "C" int fused_double_q_launch(Q_LAUNCH_ARGS) {
-  return launch<3, true, TaxiQ>(Q_LAUNCH_PASS);
+  return launch<3, true, false, TaxiQ>(Q_LAUNCH_PASS);
 }
 
 extern "C" int fused_q_rooms_launch(Q_LAUNCH_ARGS) {
-  if (P->n_act == 8) return launch<2, false, RoomsQ<8>>(Q_LAUNCH_PASS);
-  if (P->n_act == 4) return launch<2, false, RoomsQ<4>>(Q_LAUNCH_PASS);
+  const bool trace = P->trace_len > 1;
+  if (P->n_act == 8)
+    return trace ? launch<2, false, true, RoomsQ<8>>(Q_LAUNCH_PASS)
+                 : launch<2, false, false, RoomsQ<8>>(Q_LAUNCH_PASS);
+  if (P->n_act == 4)
+    return trace ? launch<2, false, true, RoomsQ<4>>(Q_LAUNCH_PASS)
+                 : launch<2, false, false, RoomsQ<4>>(Q_LAUNCH_PASS);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int fused_q_msrooms_launch(Q_LAUNCH_ARGS) {
   if (P->trace_len != 1) return (int)cudaErrorInvalidValue;
-  if (P->n_act == 4) return launch<2, false, MSRoomsQ<4>>(Q_LAUNCH_PASS);
-  if (P->n_act == 8) return launch<2, false, MSRoomsQ<8>>(Q_LAUNCH_PASS);
+  if (P->n_act == 4) return launch<2, false, false, MSRoomsQ<4>>(Q_LAUNCH_PASS);
+  if (P->n_act == 8) return launch<2, false, false, MSRoomsQ<8>>(Q_LAUNCH_PASS);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,9 +15,16 @@
 //    which becomes NaN, so a diverging run goes non-finite as an f32 sum
 //    would.  The twins are apply_update in ops/fused_qlearning.py and the
 //    actor-critic's in ops/fused_ac.py.
+//  * Per-block update sums with one grid barrier per step (BlockSums): each
+//    step's terms go first into a slab in the block's shared memory, the
+//    block then adds each word it touched into one of three global
+//    accumulators used in rotation, and after the one barrier every block
+//    applies the finished sums to its own copy of the table.
 //  * The geometry of a persistent cooperative launch: as many blocks as are
 //    co-resident (occupancy API), each thread owning up to
-//    kMaxEnvsPerThread envs for all K steps.
+//    kMaxEnvsPerThread envs for all K steps; coop_geometry_slots also makes
+//    room for a per-env ring in shared memory where each thread owns one
+//    env.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +36,10 @@ namespace gpt {
 
 constexpr int kTrainerThreads = 256;
 constexpr int kMaxEnvsPerThread = 8;
+// blocks per SM a trainer must keep co-resident for B = 2^20 to launch:
+// 2^20 envs / (8 per thread * 256 threads * 132 SMs) = 3.88 (the launch
+// bounds of the kernels whose registers would otherwise exceed 64)
+constexpr int kMinBlocksPerSM = 4;
 constexpr double kFix = 4294967296.0;              // 2^32
 constexpr double kUnfix = 2.3283064365386963e-10;  // 2^-32
 // |w| <= 2^6 per term and at most 2^24 terms an entry per step (the
@@ -94,6 +105,118 @@ __device__ __forceinline__ float fix_delta(long long sum, int c, bool average) {
   return dq;
 }
 
+// Observations rounded up to 4, the stride of a slab's rows: every slab and
+// accumulator is then a whole number of 16-byte words.
+__host__ __device__ __forceinline__ int slab_stride(int n_obs) {
+  return (n_obs + 3) & ~3;
+}
+
+// The update sums of one trainer step, summed per block in shared memory
+// and across blocks in one of three global accumulators.
+//
+// A count word o carries kPer sums, sum j at j * n + o: kPer = 1 gives every
+// table entry its own count (Q, Q(lambda)), kPer = A + 1 gives an
+// observation one count for its A + 1 entries (the actor-critic).  Global
+// buffer b (the step's t % 3) holds kPer * n int64 sums and n int32 counts.
+// Step t adds into buffer t % 3; after the step's one grid barrier every
+// block reads it, and a slice of every block clears buffer (t + 2) % 3,
+// which every block finished reading before that barrier and which no block
+// adds to before the next one.  The caller zeroes buffers 0 and 1.
+//
+// The block's 64-bit adds are two native 32-bit shared-memory atomics on
+// the word's halves (the low word, then the high word plus the low word's
+// carry): the sum of the halves is the int64 sum modulo 2^64, which the
+// range guard keeps exact.  A term past the range sets kOverflow in the
+// global count word directly: a flag summed over blocks would carry into
+// the count.
+template <int kPer>
+struct BlockSums {
+  unsigned long long* s_sum;  // [kPer * n] shared
+  int* s_cnt;                 // [n] shared
+  long long* g_sum;           // [3][kPer * n] global
+  int* g_cnt;                 // [3][n] global
+  int n;
+
+  static __host__ __device__ size_t smem_bytes(int n) {
+    return (size_t)n * (kPer * sizeof(unsigned long long) + sizeof(int));
+  }
+  // carves the slab out of shared memory at smem (8-byte aligned)
+  __device__ BlockSums(void* smem, long long* g_sum_, int* g_cnt_, int n_)
+      : s_sum(static_cast<unsigned long long*>(smem)),
+        s_cnt(reinterpret_cast<int*>(s_sum + (long long)kPer * n_)),
+        g_sum(g_sum_), g_cnt(g_cnt_), n(n_) {
+    for (int i = threadIdx.x; i < kPer * n; i += blockDim.x) s_sum[i] = 0;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s_cnt[i] = 0;
+  }
+  __device__ void* end() const { return s_cnt + n; }
+  __device__ long long* sums(int t) const {
+    return g_sum + (long long)(t % 3) * kPer * n;
+  }
+  __device__ int* counts(int t) const { return g_cnt + (t % 3) * n; }
+
+  // w into sum j of count word o; false, adding nothing, past the range
+  __device__ __forceinline__ bool add(int j, int o, float w) const {
+    if (!(fabsf(w) <= kMaxTerm)) return false;  // also NaN
+    const unsigned long long fx =
+        static_cast<unsigned long long>(__double2ll_rn((double)w * kFix));
+    unsigned int* h = reinterpret_cast<unsigned int*>(s_sum + j * n + o);
+    const unsigned int lo = (unsigned int)fx, hi = (unsigned int)(fx >> 32);
+    const unsigned int carry = atomicAdd(h, lo) + lo < lo;
+    if (hi + carry) atomicAdd(h + 1, hi + carry);
+    return true;
+  }
+  __device__ __forceinline__ void count(int o) const { atomicAdd(s_cnt + o, 1); }
+  __device__ __forceinline__ void flag(int t, int o) const {
+    atomicOr(counts(t) + o, kOverflow);
+  }
+  // one term with its own count word (kPer = 1), as accumulate() does
+  __device__ __forceinline__ void term(int t, int c, float w) const {
+    if (add(0, c, w)) count(c);
+    else flag(t, c);
+  }
+
+  // After a __syncthreads(): every count word the block touched, and its
+  // kPer sums, into step t's accumulator, one global atomic each; the slab
+  // is left zero.
+  __device__ void flush(int t) const {
+    long long* g = sums(t);
+    int* gc = counts(t);
+    for (int o = threadIdx.x; o < n; o += blockDim.x) {
+      const int k = s_cnt[o];
+      if (!k) continue;
+      atomicAdd(gc + o, k);
+      s_cnt[o] = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(g + j * n + o),
+                  s_sum[j * n + o]);
+        s_sum[j * n + o] = 0;
+      }
+    }
+  }
+  // After the grid barrier: fn(o, count word, sums) for every count word
+  // that step t touched (read past L1: other SMs added them).
+  template <class F>
+  __device__ void apply(int t, F&& fn) const {
+    const long long* g = sums(t);
+    const int* gc = counts(t);
+    for (int o = threadIdx.x; o < n; o += blockDim.x) {
+      const int k = __ldcg(gc + o);
+      if (k) fn(o, k, g);
+    }
+  }
+  // After the grid barrier: this thread's slice of the buffer of step t + 2
+  __device__ void clear_ahead(int t) const {
+    long long* g = sums(t + 2);
+    int* gc = counts(t + 2);
+    const int nthreads = gridDim.x * blockDim.x;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < kPer * n; i += nthreads) {
+      g[i] = 0;
+      if (i < n) gc[i] = 0;
+    }
+  }
+};
+
 // Blocks (all co-resident) and envs per thread of a persistent cooperative
 // launch of kern over num_envs envs with smem bytes of dynamic shared memory.
 template <class Kernel>
@@ -120,6 +243,37 @@ cudaError_t coop_geometry(Kernel kern, size_t smem, long long num_envs,
   *envs_per_thread = (int)((num_envs + per_launch - 1) / per_launch);
   if (*envs_per_thread > kMaxEnvsPerThread) return cudaErrorInvalidConfiguration;
   return cudaSuccess;
+}
+
+// The geometry of a launch that keeps slot_bytes of shared memory for the
+// one env of each thread (a per-env ring) beside smem_base, where such a
+// launch gives every thread one env: *slots = 1.  Otherwise (more envs than
+// those blocks hold threads, or no room) *slots = 0 and the geometry is
+// that of smem_base alone: the caller keeps the ring in global memory.
+// *smem is the dynamic shared memory to launch with.
+template <class Kernel>
+cudaError_t coop_geometry_slots(Kernel kern, size_t smem_base, size_t slot_bytes,
+                                long long num_envs, int* blocks,
+                                int* envs_per_thread, int* slots, size_t* smem) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = smem_base + slot_bytes;
+  if (bytes <= (size_t)optin) {
+    err = coop_geometry(kern, bytes, num_envs, blocks, envs_per_thread);
+    if (err == cudaSuccess && *envs_per_thread == 1) {
+      *slots = 1;
+      *smem = bytes;
+      return cudaSuccess;
+    }
+    if (err != cudaSuccess && err != cudaErrorInvalidConfiguration) return err;
+  }
+  *slots = 0;
+  *smem = smem_base;
+  return coop_geometry(kern, smem_base, num_envs, blocks, envs_per_thread);
 }
 
 }  // namespace gpt

@@ -60,6 +60,7 @@ class _ACParams(ctypes.Structure):
     _fields_ += [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)]
     _fields_ += [(n, ctypes.c_float) for n in (
         "r_step", "r_wall", "r_goal", "gamma", "alpha_pi", "alpha_v")]
+    _fields_ += [("n_obs", ctypes.c_int32)]
 
 
 @functools.cache
@@ -67,7 +68,7 @@ def _launcher():
     from ._build import load_library
 
     fn = load_library("fused_ac").fused_ac_launch
-    fn.argtypes = [ctypes.POINTER(_ACParams)] + [ctypes.c_void_p] * 17
+    fn.argtypes = [ctypes.POINTER(_ACParams)] + [ctypes.c_void_p] * 16
     fn.restype = ctypes.c_int
     return fn
 
@@ -190,9 +191,10 @@ def make_fused_ac_trainer_rooms(env, num_envs: int, num_steps: int,
         agent_out = torch.empty_like(agent)
         rew = torch.empty(agent.shape, dtype=torch.float32, device=dev)
         th_out, v_out = torch.empty_like(theta), torch.empty_like(v)
-        acc_th = torch.zeros(A * nsp, dtype=torch.int64, device=dev)
-        acc_v = torch.zeros(nsp, dtype=torch.int64, device=dev)
-        cnt = torch.zeros(nsp, dtype=torch.int32, device=dev)
+        # three accumulators used in rotation, each A + 1 sums and a count
+        # per observation (a bound on their size: nsp >= n_obs)
+        acc = torch.zeros(3 * (A + 1) * nsp, dtype=torch.int64, device=dev)
+        cnt = torch.zeros(3 * nsp, dtype=torch.int32, device=dev)
         grid = (ctypes.c_int * 2)()
         P = _ACParams(
             num_envs=B, num_steps=K, rows_per_tile=spec.R, n_sites=n_sites,
@@ -200,11 +202,11 @@ def make_fused_ac_trainer_rooms(env, num_envs: int, num_steps: int,
             time_limit=spec.time_limit, nsp=nsp, nq=nq, goal=spec.goal,
             fixed_agent=spec.fixed_agent, pfail24=spec.pfail24,
             key0=seed & MASK32, key1=(seed >> 32) & MASK32, gamma=gamma,
-            alpha_pi=alpha_pi, alpha_v=alpha_v)
+            alpha_pi=alpha_pi, alpha_v=alpha_v, n_obs=spec.n_obs)
         P.r_step, P.r_wall, P.r_goal = spec.rewards
         ptrs = [x.data_ptr() for x in (
-            agent, agent_out, rew, theta, v, th_out, v_out, acc_th, acc_v,
-            cnt, wall, valid, disp, obs)]
+            agent, agent_out, rew, theta, v, th_out, v_out, acc, cnt, wall,
+            valid, disp, obs)]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = _launcher()(ctypes.byref(P), *ptrs,

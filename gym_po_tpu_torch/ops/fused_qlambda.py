@@ -16,8 +16,9 @@ one-step trainer bit for bit.
 
 It is the ROOMS instantiation of the one trainer kernel in
 ``csrc/fused_qlearning.cu`` (:func:`.fused_qlearning.make_rooms_trainer`),
-which adds the L terms of each env's step as int64 fixed point; the TPU
-kernel's combined ``[L·R, 128]`` MXU mask scatter is not carried over.
+which adds the L terms of each env's step as int64 fixed point, summed per
+block in shared memory, with one grid barrier per step; the TPU kernel's
+combined ``[L·R, 128]`` MXU mask scatter is not carried over.
 """
 
 from __future__ import annotations

@@ -153,7 +153,7 @@ class _QParams(ctypes.Structure):
     _fields_ += [("coefs", ctypes.c_float * MAX_TRACE)]
     _fields_ += [(n, ctypes.c_int32) for n in (
         "n_act", "goal", "fixed_agent", "pfail24", "floor_cells", "up_to",
-        "down_to")]
+        "down_to", "n_obs")]
 
 
 @functools.cache
@@ -205,7 +205,10 @@ class _TrainerSpec:
     def launch(self, name: str, P: _QParams, s: torch.Tensor, q: torch.Tensor,
                tape: Optional[torch.Tensor], trace_len: int):
         """Launch ``name`` on ``s``'s CUDA device; returns ``(s', q',
-        reward_sums, (blocks, envs_per_thread))``."""
+        reward_sums, grid)``: ``grid`` is ``(blocks, envs_per_thread)``,
+        and with a trace ``(blocks, envs_per_thread, ring_slots)``, where
+        ``ring_slots`` is 1 when the trace ring was kept in shared memory
+        and 0 when it went to its global buffer."""
         if s.device.type != "cuda":
             raise ValueError(f"unsupported device {s.device}")
         tabs = self.kernel_tables(s.device)
@@ -213,11 +216,15 @@ class _TrainerSpec:
         s_out = torch.empty_like(s)
         rew = torch.empty(s.shape, dtype=torch.float32, device=dev)
         q_out = torch.empty_like(q)
-        acc = torch.zeros(q.numel(), dtype=torch.int64, device=dev)
-        cnt = torch.zeros(q.numel(), dtype=torch.int32, device=dev)
+        # with a trace, three accumulators used in rotation (a bound on
+        # their size: the kernel's compact index stays below q's)
+        n_acc = q.numel() * (3 if trace_len > 1 else 1)
+        acc = torch.zeros(n_acc, dtype=torch.int64, device=dev)
+        cnt = torch.zeros(n_acc, dtype=torch.int32, device=dev)
+        # the trace ring's place when it does not fit in shared memory
         ring = (torch.empty(trace_len * B, dtype=torch.int32, device=dev)
                 if trace_len > 1 else None)
-        grid = (ctypes.c_int * 2)()
+        grid = (ctypes.c_int * 3)()
 
         def ptr(x):
             return None if x is None else x.data_ptr()
@@ -231,7 +238,7 @@ class _TrainerSpec:
             )
         if err:
             raise RuntimeError(f"{name} failed: CUDA error {err}")
-        return s_out, q_out, rew, (grid[0], grid[1])
+        return s_out, q_out, rew, tuple(grid[:3 if trace_len > 1 else 2])
 
 
 class TaxiTrainerSpec(_TrainerSpec, TaxiDynamics):
@@ -511,6 +518,7 @@ def _make_trainer(spec, count_name: str, gamma: float, average: bool,
         P.expected_sarsa = int(expected_sarsa)
         P.trace_len = L
         P.watkins_cut = int(watkins_cut)
+        P.n_obs = int(spec.n_obs)
         for k, c in enumerate(coefs[:L]):
             P.coefs[k] = c
         *out, run.grid = spec.launch(spec.entry, P, s, q,
@@ -520,7 +528,9 @@ def _make_trainer(spec, count_name: str, gamma: float, average: bool,
 
     run.twin = twin
     run.launches = 0
-    run.grid = None  # (blocks, envs per thread) of the last launch
+    # (blocks, envs per thread) of the last launch; with a trace also its
+    # ring slots (1: the ring in shared memory, 0: in global memory)
+    run.grid = None
     run.tape_shape = tape_shape
     run.n_sites = n_sites
     run.trace_len = L

@@ -197,6 +197,38 @@ def test_q_trainer_kernel_diverging_lr_equals_twin(cuda, average):
     assert torch.isnan(got[1]).any()
 
 
+@pytest.mark.parametrize("which", ["taxi", "double", "rooms", "msrooms"])
+def test_one_step_trainers_largest_batch_equal_twin(cuda, which):
+    """B = 2^20: the one-step trainers launch at the most envs per thread
+    (their registers decide how many blocks are co-resident) and equal
+    their twins."""
+    B, K = 1 << 20, 4
+    if which in ("taxi", "double"):
+        env = gpt_torch.make("Taxi-v4", time_limit=25)
+        run = (make_fused_double_q_trainer(env, B, K) if which == "double"
+               else make_fused_q_trainer(env, B, K, average_duplicates=True))
+        s0, qb, _ = _trainer_inputs(env, run, B, 3, False,
+                                    double=which == "double")
+    else:
+        kw = dict(average_duplicates=True)
+        if which == "rooms":
+            env = gpt_torch.make("Rooms-v0", time_limit=30)
+            run = make_fused_q_trainer_rooms(env, B, K, **kw)
+            s0, _ = _rooms_cells(env, B, 3)
+        else:
+            env = gpt_torch.make("MultistoryFourRooms-v0", grid_z=3,
+                                 time_limit=30)
+            run = make_fused_q_trainer_msrooms(env, B, K, **kw)
+            s0, _ = _msrooms_cells(env, B, 3)
+        qb = torch.zeros((32, 128), device=cuda)
+    got = run(11, 0.1, 0.3, s0, qb)
+    want = run.twin(11, 0.1, 0.3, s0, qb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert run.grid[1] >= 4
+
+
 # ------------------------------------------------------------------ ROOMS
 def _rooms_cells(env, B, seed, random_goal=False):
     """Flat agent (and goal) cells on walkable cells, on the env's device."""
@@ -334,6 +366,141 @@ def test_rooms_trainers_refuse_what_the_kernels_do_not_take(cuda):
             build(gpt_torch.make("Rooms-v0", goal_xy=None), 1024, 8)
         with pytest.raises(ValueError, match="1024"):
             build(gpt_torch.make("Rooms-v0"), 1536, 8)
+
+
+
+# The trainers whose updates go through per-block sums in shared memory and
+# one grid barrier per step (csrc/tabular.cuh BlockSums): Watkins and Peng
+# Q(lambda) [12] and the actor-critic [13], each held to its twin exactly
+# where the new design could go wrong
+REDESIGNED = [
+    ("qlambda", dict(lam=0.9, trace_len=16, watkins_cut=True)),
+    ("qlambda", dict(lam=0.9, trace_len=16, watkins_cut=False)),
+    ("ac", {}),
+]
+REDESIGNED_IDS = ["watkins", "peng", "ac"]
+
+
+def _redesigned_call(env, kind, opts, B, K, a0, mode="philox", lr=0.1,
+                     seed=11):
+    """One call of the kernel and one of its twin on the same inputs:
+    ``(run, got, want, tables in)``.  At K = 0, where the twin draws nothing
+    and refuses, ``want`` is the inputs handed back with zero reward sums."""
+    run = _rooms_trainer(env, kind, B, K, opts, mode == "tape")
+    tape = _tape(run, 4, env.device) if mode == "tape" else ()
+    rng = np.random.default_rng(5)
+    A, n_obs = env.num_actions, env.observation_space.n
+    q = np.zeros((512, A), np.float32)
+    if mode == "tape":
+        q[:n_obs] = rng.normal(scale=0.1, size=(n_obs, A))
+    tables = (torch.as_tensor(q_to_banks(q), device=env.device),)
+    twin = run.twin if K else (
+        lambda *args: None)
+    if kind == "ac":
+        tables += (torch.zeros_like(tables[0]),)
+        got = run(seed, lr, 0.2, *tables, a0, *tape)
+        want = twin(seed, lr, 0.2, *tables, a0, *tape)
+    else:
+        got = run(seed, lr, 0.3, a0, *tables, *tape)
+        want = twin(seed, lr, 0.3, a0, *tables, *tape)
+    if not K:
+        zero = torch.zeros(a0.shape, dtype=torch.float32, device=a0.device)
+        want = (*tables, a0, zero) if kind == "ac" else (a0, tables[0], zero)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    return run, got, want, tables
+
+
+def _next_to_goal(env):
+    """A walkable cell one step from the fixed goal: from there the envs
+    reach it within a few steps, so the tables move from zero."""
+    GW = env.grid_np.shape[1]
+    gy, gx = env.fixed_goal_yx
+    cells = np.asarray(env.valid_states)
+    dist = np.abs(cells // GW - gy) + np.abs(cells % GW - gx)
+    return int(cells[dist == 1][0])
+
+
+def _assert_exact(got, want):
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
+def test_redesigned_trainers_one_start_cell_equal_twin(cuda, kind, opts, mode):
+    """Every env starts on one cell next to the goal: the most same-address
+    adds inside a block; B = 65,536, one env per thread, the ring in shared
+    memory."""
+    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    B = 65536
+    a0 = torch.full((B // 128, 128), _next_to_goal(env), dtype=torch.int32,
+                    device=cuda)
+    opts = dict(opts, average_duplicates=True) if kind == "qlambda" else opts
+    run, got, want, tables = _redesigned_call(env, kind, opts, B, 12, a0, mode)
+    _assert_exact(got, want)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert torch.count_nonzero(got[0 if kind == "ac" else 1] != tables[0]) > 0
+    if kind == "qlambda":
+        assert run.grid[1:] == (1, 1)  # one env per thread, the ring on chip
+
+
+@pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
+def test_redesigned_trainers_diverging_step_equal_twin(cuda, kind, opts):
+    """Summed duplicates with a large step: terms past the fixed point's
+    range flag their entries NaN through the global count words, as in the
+    twin, and the run goes on identically."""
+    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    B = 8192
+    a0, _ = _rooms_cells(env, B, 3)
+    opts = dict(opts, average_duplicates=False) if kind == "qlambda" else opts
+    _, got, want, _ = _redesigned_call(env, kind, opts, B, 16, a0, "tape",
+                                       lr=1e3)
+    _assert_exact(got, want)
+    assert torch.isnan(got[0 if kind == "ac" else 1]).any()
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 4])
+@pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
+def test_redesigned_trainers_few_steps_equal_twin(cuda, kind, opts, K):
+    """K = 0, 1, 2 and 4 steps: the three rotating accumulators before and
+    after their first reuse; K = 0 hands the tables back unchanged."""
+    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    B = 8192
+    a0, _ = _rooms_cells(env, B, 3)
+    _, got, want, _ = _redesigned_call(env, kind, opts, B, K, a0, "tape")
+    _assert_exact(got, want)
+
+
+@pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
+def test_redesigned_trainers_partial_last_slot_equal_twin(cuda, kind, opts):
+    """A batch above the co-resident threads and not a multiple of them:
+    two envs per thread, the second slot partly filled; Q(lambda)'s ring
+    then goes to its global buffer."""
+    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    B = 136192
+    a0, _ = _rooms_cells(env, B, 3)
+    run, got, want, _ = _redesigned_call(env, kind, opts, B, 8, a0)
+    _assert_exact(got, want)
+    blocks, ept = run.grid[:2]
+    assert ept >= 2 and B % (blocks * 256) != 0 and B > blocks * 256 * (ept - 1)
+    if kind == "qlambda":
+        assert run.grid[2] == 0
+
+
+@pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
+def test_redesigned_trainers_largest_batch_equal_twin(cuda, kind, opts):
+    """B = 2^20, K = 16: the most envs per thread; Q(lambda)'s ring no
+    longer fits in shared memory and goes to its global buffer."""
+    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    B = 1 << 20
+    a0, _ = _rooms_cells(env, B, 3)
+    run, got, want, _ = _redesigned_call(env, kind, opts, B, 16, a0)
+    _assert_exact(got, want)
+    assert run.grid[1] >= 4
+    if kind == "qlambda":
+        assert run.grid[2] == 0
 
 
 # ------------------------------------------------------ MultistoryFourRooms

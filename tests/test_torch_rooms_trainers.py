@@ -28,11 +28,13 @@ from gym_po_tpu.ops.fused_ac import make_fused_ac_trainer_rooms as jax_ac
 from gym_po_tpu.ops.fused_qlambda import make_fused_qlambda_trainer_rooms as jax_ql
 from gym_po_tpu_torch.agents import fused_actor_critic, fused_q_learning
 from gym_po_tpu_torch.ops import (
+    apply_update,
     make_fused_ac_trainer_rooms,
     make_fused_q_trainer_rooms,
     make_fused_qlambda_trainer_rooms,
     q_to_banks,
 )
+from gym_po_tpu_torch.ops.fused_ac import apply_ac_update
 
 from _tape import make_tape
 
@@ -259,3 +261,115 @@ def test_fused_actor_critic_shapes_and_history():
         fused_actor_critic(gpt_torch.make("Taxi-v4", device="cpu"), 0,
                            [(0.1, 0.2, 8)], num_envs=1024)
 
+
+
+
+# ------------------------------------------- the kernels' per-block sums
+MASK32, MASK64 = (1 << 32) - 1, (1 << 64) - 1
+
+
+def _kernel_sums(n_sum, n_cnt, envs, count_all, block, rng):
+    """The kernels' update sums (``BlockSums`` in ``csrc/tabular.cuh``) in
+    plain Python: the envs in blocks of ``block``, each block's terms added
+    in a random order into a slab through the two 32-bit halves of each
+    int64 word (the low half, then the high half plus the low half's
+    carry), the blocks' slabs added into one accumulator in a random order.
+    ``envs[e]`` is ``None`` (inactive) or ``(count word, [(sum index, w)])``;
+    a term past the fixed point's range adds nothing and flags its count
+    word.  ``count_all``: an env counts once whatever its terms (the
+    actor-critic), else each term in range counts once.  Returns the int64
+    sums, the counts and the flags."""
+    acc = [0] * n_sum
+    cnt = np.zeros(n_cnt, np.int64)
+    flag = np.zeros(n_cnt, bool)
+    for b in rng.permutation(-(-len(envs) // block)):
+        lo, hi = [0] * n_sum, [0] * n_sum
+        for e in rng.permutation(np.arange(b * block, min(len(envs), (b + 1) * block))):
+            if envs[e] is None:
+                continue
+            o, terms = envs[e]
+            cnt[o] += count_all
+            for k, w in terms:
+                if not abs(w) <= 64.0:
+                    flag[o] = True
+                    continue
+                u = int(np.rint(np.float64(w) * 2.0**32)) & MASK64
+                old = lo[k]
+                lo[k] = (old + (u & MASK32)) & MASK32
+                hi[k] = (hi[k] + (u >> 32) + int(lo[k] < (u & MASK32))) & MASK32
+                cnt[o] += not count_all
+        acc = [(a + (h << 32 | l)) & MASK64 for a, h, l in zip(acc, hi, lo)]
+    sums = np.array(acc, np.uint64).view(np.int64)
+    return sums, cnt, flag
+
+
+def _kernel_delta(sums, cnt, flag, average):
+    """``fix_delta``: the sum converted once, divided by the count in f32."""
+    dq = (sums.astype(np.float64) * 2.0**-32).astype(np.float32)
+    if average:
+        dq = dq / np.maximum(cnt, 1).astype(np.float32)
+    return np.where(flag, np.float32(np.nan), dq).astype(np.float32)
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+@pytest.mark.parametrize("kind", ["q sum", "q average", "ac"])
+def test_update_sums_do_not_depend_on_order_or_blocks(kind, overflow):
+    """The property the kernels' per-block sums rest on: the twins'
+    ``apply_update`` and ``apply_ac_update`` give the same table bit for
+    bit when the terms are permuted, and when they are split into per-block
+    int64 slabs (summed through 32-bit halves) that are added afterwards, at
+    two block sizes.  Terms pile onto a few hot entries, as the greedy
+    actions' do; past the range an entry turns NaN."""
+    rng = np.random.default_rng(17)
+    n_env, A, nsp = 3000, 8, 512
+    live = rng.random(n_env) < 0.9
+    hot = rng.integers(0, 40, n_env)
+    w = (rng.normal(scale=3.0, size=(A + 1, n_env))
+         * rng.choice([1e-7, 1e-3, 1.0, 3.0], (A + 1, n_env))).astype(np.float32)
+    if overflow:  # five live envs each with a term past 2^6
+        w[rng.integers(0, A + 1, 5) * (kind == "ac"),
+          np.flatnonzero(live)[:5]] = np.float32(100.0)
+    tl = torch.as_tensor
+    if kind == "ac":
+        th0 = rng.normal(size=A * nsp).astype(np.float32)
+        v0 = rng.normal(size=8 * nsp).astype(np.float32)
+        th0[:5] = -0.0
+        want = apply_ac_update(tl(th0), tl(v0), tl(hot), tl(w[:A]), tl(w[A]),
+                               tl(live), nsp)
+        perm = rng.permutation(n_env)
+        got = apply_ac_update(tl(th0), tl(v0), tl(hot[perm]), tl(w[:A, perm]),
+                              tl(w[A, perm]), tl(live[perm]), nsp)
+        for g, x in zip(got, want):
+            torch.testing.assert_close(g, x, rtol=0, atol=0, equal_nan=True)
+        envs = [(hot[e], [(j * nsp + hot[e], w[j, e]) for j in range(A + 1)])
+                if live[e] else None for e in range(n_env)]
+        for block in (256, 96):
+            sums, cnt, flag = _kernel_sums((A + 1) * nsp, nsp, envs, True,
+                                           block, rng)
+            d = [_kernel_delta(sums[j * nsp:(j + 1) * nsp], cnt, flag, True)
+                 for j in range(A + 1)]
+            th = th0 + np.concatenate(d[:A])
+            v = v0 + np.concatenate([d[A], np.zeros(7 * nsp, np.float32)])
+            torch.testing.assert_close(tl(th), want[0], rtol=0, atol=0,
+                                       equal_nan=True)
+            torch.testing.assert_close(tl(v), want[1], rtol=0, atol=0,
+                                       equal_nan=True)
+        assert torch.isnan(want[0]).any() == overflow
+        return
+    average = kind == "q average"
+    n = A * nsp
+    addr = rng.integers(0, A, n_env) * nsp + hot
+    q0 = rng.normal(size=n).astype(np.float32)
+    q0[:5] = -0.0
+    want = apply_update(tl(q0), tl(addr), tl(w[0]), tl(live), average)
+    perm = rng.permutation(n_env)
+    torch.testing.assert_close(
+        apply_update(tl(q0), tl(addr[perm]), tl(w[0, perm]), tl(live[perm]),
+                     average), want, rtol=0, atol=0, equal_nan=True)
+    envs = [(addr[e], [(addr[e], w[0, e])]) if live[e] else None
+            for e in range(n_env)]
+    for block in (256, 96):
+        sums, cnt, flag = _kernel_sums(n, n, envs, False, block, rng)
+        q = q0 + _kernel_delta(sums, cnt, flag, average)
+        torch.testing.assert_close(tl(q), want, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(want).any() == overflow
