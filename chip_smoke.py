@@ -55,7 +55,8 @@ Phases: device; build of ``gym_po_tpu_torch/csrc`` (into
 known answers; the Box-Muller normal's logf/cosf against torch's over every
 uniform a draw can give (counts reported); every kernel against its plain twin on the card, exact, in
 tape mode and in Philox mode, and the trainers with per-block update sums
-(Q(lambda), actor-critic) from one start cell and over K = 0, 1, 2, 4;
+(Q(lambda), actor-critic, and the one-step Q and double-Q trainers on both
+sides of their slab's choice) from one start cell and over K = 0, 1, 2, 4;
 distribution check against the step_vec
 rollout path (Taxi and ROOMS); kernel vs twin at the headline's shape;
 path 1 with the headline timing; path 2 with the trainers' timing and
@@ -768,11 +769,9 @@ def redesign_checks(dev, errs) -> None:
     import gym_po_tpu_torch as gp
 
     env = gp.make("Rooms-v0", time_limit=30, device=dev)
-    GW = env.grid_np.shape[1]
-    cells = np.asarray(env.valid_states)
-    dist = (np.abs(cells // GW - env.fixed_goal_yx[0])
-            + np.abs(cells % GW - env.fixed_goal_yx[1]))
-    cell = int(cells[dist == 1][0])
+    shape = env.grid_np.shape
+    cell = next_to_goal(env.valid_states,
+                        np.ravel_multi_index(env.fixed_goal_yx, shape), shape)
     gen = torch.Generator(device=dev).manual_seed(43)
     for key, kind, opts in ROOMS_TRAINERS[1:]:
         lr, eps = (0.1, 0.2) if kind == "ac" else (0.1, 0.3)
@@ -808,6 +807,139 @@ def redesign_checks(dev, errs) -> None:
             f"grid {run.grid} (blocks, envs/thread[, ring slots on chip]); "
             f"tape K = "
             f"{', '.join(map(str, REDESIGN_KS))} from random tables")
+
+
+def next_to_goal(cells, goal, shape) -> int:
+    """The first of the flat walkable ``cells`` one step from the flat
+    ``goal`` cell on its floor, in a grid of ``shape`` (``[H, W]`` or
+    ``[Z, H, W]``)."""
+    cells = np.asarray(cells)
+    at = np.stack(np.unravel_index(cells, shape), -1)
+    g = np.asarray(np.unravel_index(goal, shape))
+    dist = np.abs(at[:, -2:] - g[-2:]).sum(-1)
+    return int(cells[(dist == 1) & (at[:, :-2] == g[:-2]).all(-1)][0])
+
+
+# The one-step trainers on the redesigned step: kernel key, what, kind
+# ("rooms", "msrooms", "taxi", "double"), duplicates averaged, lr (summed
+# duplicates take a small one: every env of the one-start check adds to
+# the same few entries)
+ONE_STEP_REDESIGN = [
+    ("fused_q_rooms", "Rooms-v0 summed", "rooms", False, 1e-5),
+    ("fused_q_rooms", "Rooms-v0 averaged", "rooms", True, 0.1),
+    ("fused_q_msrooms", "MultistoryFourRooms-v0 grid_z=3", "msrooms", True, 0.1),
+    ("fused_qlearning", "Taxi-v4", "taxi", True, 0.1),
+    ("fused_double_q", "Taxi-v4 double Q", "double", True, 0.1),
+]
+
+
+def one_step_case(dev, kind, avg, B, K, rng_tape=False, env_id="Taxi-v4"):
+    """A one-step trainer of ``kind`` and its inputs: ``(run, starts(gen),
+    one start tile, rows of its Q banks)``; ``starts(gen)`` draws a reset
+    batch's start tile.  ROOMS and MSRooms start next to their fixed goal,
+    Taxi from one reset state."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import make_fused_q_trainer_msrooms
+
+    if kind == "rooms":
+        env = gp.make("Rooms-v0", time_limit=30, device=dev)
+        run = make_rooms_trainer(env, "q", B, K, dict(average_duplicates=avg),
+                                 rng_tape)
+        shape = env.grid_np.shape
+        one = next_to_goal(env.valid_states,
+                           np.ravel_multi_index(env.fixed_goal_yx, shape), shape)
+
+        def starts(gen):
+            return rooms_cells(env, env.reset_vec(gen, B)[1].agent_yx)
+        rows = 32
+    elif kind == "msrooms":
+        env = gp.make("MultistoryFourRooms-v0", grid_z=MSROOMS_Z, time_limit=30,
+                      device=dev)
+        run = make_fused_q_trainer_msrooms(env, B, K, average_duplicates=avg,
+                                           rng_tape=rng_tape)
+        shape = env.grid_np.shape
+        one = next_to_goal(np.flatnonzero(env.grid_np.reshape(-1) > 0),
+                           np.ravel_multi_index(env.fixed_goal_zyx, shape), shape)
+
+        def starts(gen):
+            return msrooms_cells(env, env.reset_vec(gen, B)[1].agent_zyx)
+        rows = 32
+    else:
+        env = gp.make(env_id, time_limit=25, device=dev)
+        opts = "double" if kind == "double" else dict(average_duplicates=avg)
+        run = make_trainer(env, B, K, opts, rng_tape)
+
+        def starts(gen):
+            return env.reset_vec(gen, B)[1].s.reshape(-1, 128).contiguous()
+        one = int(starts(torch.Generator(device=dev).manual_seed(0))[0, 0])
+        rows = q_rows(env, opts)
+    return run, starts, torch.full((B // 128, 128), one, dtype=torch.int32,
+                                   device=dev), rows
+
+
+def one_step_redesign_checks(dev, errs) -> None:
+    """The one-step trainers, ROOMS Q [3] summed and averaged, MSRooms Q
+    [4], Taxi Q [2] and double Q [11], on the redesigned step (the updates
+    summed per block in a shared-memory slab, or straight into the global
+    accumulator where that slab does not fit beside a launch that takes the
+    batch; one grid barrier per step) == their twins: at B = 65,536 (the
+    slab side) every env from one start (next to the goal on ROOMS and
+    MSRooms), Philox, K = 16, and K = 0, 1, 2, 4 on a tape from random
+    tables; at B = 2^20, K = 4, the global side (double Q, and Q on
+    ExtendedTaxi-v4's 7,168-entry table) and the slab side (ROOMS, Taxi).
+    ``errs`` maps each kernel's key to its error list."""
+    gen = torch.Generator(device=dev).manual_seed(47)
+    for key, what, kind, avg, lr in ONE_STEP_REDESIGN:
+        run, starts, one, rows = one_step_case(dev, kind, avg, B_ROOMS_CHECK, 16)
+        zeros = torch.zeros((rows, 128), device=dev)
+        got = run(5, lr, 0.3, one, zeros)
+        want = run.twin(5, lr, 0.3, one, zeros)
+        torch.cuda.synchronize()
+        compare(f"{key} {what} one start", got, want, errs[key])
+        if not (got[1] != zeros).any():
+            raise AssertionError(f"{key} {what}: one start moved no Q entry")
+        if run.grid[1:] != (1, 1):
+            raise AssertionError(f"{key} {what}: grid {run.grid}, not one env "
+                                 "per thread with the slab on chip")
+        q0 = 0.1 * torch.randn((rows, 128), generator=gen, device=dev)
+        s0 = None
+        for K in REDESIGN_KS:
+            run_k, starts, _, _ = one_step_case(dev, kind, avg, B_ROOMS_CHECK,
+                                                K, rng_tape=True)
+            s0 = starts(gen) if s0 is None else s0
+            tape = torch.randint(-2**31, 2**31, run_k.tape_shape, generator=gen,
+                                 dtype=torch.int32, device=dev)
+            lr_k = lr if avg else 0.002
+            got_k = run_k(3, lr_k, 0.3, s0, q0, tape)
+            want_k = (run_k.twin(3, lr_k, 0.3, s0, q0, tape) if K
+                      else (s0, q0, torch.zeros(s0.shape, device=dev)))
+            torch.cuda.synchronize()
+            compare(f"{key} {what} tape K={K}", got_k, want_k, errs[key])
+        say("redesign-check", f"kernel == twin exactly: {key} {what} "
+            f"B={B_ROOMS_CHECK}: every env from {int(one[0, 0])}, K=16, "
+            f"Philox, lr={lr}, grid {run.grid} (blocks, envs/thread, slab on "
+            f"chip); tape K = {', '.join(map(str, REDESIGN_KS))} from random "
+            f"tables")
+    for key, what, kind, env_id, side in (
+            ("fused_double_q", "Taxi-v4 double Q", "double", "Taxi-v4", 0),
+            ("fused_qlearning", "ExtendedTaxi-v4", "taxi", "ExtendedTaxi-v4", 0),
+            ("fused_q_rooms", "Rooms-v0", "rooms", None, 1),
+            ("fused_qlearning", "Taxi-v4", "taxi", "Taxi-v4", 1)):
+        run, starts, _, rows = one_step_case(dev, kind, True, B_HEAD, 4,
+                                             env_id=env_id)
+        s0 = starts(gen)
+        q0 = 0.1 * torch.randn((rows, 128), generator=gen, device=dev)
+        got = run(9, 0.1, 0.3, s0, q0)
+        want = run.twin(9, 0.1, 0.3, s0, q0)
+        torch.cuda.synchronize()
+        compare(f"{key} {what} B={B_HEAD}", got, want, errs[key])
+        if run.grid[2] != side:
+            raise AssertionError(f"{key} {what} B={B_HEAD}: grid {run.grid}, "
+                                 f"expected side {side}")
+        say("redesign-check", f"kernel == twin exactly: {key} {what} "
+            f"B={B_HEAD} K=4 Philox from random tables, grid {run.grid} "
+            f"(blocks, envs/thread, slab on chip: "
+            f"{'yes' if side else 'no, the global accumulator'})")
 
 
 def flat_out(out):
@@ -1848,6 +1980,10 @@ def main() -> int:
     path4_distribution_checks(dev)
     msrooms_trainer_checks(dev, p4_errs["fused_q_msrooms"], plain_ms,
                            rooms_terms)
+    one_step_redesign_checks(dev, {
+        "fused_qlearning": trainer_errs[0], "fused_double_q": trainer_errs[1],
+        "fused_q_rooms": rooms_errs["fused_q_rooms"],
+        "fused_q_msrooms": p4_errs["fused_q_msrooms"]})
     p5_errs = {k: [] for k in ("fused_crooms", "fused_tag", "fused_heavenhell",
                                "fused_q_crooms")}
     libm_check(dev)

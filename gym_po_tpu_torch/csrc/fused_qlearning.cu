@@ -37,22 +37,24 @@
 // The other way to order the steps, one launch per step, measured 1.7x
 // slower per step replayed from a CUDA graph (PERF.md).
 //
-// Two step designs, chosen at compile time by kTrace (trace_len > 1):
-//  * One-step (Q, double Q, E-SARSA): every term is a global int64 atomic
-//    plus a count atomic, grid.sync() after the adds, one slice of the grid
-//    applies the sums into q_out, grid.sync() again, and every block
-//    reloads its copy of the table from q_out.
-//  * With a trace (Watkins/Peng Q(lambda)), where the L terms of an env
-//    land on the entries along its recent path and pile onto the greedy
-//    actions': each block sums its terms in shared memory
-//    (gpt::BlockSums), then adds each entry it touched to the global
-//    accumulator once; one grid.sync() per step, after which every block
-//    applies the step's sums to its own copy of the table, and the three
-//    accumulators rotate so that none needs clearing between the barriers.
-//    The table reaches q_out once, after the last step.  The ring of the
-//    last L addresses of each env lives in shared memory
-//    ([L][slots][threads]) when it fits beside the table and the sums, and
-//    in the [L, B] scratch buffer otherwise (large B).
+// One step protocol for every instance (gpt::BlockSums): the update terms
+// (one per env-step, or L with a trace, which land on the entries along the
+// env's recent path and pile onto the greedy actions') are summed per block
+// in shared memory, and the block adds each entry it touched to the step's
+// global accumulator once; one grid.sync() per step, after which every
+// block applies the step's sums to its own copy of the table, and the three
+// accumulators rotate so that none needs clearing between the barriers.
+// The table reaches q_out once, after the last step.
+//  * One-step (Q, double Q, E-SARSA): the slab (12 B per entry) sits beside
+//    the table where a launch with it still takes the batch; otherwise (a
+//    large table at a large batch: double Q at B = 2^20) each term goes
+//    straight into the step's global accumulator, under the same rotation,
+//    barrier and apply.  grid_out[2] says which.
+//  * With a trace (Watkins/Peng Q(lambda)): the slab always; the ring of
+//    the last L addresses of each env lives in shared memory
+//    ([L][slots][threads]) when it fits beside the table and the sums with
+//    one env per thread, and in the [L, B] scratch buffer otherwise (large
+//    B).  grid_out[2] says which.
 //
 // Design:
 //  * The grid is sized from the occupancy API to what is co-resident, and
@@ -61,8 +63,9 @@
 //  * Each block keeps a copy of the flat Q table in shared memory for the
 //    lookups, beside the env's tables.  Entry (obs, a) sits at flat index
 //    a*nsp + obs; the TPU's [nb, 128] lane banks and MXU mask scatter are
-//    not carried over.  The trace's ring and sums index the entries
-//    compactly, a * slab_stride(n_obs) + obs.
+//    not carried over.  The trace's ring and the sums index the entries
+//    compactly, a * slab_stride(n_obs) + obs, double Q's table B after
+//    table A's kA * slab_stride(n_obs) words.
 //  * The update sums are the int64 fixed point of tabular.cuh.  Tabular Q
 //    from zeros is full of exact ties among actions, and a one-ulp
 //    difference would flip an argmax.
@@ -295,43 +298,39 @@ struct MSRoomsQ {
   }
 };
 
-// Shared memory beside the table: with a trace, the block's update sums
-// over kA * slab_stride(n_obs) entries, then the ring when it is on chip
-// (slots envs per thread), then the env's tables.
-template <int kA, bool kTrace>
-size_t trace_smem(const QParams& P, int slots) {
-  if (!kTrace) return 0;
-  return gpt::BlockSums<1>::smem_bytes(kA * gpt::slab_stride(P.n_obs)) +
-         sizeof(int) * (size_t)slots * P.trace_len * gpt::kTrainerThreads;
+// Words of the update sums: kA * slab_stride(n_obs) entries a table.
+template <int kA, bool kDouble>
+__host__ __device__ int sum_words(const QParams& P) {
+  return (kDouble ? 2 : 1) * kA * gpt::slab_stride(P.n_obs);
 }
 
 #define Q_KERNEL_ARGS                                                         \
-  QParams P, int envs_per_thread, int ring_slots,                             \
+  QParams P, int envs_per_thread, int on_chip, int ring_slots,                \
       const int32_t *__restrict__ s_in, int32_t *__restrict__ s_out,          \
       float *__restrict__ rew_out, const float *__restrict__ q_in,            \
       float *q_out, long long *acc, int *cnt, int *ring, const void *tab0,    \
       const void *tab1, const void *tab2, const void *tab3,                   \
       const int32_t *__restrict__ tape
-#define Q_KERNEL_PASS                                                        \
-  P, envs_per_thread, ring_slots, s_in, s_out, rew_out, q_in, q_out, acc,    \
-      cnt, ring, tab0, tab1, tab2, tab3, tape
 
-// The K steps of one trainer launch; the two kernels below differ only in
-// their launch bounds.
+// The K steps of one trainer launch.  on_chip: the update sums' slab is in
+// shared memory (always with a trace); ring_slots: the trace ring is.
+// At most 64 registers (the launch bounds), so that B = 2^20 launches.
 template <int NBLK, bool kDouble, bool kTrace, class Env>
-__device__ __forceinline__ void train_steps(Q_KERNEL_ARGS) {
+__global__ void __launch_bounds__(gpt::kTrainerThreads, gpt::kMinBlocksPerSM)
+fused_q_kernel(Q_KERNEL_ARGS) {
   constexpr int kA = Env::kA;
   static_assert(!(kTrace && kDouble), "the trace is single-table");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   float* s_q = smem;
-  // with a trace the table is read from the block's own copy until the
-  // end: every entry takes its "+ 0" here (-0 becomes +0), as each step's
-  // whole-table add does in the twin
+  // the table is read from the block's own copy until the end: every entry
+  // takes its "+ 0" here (-0 becomes +0), as each step's whole-table add
+  // does in the twin
   for (int i = threadIdx.x; i < P.nq; i += blockDim.x)
-    s_q[i] = kTrace && P.num_steps ? __fadd_rn(q_in[i], 0.f) : q_in[i];
+    s_q[i] = P.num_steps ? __fadd_rn(q_in[i], 0.f) : q_in[i];
   const int no = gpt::slab_stride(P.n_obs);
-  const gpt::BlockSums<1> sums(s_q + P.nq, acc, cnt, kTrace ? kA * no : 0);
+  const gpt::BlockSums<1> sums(s_q + P.nq, acc, cnt, sum_words<kA, kDouble>(P),
+                               kTrace || on_chip);
   int* s_ring = static_cast<int*>(sums.end());
   const int L = P.trace_len;
   const void* const tab[4] = {tab0, tab1, tab2, tab3};
@@ -440,7 +439,7 @@ __device__ __forceinline__ void train_steps(Q_KERNEL_ARGS) {
           sums.term(t, my_ring[slot * ring_stride], __fmul_rn(P.coefs[k], wd));
         }
       } else {
-        gpt::accumulate(acc, cnt, coin * nq1 + a * nsp + qidx, wd, average);
+        sums.term(t, (coin * kA + a) * no + qidx, wd);
       }
       if (st.reset) age = 0;  // the trace dies at resets, not Taxi's task ones
       s_l[i] = st.s_next;
@@ -450,33 +449,20 @@ __device__ __forceinline__ void train_steps(Q_KERNEL_ARGS) {
       racc_l[i] = racc_l[i] + st.rew;
     }
 
-    if constexpr (kTrace) {
-      // --- the block's sums out, one barrier, every block applies them ---
-      __syncthreads();
-      sums.flush(t);
-      grid.sync();
-      sums.apply(t, [&](int c, int k, const long long* g) {
-        float& q = s_q[(c / no) * nsp + c % no];
-        q = __fadd_rn(q, gpt::fix_delta(__ldcg(g + c), k, average));
-      });
-      sums.clear_ahead(t);
-      __syncthreads();
-    } else {
-      // --- apply this step's update once every env has added to it ---
-      grid.sync();
-      for (int i = gtid; i < P.nq; i += nthreads) {
-        q_out[i] = __fadd_rn(s_q[i],
-                             gpt::fix_delta(__ldcg(acc + i), __ldcg(cnt + i), average));
-        acc[i] = 0;
-        cnt[i] = 0;
-      }
-      grid.sync();
-      for (int i = threadIdx.x; i < P.nq; i += blockDim.x) s_q[i] = __ldcg(q_out + i);
-      __syncthreads();
-    }
+    // --- the block's sums out, one barrier, every block applies them ---
+    __syncthreads();
+    sums.flush(t);
+    grid.sync();
+    sums.apply(t, [&](int c, int k, long long sum) {
+      const int row = c / no;  // coin * kA + a
+      float& q = s_q[(row / kA) * nq1 + (row % kA) * nsp + c % no];
+      q = __fadd_rn(q, gpt::fix_delta(sum, k, average));
+    });
+    sums.clear_ahead(t);
+    __syncthreads();
   }
-  if (kTrace || P.num_steps == 0)  // every block holds the same table
-    for (int i = gtid; i < P.nq; i += nthreads) q_out[i] = kTrace ? s_q[i] : q_in[i];
+  // every block holds the same table
+  for (int i = gtid; i < P.nq; i += nthreads) q_out[i] = s_q[i];
 
   for (int i = 0; i < envs_per_thread; ++i) {
     const long long e = gtid + (long long)i * nthreads;
@@ -486,52 +472,40 @@ __device__ __forceinline__ void train_steps(Q_KERNEL_ARGS) {
   }
 }
 
-template <int NBLK, bool kDouble, class Env>
-__global__ void __launch_bounds__(gpt::kTrainerThreads)
-fused_q_kernel(Q_KERNEL_ARGS) {
-  train_steps<NBLK, kDouble, false, Env>(Q_KERNEL_PASS);
-}
-
-// with a trace: at most 64 registers, so that B = 2^20 still launches
-template <int NBLK, class Env>
-__global__ void __launch_bounds__(gpt::kTrainerThreads, gpt::kMinBlocksPerSM)
-fused_q_trace_kernel(Q_KERNEL_ARGS) {
-  train_steps<NBLK, false, true, Env>(Q_KERNEL_PASS);
-}
-
-template <int NBLK, bool kDouble, bool kTrace, class Env>
-auto trainer_kernel() {
-  if constexpr (kTrace) return fused_q_trace_kernel<NBLK, Env>;
-  else return fused_q_kernel<NBLK, kDouble, Env>;
-}
-
 template <int NBLK, bool kDouble, bool kTrace, class Env>
 int launch(const QParams* P, const void* s_in, void* s_out, void* rew_out,
            const void* q_in, void* q_out, void* acc, void* cnt, void* ring,
            const void* tab0, const void* tab1, const void* tab2,
            const void* tab3, const void* tape, int* grid_out, void* stream) {
+  // the sums' words (3 buffers of them in acc and cnt) fit in the table's
+  // 3 * nq, and an observation fits in the stride between actions
   if (P->n_sites > 4 * NBLK || P->trace_len > kMaxTrace || P->trace_len < 1 ||
-      kTrace != (P->trace_len > 1) ||
-      (kTrace && (P->n_obs < 1 || Env::kA * gpt::slab_stride(P->n_obs) > P->nq)))
+      kTrace != (P->trace_len > 1) || P->n_obs < 1 || P->n_obs > P->nsp ||
+      sum_words<Env::kA, kDouble>(*P) > P->nq)
     return (int)cudaErrorInvalidValue;
-  auto kern = trainer_kernel<NBLK, kDouble, kTrace, Env>();
-  size_t smem = sizeof(float) * P->nq + Env::smem_tables(*P) +
-                trace_smem<Env::kA, kTrace>(*P, 0);
-  int blocks = 0, ept = 0, slots = 0;
+  auto kern = fused_q_kernel<NBLK, kDouble, kTrace, Env>;
+  const size_t base = sizeof(float) * P->nq + Env::smem_tables(*P);
+  const size_t slab = gpt::BlockSums<1>::smem_bytes(sum_words<Env::kA, kDouble>(*P));
+  size_t smem = 0;
+  int blocks = 0, ept = 0, on_chip = 1, slots = 0;
+  // with a trace the slab always, and the ring beside it where each thread
+  // owns one env; one-step, the slab where a launch with it takes the batch
   cudaError_t err =
-      kTrace ? gpt::coop_geometry_slots(kern, smem,
-                                        trace_smem<Env::kA, kTrace>(*P, 1) -
-                                            trace_smem<Env::kA, kTrace>(*P, 0),
-                                        P->num_envs, &blocks, &ept, &slots, &smem)
-             : gpt::coop_geometry(kern, smem, P->num_envs, &blocks, &ept);
+      kTrace ? gpt::coop_geometry_room(
+                   kern, base + slab,
+                   sizeof(int) * (size_t)P->trace_len * gpt::kTrainerThreads, 1,
+                   P->num_envs, &blocks, &ept, &slots, &smem)
+             : gpt::coop_geometry_room(kern, base, slab, gpt::kMaxEnvsPerThread,
+                                       P->num_envs, &blocks, &ept, &on_chip,
+                                       &smem);
   if (err != cudaSuccess) return (int)err;
   if (kTrace && !slots && !ring) return (int)cudaErrorInvalidValue;
   grid_out[0] = blocks;
   grid_out[1] = ept;
-  grid_out[2] = slots;
+  grid_out[2] = kTrace ? slots : on_chip;
   QParams p = *P;
-  void* args[] = {&p, &ept, &slots, (void*)&s_in, &s_out, &rew_out, &q_in,
-                  &q_out, &acc, &cnt, &ring, (void*)&tab0, (void*)&tab1,
+  void* args[] = {&p, &ept, &on_chip, &slots, (void*)&s_in, &s_out, &rew_out,
+                  &q_in, &q_out, &acc, &cnt, &ring, (void*)&tab0, (void*)&tab1,
                   (void*)&tab2, (void*)&tab3, (void*)&tape};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
                                     dim3(gpt::kTrainerThreads), args, smem,
@@ -551,8 +525,9 @@ int launch(const QParams* P, const void* s_in, void* s_out, void* rew_out,
   P, s_in, s_out, rew_out, q_in, q_out, acc, cnt, ring, tab0, tab1, tab2, \
       tab3, tape, grid_out, stream
 
-// grid_out: blocks, envs per thread, and the trace ring's env slots per
-// thread in shared memory (0: the ring is in global memory, or no trace)
+// grid_out: blocks, envs per thread, and with a trace the ring's env slots
+// per thread in shared memory (0: the ring is in global memory), one-step
+// whether the update sums' slab is in shared memory (1) or not (0)
 extern "C" int fused_q_launch(Q_LAUNCH_ARGS) {
   if (P->trace_len > 1) return launch<2, false, true, TaxiQ>(Q_LAUNCH_PASS);
   return launch<2, false, false, TaxiQ>(Q_LAUNCH_PASS);

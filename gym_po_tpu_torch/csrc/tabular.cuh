@@ -1,6 +1,7 @@
 // Pieces shared by the port's tabular trainer kernels (device and launch
 // side): fused_qlearning.cu (Q, Q(lambda) and double Q on Taxi; Q and
-// Q(lambda) on ROOMS) and fused_ac.cu (actor-critic on ROOMS).
+// Q(lambda) on ROOMS; Q on MultistoryFourRooms), fused_ac.cu (actor-critic
+// on ROOMS) and fused_q_crooms.cu (Q on CRooms).
 //
 //  * Per-action table lookups, the select of one action's value and the
 //    first argmax, over a compile-time action count N, so every value stays
@@ -19,12 +20,18 @@
 //    step's terms go first into a slab in the block's shared memory, the
 //    block then adds each word it touched into one of three global
 //    accumulators used in rotation, and after the one barrier every block
-//    applies the finished sums to its own copy of the table.
+//    applies the finished sums to its own copy of the table.  Where the
+//    slab does not fit beside a launch that takes the batch, the terms go
+//    straight into the step's global accumulator (accumulate), with the
+//    same rotation, barrier and apply.  accumulate alone, with a barrier to
+//    apply the sums and a second one to reload the table, is the older
+//    protocol that fused_q_crooms.cu still runs.
 //  * The geometry of a persistent cooperative launch: as many blocks as are
 //    co-resident (occupancy API), each thread owning up to
-//    kMaxEnvsPerThread envs for all K steps; coop_geometry_slots also makes
-//    room for a per-env ring in shared memory where each thread owns one
-//    env.
+//    kMaxEnvsPerThread envs for all K steps; coop_geometry_room also makes
+//    room in shared memory for an optional piece (the Q(lambda) ring, the
+//    one-step trainers' slab) where a launch with it still takes the
+//    batch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -86,8 +93,8 @@ __device__ __forceinline__ bool fix_add(long long* acc, int addr, float w) {
   return true;
 }
 
-// one term: cnt[addr] counts it (when averaging), or flags it with
-// kOverflow when it is out of range
+// one term straight into a global accumulator: cnt[addr] counts it (when
+// averaging), or flags it with kOverflow when it is out of range
 __device__ __forceinline__ void accumulate(long long* acc, int* cnt, int addr,
                                            float w, bool average) {
   if (!fix_add(acc, addr, w)) {
@@ -112,7 +119,8 @@ __host__ __device__ __forceinline__ int slab_stride(int n_obs) {
 }
 
 // The update sums of one trainer step, summed per block in shared memory
-// and across blocks in one of three global accumulators.
+// (on_chip) or not (each term one global atomic), and across blocks in one
+// of three global accumulators.
 //
 // A count word o carries kPer sums, sum j at j * n + o: kPer = 1 gives every
 // table entry its own count (Q, Q(lambda)), kPer = A + 1 gives an
@@ -128,27 +136,33 @@ __host__ __device__ __forceinline__ int slab_stride(int n_obs) {
 // carry): the sum of the halves is the int64 sum modulo 2^64, which the
 // range guard keeps exact.  A term past the range sets kOverflow in the
 // global count word directly: a flag summed over blocks would carry into
-// the count.
+// the count.  Off chip (kPer = 1 only) a term is accumulate()'s two global
+// atomics into step t's buffer, counted whether or not the trainer
+// averages: the count word is what marks a word as touched for apply.
 template <int kPer>
 struct BlockSums {
-  unsigned long long* s_sum;  // [kPer * n] shared
-  int* s_cnt;                 // [n] shared
+  unsigned long long* s_sum;  // [kPer * n] shared, when on chip
+  int* s_cnt;                 // [n] shared, when on chip
   long long* g_sum;           // [3][kPer * n] global
   int* g_cnt;                 // [3][n] global
   int n;
+  bool on_chip;
 
   static __host__ __device__ size_t smem_bytes(int n) {
     return (size_t)n * (kPer * sizeof(unsigned long long) + sizeof(int));
   }
-  // carves the slab out of shared memory at smem (8-byte aligned)
-  __device__ BlockSums(void* smem, long long* g_sum_, int* g_cnt_, int n_)
+  // carves the slab out of shared memory at smem (8-byte aligned), or
+  // takes none of it when not on chip
+  __device__ BlockSums(void* smem, long long* g_sum_, int* g_cnt_, int n_,
+                       bool on_chip_ = true)
       : s_sum(static_cast<unsigned long long*>(smem)),
-        s_cnt(reinterpret_cast<int*>(s_sum + (long long)kPer * n_)),
-        g_sum(g_sum_), g_cnt(g_cnt_), n(n_) {
+        s_cnt(reinterpret_cast<int*>(s_sum + (on_chip_ ? (long long)kPer * n_ : 0))),
+        g_sum(g_sum_), g_cnt(g_cnt_), n(n_), on_chip(on_chip_) {
+    if (!on_chip) return;
     for (int i = threadIdx.x; i < kPer * n; i += blockDim.x) s_sum[i] = 0;
     for (int i = threadIdx.x; i < n; i += blockDim.x) s_cnt[i] = 0;
   }
-  __device__ void* end() const { return s_cnt + n; }
+  __device__ void* end() const { return on_chip ? s_cnt + n : s_cnt; }
   __device__ long long* sums(int t) const {
     return g_sum + (long long)(t % 3) * kPer * n;
   }
@@ -169,16 +183,18 @@ struct BlockSums {
   __device__ __forceinline__ void flag(int t, int o) const {
     atomicOr(counts(t) + o, kOverflow);
   }
-  // one term with its own count word (kPer = 1), as accumulate() does
+  // one term with its own count word (kPer = 1)
   __device__ __forceinline__ void term(int t, int c, float w) const {
-    if (add(0, c, w)) count(c);
+    if (!on_chip) accumulate(sums(t), counts(t), c, w, true);
+    else if (add(0, c, w)) count(c);
     else flag(t, c);
   }
 
   // After a __syncthreads(): every count word the block touched, and its
   // kPer sums, into step t's accumulator, one global atomic each; the slab
-  // is left zero.
+  // is left zero.  Nothing to do off chip.
   __device__ void flush(int t) const {
+    if (!on_chip) return;
     long long* g = sums(t);
     int* gc = counts(t);
     for (int o = threadIdx.x; o < n; o += blockDim.x) {
@@ -194,15 +210,32 @@ struct BlockSums {
       }
     }
   }
-  // After the grid barrier: fn(o, count word, sums) for every count word
-  // that step t touched (read past L1: other SMs added them).
+  // After the grid barrier: for every count word o that step t touched,
+  // fn(o, count word, its sum) with kPer = 1, fn(o, count word, the step's
+  // sums) otherwise (read past L1: other SMs added them).  With kPer = 1 a
+  // thread reads 4 count words and their 4 sums with three independent
+  // 16-byte loads (n is a multiple of 4, slab_stride's), rather than a sum
+  // after each count it finds set: one L2 round trip per 4 words.
   template <class F>
   __device__ void apply(int t, F&& fn) const {
-    const long long* g = sums(t);
-    const int* gc = counts(t);
-    for (int o = threadIdx.x; o < n; o += blockDim.x) {
-      const int k = __ldcg(gc + o);
-      if (k) fn(o, k, g);
+    if constexpr (kPer == 1) {
+      const int4* gc = reinterpret_cast<const int4*>(counts(t));
+      const longlong2* g = reinterpret_cast<const longlong2*>(sums(t));
+      for (int o = threadIdx.x; o < n / 4; o += blockDim.x) {
+        const int4 k = __ldcg(gc + o);
+        const longlong2 s0 = __ldcg(g + 2 * o), s1 = __ldcg(g + 2 * o + 1);
+        if (k.x) fn(4 * o, k.x, s0.x);
+        if (k.y) fn(4 * o + 1, k.y, s0.y);
+        if (k.z) fn(4 * o + 2, k.z, s1.x);
+        if (k.w) fn(4 * o + 3, k.w, s1.y);
+      }
+    } else {
+      const long long* g = sums(t);
+      const int* gc = counts(t);
+      for (int o = threadIdx.x; o < n; o += blockDim.x) {
+        const int k = __ldcg(gc + o);
+        if (k) fn(o, k, g);
+      }
     }
   }
   // After the grid barrier: this thread's slice of the buffer of step t + 2
@@ -245,33 +278,34 @@ cudaError_t coop_geometry(Kernel kern, size_t smem, long long num_envs,
   return cudaSuccess;
 }
 
-// The geometry of a launch that keeps slot_bytes of shared memory for the
-// one env of each thread (a per-env ring) beside smem_base, where such a
-// launch gives every thread one env: *slots = 1.  Otherwise (more envs than
-// those blocks hold threads, or no room) *slots = 0 and the geometry is
-// that of smem_base alone: the caller keeps the ring in global memory.
-// *smem is the dynamic shared memory to launch with.
+// The geometry of a launch that keeps extra_bytes of shared memory beside
+// smem_base for an optional piece, where such a launch gives each thread at
+// most max_envs envs: *taken = 1.  Otherwise (more envs than that, or no
+// room) *taken = 0 and the geometry is that of smem_base alone: the caller
+// keeps the piece in global memory.  *smem is the dynamic shared memory to
+// launch with.  The Q(lambda) ring (one slot per thread, max_envs = 1) and
+// the one-step trainers' slab (max_envs = kMaxEnvsPerThread) choose so.
 template <class Kernel>
-cudaError_t coop_geometry_slots(Kernel kern, size_t smem_base, size_t slot_bytes,
-                                long long num_envs, int* blocks,
-                                int* envs_per_thread, int* slots, size_t* smem) {
+cudaError_t coop_geometry_room(Kernel kern, size_t smem_base, size_t extra_bytes,
+                               int max_envs, long long num_envs, int* blocks,
+                               int* envs_per_thread, int* taken, size_t* smem) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  dev);
   if (err != cudaSuccess) return err;
-  const size_t bytes = smem_base + slot_bytes;
+  const size_t bytes = smem_base + extra_bytes;
   if (bytes <= (size_t)optin) {
     err = coop_geometry(kern, bytes, num_envs, blocks, envs_per_thread);
-    if (err == cudaSuccess && *envs_per_thread == 1) {
-      *slots = 1;
+    if (err == cudaSuccess && *envs_per_thread <= max_envs) {
+      *taken = 1;
       *smem = bytes;
       return cudaSuccess;
     }
     if (err != cudaSuccess && err != cudaErrorInvalidConfiguration) return err;
   }
-  *slots = 0;
+  *taken = 0;
   *smem = smem_base;
   return coop_geometry(kern, smem_base, num_envs, blocks, envs_per_thread);
 }

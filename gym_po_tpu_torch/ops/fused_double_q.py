@@ -116,6 +116,7 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
             return twin(seed, lr, epsilon, s, q2, *tape)
         P = spec.params(n_sites, nsp, nq, seed, lr, epsilon, gamma,
                         average_duplicates)
+        P.n_obs = spec.ns  # both tables are indexed by state
         *out, run.grid = spec.launch("fused_double_q_launch", P, s, q2,
                                      tape[0] if rng_tape else None, 1)
         count_launch(run, "fused_double_q")
@@ -123,7 +124,10 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
 
     run.twin = twin
     run.launches = 0
-    run.grid = None  # (blocks, envs per thread) of the last launch
+    # (blocks, envs per thread, side) of the last launch; side 1: the
+    # update sums went through the block's shared-memory slab, 0: straight
+    # to the global accumulator
+    run.grid = None
     run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

@@ -205,10 +205,11 @@ class _TrainerSpec:
     def launch(self, name: str, P: _QParams, s: torch.Tensor, q: torch.Tensor,
                tape: Optional[torch.Tensor], trace_len: int):
         """Launch ``name`` on ``s``'s CUDA device; returns ``(s', q',
-        reward_sums, grid)``: ``grid`` is ``(blocks, envs_per_thread)``,
-        and with a trace ``(blocks, envs_per_thread, ring_slots)``, where
-        ``ring_slots`` is 1 when the trace ring was kept in shared memory
-        and 0 when it went to its global buffer."""
+        reward_sums, grid)``: ``grid`` is ``(blocks, envs_per_thread,
+        side)``.  With a trace ``side`` is 1 when the trace ring was kept
+        in shared memory and 0 when it went to its global buffer; one-step,
+        1 when the update sums went through the block's shared-memory slab
+        and 0 when each term went straight to the global accumulator."""
         if s.device.type != "cuda":
             raise ValueError(f"unsupported device {s.device}")
         tabs = self.kernel_tables(s.device)
@@ -216,9 +217,9 @@ class _TrainerSpec:
         s_out = torch.empty_like(s)
         rew = torch.empty(s.shape, dtype=torch.float32, device=dev)
         q_out = torch.empty_like(q)
-        # with a trace, three accumulators used in rotation (a bound on
+        # three accumulators used in rotation, one a step (a bound on
         # their size: the kernel's compact index stays below q's)
-        n_acc = q.numel() * (3 if trace_len > 1 else 1)
+        n_acc = 3 * q.numel()
         acc = torch.zeros(n_acc, dtype=torch.int64, device=dev)
         cnt = torch.zeros(n_acc, dtype=torch.int32, device=dev)
         # the trace ring's place when it does not fit in shared memory
@@ -238,7 +239,7 @@ class _TrainerSpec:
             )
         if err:
             raise RuntimeError(f"{name} failed: CUDA error {err}")
-        return s_out, q_out, rew, tuple(grid[:3 if trace_len > 1 else 2])
+        return s_out, q_out, rew, tuple(grid)
 
 
 class TaxiTrainerSpec(_TrainerSpec, TaxiDynamics):
@@ -528,8 +529,9 @@ def _make_trainer(spec, count_name: str, gamma: float, average: bool,
 
     run.twin = twin
     run.launches = 0
-    # (blocks, envs per thread) of the last launch; with a trace also its
-    # ring slots (1: the ring in shared memory, 0: in global memory)
+    # (blocks, envs per thread, side) of the last launch: with a trace the
+    # ring's (1: in shared memory, 0: in global memory), one-step the update
+    # sums' (1: the block's shared-memory slab, 0: the global accumulator)
     run.grid = None
     run.tape_shape = tape_shape
     run.n_sites = n_sites

@@ -3,7 +3,7 @@
     python -m gym_po_tpu_torch.ops.probe_fused_qlearning [section ...] [--parent DIR|variant:NAME]
 
 Sections (``sweep profile variants floor`` when none is named; ``ab``
-needs ``--parent``):
+needs ``--parent``; ``touched`` runs only when named):
 
 - ``sweep``: CUDA-event ms/call, us/step and train-steps/s of the one-step
   trainer on ``Taxi-v4`` (duplicates averaged) over K at B = 65,536 and
@@ -17,10 +17,12 @@ needs ``--parent``):
 - ``variants``: copies of ``csrc/fused_qlearning.cu`` and
   ``csrc/fused_ac.cu`` (with their headers) with one part taken out or
   swapped (:data:`VARIANTS`: the grid barriers, the atomics, the table
-  reload, the Philox rounds, the actor-critic's logf/expf, ...), built under
+  reload, the Philox rounds, the actor-critic's logf/expf, the one-step
+  trainers' sums forced off chip, fewer and fatter blocks, ...), built under
   ``build/gym_po_tpu_torch/probe_q/`` and timed beside the source as it is,
   to attribute the time of the Taxi Q and double-Q trainers, the ROOMS Q,
-  Watkins and Peng Q(lambda) trainers and the actor-critic; the opcodes of
+  Watkins and Peng Q(lambda) trainers, the actor-critic and the MSRooms Q
+  trainer; the opcodes of
   each build's atomics (``cuobjdump -sass``) are printed beside it.  Most
   edited kernels compute wrong results and only their times are read; the
   variants that swap in another way to the same sums are held to the source
@@ -32,11 +34,17 @@ needs ``--parent``):
   :data:`VARIANTS`' edits, against the current ones in one process:
   Watkins and Peng Q(lambda) and the actor-critic on ROOMS, the one-step
   trainers on ROOMS, MSRooms and Taxi, Watkins Q(lambda) and double Q on
-  Taxi, each the median of 5 CUDA-event windows of 4 chained calls per
-  source, the two sources' windows alternating;
+  Taxi at B = 65,536, then ROOMS and Taxi Q (the one-step trainers' slab
+  side), double Q and ExtendedTaxi-v4's Q (the global side) at B = 2^20,
+  each the median of 5 CUDA-event windows of 4 chained calls per source,
+  the two sources' windows alternating;
 - ``floor``: K steps of ``grid.sync()`` alone, at the block counts of the
   ROOMS trainers' and the Taxi trainer's launches: the barrier's floor per
-  step.
+  step;
+- ``touched``: how much a block's shared-memory slab can aggregate in the
+  one-step trainers at full width: per step, the distinct table entries
+  that a block's 256 envs update (the global atomics of its flush) against
+  its 256 terms, from one twin call of each on the card.
 
 Every line it prints is a measurement of this run; the first line is the
 card's name and power limit as ``nvidia-smi`` gives them.
@@ -60,7 +68,7 @@ import torch
 from .probe_fused_taxi import _device_us, _edit, _nvidia_smi, event_ms
 
 B_FULL, K_FULL, LR, EPS = 65536, 256, 0.1, 0.1
-SECTIONS = ("sweep", "profile", "variants", "ab", "floor")
+SECTIONS = ("sweep", "profile", "variants", "ab", "floor", "touched")
 DEFAULT_SECTIONS = ("sweep", "profile", "variants", "floor")
 
 
@@ -87,6 +95,7 @@ def _setup(env_id="Taxi-v4", B=B_FULL, K=K_FULL, double=False, **opts):
         carry["s"], carry["q"], _ = run(carry["i"], LR, EPS, carry["s"],
                                         carry["q"])
 
+    call.carry = carry
     return run, call
 
 
@@ -149,6 +158,7 @@ def _setup_msrooms(B=B_FULL, K=K_FULL):
         carry["a"], carry["q"], _ = run(carry["i"], LR, EPS, carry["a"],
                                         carry["q"])
 
+    call.carry = carry
     return run, call
 
 
@@ -327,10 +337,30 @@ VARIANTS = {
 """),
     ], True),
     # the Q(lambda) trace ring always in its global [L, B] buffer, never in
-    # shared memory
+    # shared memory (the first edit finds sources that still have
+    # coop_geometry_slots, the second the current ones)
     "global-ring": ([
-        ("tabular.cuh", _lit("if (bytes <= (size_t)optin) {"),
-         "if (bytes <= (size_t)optin && false) {"),
+        ("tabular.cuh", _lit("if (err == cudaSuccess && *envs_per_thread == 1) {"),
+         "if (err == cudaSuccess && *envs_per_thread == 1 && false) {"),
+        ("fused_qlearning.cu",
+         _lit("sizeof(int) * (size_t)P->trace_len * gpt::kTrainerThreads, 1,"),
+         "sizeof(int) * (size_t)P->trace_len * gpt::kTrainerThreads, 0,"),
+    ], True),
+    # the one-step trainers' update sums always straight into the global
+    # accumulator, never through the block's slab
+    "global-sums": ([
+        ("fused_qlearning.cu", _lit("gpt::coop_geometry_room(kern, base, slab, "
+                                    "gpt::kMaxEnvsPerThread,"),
+         "gpt::coop_geometry_room(kern, base, slab, 0,"),
+    ], True),
+    # fewer, fatter blocks: at least two envs per thread, so more terms
+    # share a slab word (every trainer; the Q(lambda) ring then goes to its
+    # global buffer)
+    "fat-blocks": ([
+        ("tabular.cuh", _lit("const long long need = (num_envs + kTrainerThreads "
+                             "- 1) / kTrainerThreads;"),
+         "const long long need = (num_envs + 2 * kTrainerThreads - 1) / "
+         "(2 * kTrainerThreads);"),
     ], True),
 }
 
@@ -341,8 +371,9 @@ TIMED = (
     *((label, lambda kind=kind, kw=kw: _setup_rooms(kind, **kw))
       for label, kind, kw in ROOMS_OPTIONS),
     ("Rooms-v0 actor-critic", lambda: _setup_rooms("ac")),
+    ("MultistoryFourRooms-v0 grid_z=3 Q", _setup_msrooms),
 )
-EXACT = ROOMS_OPTIONS[1:] + (("Rooms-v0 actor-critic", "ac", {}),)
+EXACT = ROOMS_OPTIONS + (("Rooms-v0 actor-critic", "ac", {}),)
 
 
 def _sources(src: Path) -> dict:
@@ -519,18 +550,26 @@ def _window_ms(call, calls: int = 4) -> float:
     return a.elapsed_time(b) / calls
 
 
+# label, B, setup (K = K_FULL); at B = 2^20 the one-step trainers' slab
+# stays on chip for ROOMS and Taxi-v4, and double Q and ExtendedTaxi-v4's
+# table take the global side
 AB_CASES = (
-    ("[12] Rooms-v0 Watkins Q(lambda) L=16",
+    ("[12] Rooms-v0 Watkins Q(lambda) L=16", B_FULL,
      lambda: _setup_rooms("qlambda", lam=0.9, trace_len=16)),
-    ("[12] Rooms-v0 Peng Q(lambda) L=16",
+    ("[12] Rooms-v0 Peng Q(lambda) L=16", B_FULL,
      lambda: _setup_rooms("qlambda", lam=0.9, trace_len=16, watkins_cut=False)),
-    ("[13] Rooms-v0 actor-critic", lambda: _setup_rooms("ac")),
-    ("[3] Rooms-v0 one-step Q", lambda: _setup_rooms("q")),
-    ("[4] MultistoryFourRooms-v0 grid_z=3 Q", _setup_msrooms),
-    ("[2] Taxi-v4 Q", lambda: _setup()),
-    ("[2] Taxi-v4 Watkins Q(lambda) L=16",
+    ("[13] Rooms-v0 actor-critic", B_FULL, lambda: _setup_rooms("ac")),
+    ("[3] Rooms-v0 one-step Q", B_FULL, lambda: _setup_rooms("q")),
+    ("[4] MultistoryFourRooms-v0 grid_z=3 Q", B_FULL, _setup_msrooms),
+    ("[2] Taxi-v4 Q", B_FULL, lambda: _setup()),
+    ("[2] Taxi-v4 Watkins Q(lambda) L=16", B_FULL,
      lambda: _setup(lam=0.9, trace_len=16)),
-    ("[11] Taxi-v4 double Q", lambda: _setup(double=True)),
+    ("[11] Taxi-v4 double Q", B_FULL, lambda: _setup(double=True)),
+    ("[3] Rooms-v0 one-step Q", 1 << 20, lambda: _setup_rooms("q", B=1 << 20)),
+    ("[2] Taxi-v4 Q", 1 << 20, lambda: _setup(B=1 << 20)),
+    ("[11] Taxi-v4 double Q", 1 << 20, lambda: _setup(double=True, B=1 << 20)),
+    ("[2] ExtendedTaxi-v4 Q", 1 << 20,
+     lambda: _setup(env_id="ExtendedTaxi-v4", B=1 << 20)),
 )
 
 
@@ -551,8 +590,8 @@ def ab(parent) -> None:
     built = _build_dirs([(BUILD_DIR / "probe_q" / f"ab-{who}", files)
                          for who, files in srcs.items()])
     libs = {who: _libs_of(b, srcs[who]) for who, b in zip(srcs, built)}
-    for label, setup in AB_CASES:
-        _, call = setup()
+    for label, B, setup in AB_CASES:
+        run, call = setup()
         times = {"parent": [], "current": []}
         for who in times:  # warm-up
             with _launchers(libs[who]):
@@ -563,7 +602,8 @@ def ab(parent) -> None:
                 with _launchers(libs[who]):
                     times[who].append(_window_ms(call))
         med = {k: statistics.median(v) for k, v in times.items()}
-        print(f"ab {label} B={B_FULL} K={K_FULL}: parent {med['parent']:.4f} "
+        print(f"ab {label} B={B} K={K_FULL}, grid {run.grid}: parent "
+              f"{med['parent']:.4f} "
               f"ms/call, current {med['current']:.4f} ms/call, current/parent "
               f"{med['current'] / med['parent']:.4f} (medians of 5 windows x 4 "
               f"chained calls; windows parent "
@@ -625,6 +665,53 @@ def floor() -> None:
                   "per barrier", flush=True)
 
 
+def touched() -> None:
+    """Distinct entries per block and step against the block's terms, in
+    the one-step trainers at full width: at B = 65,536 each thread owns one
+    env, so block b holds envs 256 b to 256 b + 255.  The addresses are
+    those the twin applies (its ``apply_update``, wrapped), in one call
+    from the setups' start."""
+    from . import fused_double_q as fdq
+    from . import fused_qlearning as fq
+
+    cases = (
+        ("[3] Rooms-v0 one-step Q", lambda: _setup_rooms("q"), "a", "t"),
+        ("[4] MultistoryFourRooms-v0 grid_z=3 Q", _setup_msrooms, "a", "q"),
+        ("[2] Taxi-v4 Q", lambda: _setup(), "s", "q"),
+        ("[11] Taxi-v4 double Q", lambda: _setup(double=True), "s", "q"),
+    )
+    saved = fq.apply_update
+    for label, setup, s_key, q_key in cases:
+        run, call = setup()
+        carry = call.carry
+        q = carry[q_key][0] if q_key == "t" else carry[q_key]
+        per_step = []
+
+        def record(q_in, addr, w, live, average):
+            blk = torch.arange(addr.numel(), device=addr.device) // 256
+            key = (blk * q_in.numel() + addr.long())[live]
+            n_blk = addr.numel() // 256
+            per_step.append((torch.bincount(torch.unique(key) // q_in.numel(),
+                                            minlength=n_blk),
+                             torch.bincount(blk[live], minlength=n_blk)))
+            return saved(q_in, addr, w, live, average)
+
+        fq.apply_update = fdq.apply_update = record
+        try:
+            run.twin(1, LR, EPS, carry[s_key], q)
+        finally:
+            fq.apply_update = fdq.apply_update = saved
+        words = torch.stack([d for d, _ in per_step]).double()
+        terms = torch.stack([n for _, n in per_step]).double()
+        print(f"touched {label} B={B_FULL} K={K_FULL}: distinct entries per "
+              f"block per step mean {words.mean().item():.4f} (min "
+              f"{words.min().item():.0f}, median {words.median().item():.0f}, "
+              f"max {words.max().item():.0f}) of {terms.mean().item():.4f} "
+              f"terms: the flush issues {words.sum().item() / terms.sum().item():.6f} "
+              f"of the terms' global atomics; per step over the grid "
+              f"{words.sum(1).mean().item():.1f} flushed words", flush=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("the probe needs a CUDA device; none is available")
@@ -645,7 +732,7 @@ def main(argv) -> int:
     print(_nvidia_smi("name,power.limit"), flush=True)
     sections = {"sweep": sweep, "profile": profile,
                 "variants": lambda: variants(parent), "ab": lambda: ab(parent),
-                "floor": floor}
+                "floor": floor, "touched": touched}
     for name in names:
         sections[name]()
     print("clocks after:", _nvidia_smi(

@@ -371,29 +371,88 @@ def test_rooms_trainers_refuse_what_the_kernels_do_not_take(cuda):
 
 # The trainers whose updates go through per-block sums in shared memory and
 # one grid barrier per step (csrc/tabular.cuh BlockSums): Watkins and Peng
-# Q(lambda) [12] and the actor-critic [13], each held to its twin exactly
-# where the new design could go wrong
+# Q(lambda) [12] and the actor-critic [13] on Rooms-v0; the one-step
+# trainers, ROOMS Q [3] (duplicates summed and averaged), MSRooms Q [4] at
+# grid_z = 3, Taxi Q [2] and double Q [11] on Taxi-v4, whose sums go
+# through the block's slab where a launch with it takes the batch and
+# straight into the step's global accumulator otherwise (run.grid[2]: 1 for
+# the slab).  Each is held to its twin exactly where the design could go
+# wrong
 REDESIGNED = [
     ("qlambda", dict(lam=0.9, trace_len=16, watkins_cut=True)),
     ("qlambda", dict(lam=0.9, trace_len=16, watkins_cut=False)),
     ("ac", {}),
+    ("q", dict(average_duplicates=False)),
+    ("q", dict(average_duplicates=True)),
+    ("msrooms", dict(average_duplicates=True)),
+    ("taxi", dict(average_duplicates=True)),
+    ("double", dict(average_duplicates=True)),
 ]
-REDESIGNED_IDS = ["watkins", "peng", "ac"]
+REDESIGNED_IDS = ["watkins", "peng", "ac", "rooms-q-sum", "rooms-q-average",
+                  "msrooms-q", "taxi-q", "double-q"]
+ONE_STEP = ("q", "msrooms", "taxi", "double")
+
+
+def _redesigned_env(kind, taxi_id="Taxi-v4"):
+    if kind in ("taxi", "double"):
+        return gpt_torch.make(taxi_id, time_limit=25)
+    if kind == "msrooms":
+        return gpt_torch.make("MultistoryFourRooms-v0", grid_z=3, time_limit=30)
+    return gpt_torch.make("Rooms-v0", time_limit=30)
+
+
+def _redesigned_starts(kind, env, B, one=False):
+    """Seeded random start tiles, or (``one``) every env on one start: next
+    to the fixed goal on ROOMS and MSRooms, Taxi's first initial state."""
+    if not one:
+        if kind in ("taxi", "double"):
+            return _trainer_inputs(env, None, B, 3, False)[0]
+        if kind == "msrooms":
+            return _msrooms_cells(env, B, 3)[0]
+        return _rooms_cells(env, B, 3)[0]
+    if kind in ("taxi", "double"):
+        start = int(env.tables.valid_init[0])
+    elif kind == "msrooms":
+        _, H, GW = env.grid_np.shape
+        gz, gy, gx = env.fixed_goal_zyx
+        walk = np.flatnonzero(env.grid_np[gz].reshape(-1) > 0)
+        dist = np.abs(walk // GW - gy) + np.abs(walk % GW - gx)
+        start = gz * H * GW + int(walk[dist == 1][0])
+    else:
+        start = _next_to_goal(env)
+    return torch.full((B // 128, 128), start, dtype=torch.int32,
+                      device=env.device)
 
 
 def _redesigned_call(env, kind, opts, B, K, a0, mode="philox", lr=0.1,
                      seed=11):
     """One call of the kernel and one of its twin on the same inputs:
-    ``(run, got, want, tables in)``.  At K = 0, where the twin draws nothing
-    and refuses, ``want`` is the inputs handed back with zero reward sums."""
-    run = _rooms_trainer(env, kind, B, K, opts, mode == "tape")
-    tape = _tape(run, 4, env.device) if mode == "tape" else ()
+    ``(run, got, want, tables in)``; Philox from zero tables (exact ties
+    among actions), a tape from ``normal(0, 0.1)`` ones.  At K = 0, where
+    the twin draws nothing and refuses, ``want`` is the inputs handed back
+    with zero reward sums."""
+    rng_tape = mode == "tape"
     rng = np.random.default_rng(5)
-    A, n_obs = env.num_actions, env.observation_space.n
-    q = np.zeros((512, A), np.float32)
-    if mode == "tape":
-        q[:n_obs] = rng.normal(scale=0.1, size=(n_obs, A))
-    tables = (torch.as_tensor(q_to_banks(q), device=env.device),)
+    if kind in ("taxi", "double"):
+        double = kind == "double"
+        run = (make_fused_double_q_trainer if double else make_fused_q_trainer)(
+            env, B, K, rng_tape=rng_tape, **opts)
+        n = env.tables.ns if double else int(env.observation_space.n)
+        q = np.zeros(((2 if double else 1) * bank_geometry(n, 5)[1], 128),
+                     np.float32)
+        if rng_tape:
+            q[:] = rng.normal(scale=0.1, size=q.shape)
+    else:
+        run = (make_fused_q_trainer_msrooms(env, B, K, rng_tape=rng_tape,
+                                            **opts) if kind == "msrooms"
+               else _rooms_trainer(env, kind, B, K, opts, rng_tape))
+        A, n_obs = env.num_actions, env.observation_space.n
+        q = np.zeros((512, A), np.float32)
+        if rng_tape:
+            q[:n_obs] = rng.normal(scale=0.1, size=(n_obs, A))
+        q = q_to_banks(q)
+    tape = _tape(run, 4, env.device) if rng_tape else ()
+    tables = (torch.as_tensor(q, device=env.device),)
     twin = run.twin if K else (
         lambda *args: None)
     if kind == "ac":
@@ -430,20 +489,23 @@ def _assert_exact(got, want):
 @pytest.mark.parametrize("mode", ["tape", "philox"])
 @pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
 def test_redesigned_trainers_one_start_cell_equal_twin(cuda, kind, opts, mode):
-    """Every env starts on one cell next to the goal: the most same-address
-    adds inside a block; B = 65,536, one env per thread, the ring in shared
-    memory."""
-    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    """Every env starts on one cell next to the goal (Taxi: on one state):
+    the most same-address adds inside a block; B = 65,536, one env per
+    thread, the ring and the one-step slab in shared memory.  Summed
+    one-step duplicates take a small lr: all of them land on the same few
+    entries."""
+    env = _redesigned_env(kind)
     B = 65536
-    a0 = torch.full((B // 128, 128), _next_to_goal(env), dtype=torch.int32,
-                    device=cuda)
+    a0 = _redesigned_starts(kind, env, B, one=True)
     opts = dict(opts, average_duplicates=True) if kind == "qlambda" else opts
-    run, got, want, tables = _redesigned_call(env, kind, opts, B, 12, a0, mode)
+    lr = 0.1 if opts.get("average_duplicates", True) else 1e-5
+    run, got, want, tables = _redesigned_call(env, kind, opts, B, 12, a0, mode,
+                                              lr=lr)
     _assert_exact(got, want)
     assert all(torch.isfinite(g).all() for g in got)
     assert torch.count_nonzero(got[0 if kind == "ac" else 1] != tables[0]) > 0
-    if kind == "qlambda":
-        assert run.grid[1:] == (1, 1)  # one env per thread, the ring on chip
+    if kind != "ac":
+        assert run.grid[1:] == (1, 1)  # one env per thread, ring/slab on chip
 
 
 @pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
@@ -451,10 +513,10 @@ def test_redesigned_trainers_diverging_step_equal_twin(cuda, kind, opts):
     """Summed duplicates with a large step: terms past the fixed point's
     range flag their entries NaN through the global count words, as in the
     twin, and the run goes on identically."""
-    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    env = _redesigned_env(kind)
     B = 8192
-    a0, _ = _rooms_cells(env, B, 3)
-    opts = dict(opts, average_duplicates=False) if kind == "qlambda" else opts
+    a0 = _redesigned_starts(kind, env, B)
+    opts = dict(opts, average_duplicates=False) if kind != "ac" else opts
     _, got, want, _ = _redesigned_call(env, kind, opts, B, 16, a0, "tape",
                                        lr=1e3)
     _assert_exact(got, want)
@@ -466,9 +528,9 @@ def test_redesigned_trainers_diverging_step_equal_twin(cuda, kind, opts):
 def test_redesigned_trainers_few_steps_equal_twin(cuda, kind, opts, K):
     """K = 0, 1, 2 and 4 steps: the three rotating accumulators before and
     after their first reuse; K = 0 hands the tables back unchanged."""
-    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    env = _redesigned_env(kind)
     B = 8192
-    a0, _ = _rooms_cells(env, B, 3)
+    a0 = _redesigned_starts(kind, env, B)
     _, got, want, _ = _redesigned_call(env, kind, opts, B, K, a0, "tape")
     _assert_exact(got, want)
 
@@ -476,31 +538,49 @@ def test_redesigned_trainers_few_steps_equal_twin(cuda, kind, opts, K):
 @pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
 def test_redesigned_trainers_partial_last_slot_equal_twin(cuda, kind, opts):
     """A batch above the co-resident threads and not a multiple of them:
-    two envs per thread, the second slot partly filled; Q(lambda)'s ring
-    then goes to its global buffer."""
-    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    two or more envs per thread, the last slot partly filled; Q(lambda)'s
+    ring then goes to its global buffer, the one-step slab stays on chip."""
+    env = _redesigned_env(kind)
     B = 136192
-    a0, _ = _rooms_cells(env, B, 3)
+    a0 = _redesigned_starts(kind, env, B)
     run, got, want, _ = _redesigned_call(env, kind, opts, B, 8, a0)
     _assert_exact(got, want)
     blocks, ept = run.grid[:2]
     assert ept >= 2 and B % (blocks * 256) != 0 and B > blocks * 256 * (ept - 1)
-    if kind == "qlambda":
-        assert run.grid[2] == 0
+    if kind != "ac":
+        assert run.grid[2] == (kind in ONE_STEP)
 
 
 @pytest.mark.parametrize("kind,opts", REDESIGNED, ids=REDESIGNED_IDS)
 def test_redesigned_trainers_largest_batch_equal_twin(cuda, kind, opts):
-    """B = 2^20, K = 16: the most envs per thread; Q(lambda)'s ring no
-    longer fits in shared memory and goes to its global buffer."""
-    env = gpt_torch.make("Rooms-v0", time_limit=30)
+    """B = 2^20, K = 16: the most envs per thread.  Q(lambda)'s ring no
+    longer fits in shared memory and goes to its global buffer.  The
+    one-step slab's two sides: ROOMS, MSRooms and Taxi keep it on chip at
+    8 envs per thread; double Q's stacked pair (5,000 sum words, 60 KB of
+    slab beside 32 KB of table) would leave too few blocks for the batch,
+    so its terms go straight into the global accumulator."""
+    env = _redesigned_env(kind)
     B = 1 << 20
-    a0, _ = _rooms_cells(env, B, 3)
+    a0 = _redesigned_starts(kind, env, B)
     run, got, want, _ = _redesigned_call(env, kind, opts, B, 16, a0)
     _assert_exact(got, want)
     assert run.grid[1] >= 4
-    if kind == "qlambda":
-        assert run.grid[2] == 0
+    if kind != "ac":
+        assert run.grid[2] == (kind in ONE_STEP and kind != "double")
+
+
+def test_one_step_global_side_large_table_equal_twin(cuda):
+    """The global side of the one-step slab's choice with one large table:
+    ExtendedTaxi-v4's 7,168 entries (6,400 sum words, 76.8 KB of slab
+    beside 28 KB of table) at B = 2^20, K = 16."""
+    env = _redesigned_env("taxi", "ExtendedTaxi-v4")
+    B = 1 << 20
+    a0 = _redesigned_starts("taxi", env, B)
+    run, got, want, tables = _redesigned_call(
+        env, "taxi", dict(average_duplicates=True), B, 16, a0)
+    _assert_exact(got, want)
+    assert run.grid[1] >= 4 and run.grid[2] == 0
+    assert torch.count_nonzero(got[1] != tables[0]) > 0
 
 
 # ------------------------------------------------------ MultistoryFourRooms
