@@ -51,7 +51,10 @@ Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
 
 Phases: device; build of ``gym_po_tpu_torch/csrc`` (into
-``build/gym_po_tpu_torch/``, one nvcc per source, in parallel); Philox
+``build/gym_po_tpu_torch/``, one nvcc per source, in parallel); ``sass``:
+no runtime integer division (MUFU.RCP, I2F.U32.RP) inside the Taxi and
+RockSample rollouts' loops; ``divisors``: the kernels' invariant-divisor
+helper against the hardware's ``/`` and ``%`` over all 2^32 u; Philox
 known answers; the Box-Muller normal's logf/cosf against torch's over every
 uniform a draw can give (counts reported); every kernel against its plain twin on the card, exact, in
 tape mode and in Philox mode, and the trainers with per-block update sums
@@ -125,18 +128,32 @@ SCHED_ROOMS_AC = [(0.1, 0.2)] * 4
 B_QLAMBDA, K_QLAMBDA = 1024, 512
 REDESIGN_KS = (0, 1, 2, 4)  # call lengths of the redesign checks
 
-# bounds: H100 SXM memory rate (NVIDIA H100 datasheet); INT32 issue is
-# 16 lanes per SM partition, 4 partitions per SM (Hopper white paper).
-# Philox4x32-10 takes 55 INT32 operations per env for a block of one step:
-# rounds 2-10 are 2 widening products (hi and lo, 4 operations) and 2
-# three-input XORs each; round 1's products take only the env index and the
-# block index (the counter is (env, step, block, 0)), so once per env, and
-# leave one XOR with the step; the key schedule is the same for every env,
-# once per call.  Every other integer operation counts as free, so each
-# bound is a lower bound.
+# bounds: H100 SXM memory rate (NVIDIA H100 datasheet).  Operations by
+# pipe, in lane-slots per SM per clock: an SM's four partitions each issue
+# one warp instruction (32 lanes) per clock (Hopper white paper); the FMA
+# pipe (IMAD*) and the ALU pipe (LOP3, IADD3, SHF, ISETP, SEL, ...) take
+# 64 lanes per SM per clock each (CUDA C++ Programming Guide, arithmetic
+# throughput of compute capability 9.0), and a 32x32->64 multiply
+# (IMAD.WIDE.U32) takes two FMA slots: probe_fused_taxi ``rates`` measured,
+# on an NVIDIA H100 80GB HBM3 at 700 W, IMAD at 61.92 lanes per SM per clock
+# and a LOP3 feeding an IMAD.WIDE.U32 at 28.82, which only two slots per
+# product explain.  A bound is the
+# largest of bytes over the memory rate, each pipe's slots over its rate
+# and all instructions over the issue rate.
+# Philox4x32-10 per env and step, as the SASS of the kernels' step loops
+# holds it (probe_fused_taxi ``sass``): the counter is (env, step, block,
+# 0), so round 1's products and one of round 2's and of round 3's depend
+# on the env and the block alone and are hoisted out of the loop (the key
+# schedule too); a block whose four words are used is 16 wide products and
+# 18 three-input XORs (LOP3), one whose used words are 0 and 1 only needs
+# one product and one XOR less in round 10.  Every other operation of a
+# step counts as free, so each bound is a lower bound.
 HBM_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_SM = 64
-PHILOX_BLOCK_OPS = 55
+PIPE_LANES_PER_SM = {"fma": 64, "alu": 64, "issue": 128}
+WIDE_PRODUCT_FMA_SLOTS = 2
+# the trainers' applied update term: a fixed-point add (two 32-bit atomics)
+# and a count add, three issued instructions on no arithmetic pipe
+TERM_ISSUE = 3
 
 
 def say(phase: str, msg: str) -> None:
@@ -1617,6 +1634,77 @@ def libm_check(dev) -> None:
         f"{counts[2]} (max abs {(nrm - t_nrm).abs().max().item():.3e})")
 
 
+def divisors_check(dev) -> None:
+    """``gpt::udiv`` and ``gpt::umod`` (``csrc/kernel_rng.cuh``, the
+    constants of ``UDiv.of``) against the hardware's ``u / n`` and ``u % n``
+    over all 2^32 u, on the card, for n = 1 ... 64 and each divisor that
+    paths 1 and 4 hand the Taxi and RockSample rollouts
+    (``udiv_check_launch`` in ``csrc/fused_taxi.cu``).  Any mismatch fails."""
+    import ctypes
+
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import (
+        make_fused_rocksample_rollout,
+        make_fused_taxi_rollout,
+    )
+    from gym_po_tpu_torch.ops._build import load_library
+    from gym_po_tpu_torch.ops.kernel_rng import UDiv
+
+    used = {f"HansenTaxi-v4 {k}": n for k, n in make_fused_taxi_rollout(
+        gp.make("HansenTaxi-v4", device=dev), B_HEAD, K_HEAD).divisors.items()}
+    for (rows, cols), k in (ROCKSAMPLE_HEAD, ROCKSAMPLE_WIDEST):
+        env = gp.make("RockSample-v0", map_size=(rows, cols), num_rocks=k,
+                      device=dev)
+        for name, n in make_fused_rocksample_rollout(env, B_HEAD, K_HEAD).divisors.items():
+            used[f"RockSample{(rows, cols, k)} {name}"] = n
+    ns = sorted(set(range(1, 65)) | set(used.values()))
+    host = (UDiv * len(ns))(*map(UDiv.of, ns))
+    divs = torch.frombuffer(bytearray(host), dtype=torch.uint8).to(dev)
+    bad = torch.zeros(len(ns), dtype=torch.int64, device=dev)
+    fn = load_library("fused_taxi").udiv_check_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    t0 = time.perf_counter()
+    err = fn(divs.data_ptr(), len(ns), bad.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"udiv_check_launch failed: CUDA error {err}")
+    counts = bad.tolist()
+    say("divisors", f"gpt::udiv/umod against u / n and u % n over all 2^32 u "
+        f"for {len(ns)} divisors (1-64 and {', '.join(f'{k} {n}' for k, n in used.items())}) "
+        f"in {time.perf_counter() - t0:.2f} s: {sum(counts)} mismatches")
+    if any(counts):
+        raise AssertionError("invariant division differs at n = "
+                             f"{[n for n, c in zip(ns, counts) if c]}")
+
+
+def sass_check() -> None:
+    """The Taxi and RockSample rollouts as built: each kernel's registers
+    and spills (ptxas), and its MUFU.RCP and I2F.U32.RP, the runtime
+    integer division's float reciprocal, in all and inside loops
+    (``cuobjdump -sass``).  One inside a loop fails, as does a kernel in
+    which no loop is found."""
+    from gym_po_tpu_torch.ops._build import _library_path, build_log
+    from gym_po_tpu_torch.ops.probe_fused_taxi import (
+        DIVISION_OPS,
+        division_counts,
+        ptxas_report,
+    )
+
+    for name in ("fused_taxi", "fused_rocksample"):
+        regs = ptxas_report(build_log(name))
+        for fn, c in division_counts(_library_path(name)).items():
+            if "_kernel" not in fn or "udiv_check" in fn:
+                continue
+            say("sass", f"{fn}: " + ", ".join(
+                f"{op} {c[op][0]} ({c[op][1]} inside loops)" for op in DIVISION_OPS)
+                + f"; {c['loops']} instructions inside loops; "
+                + regs.get(fn, "registers not reported"))
+            if not c["loops"] or any(c[op][1] for op in DIVISION_OPS):
+                raise AssertionError(f"{fn}: a runtime division inside its "
+                                     "loop, or no loop found")
+
+
 def path5_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
     """The four path-5 kernels == their twins, exactly, on a random tape and
     in Philox mode (B = 65,536, K = 64; the trainer from a random Q)."""
@@ -1899,13 +1987,25 @@ def crooms_trainer_path(dev, kern_ms, errs) -> None:
         raise AssertionError("fused Q did not learn CRooms-v0")
 
 
-def bound(nbytes: float, int_ops: float) -> tuple:
-    """(ms, what bounds it): the larger of bytes over the memory rate and
-    INT32 instructions over the card's issue rate at its top SM clock."""
+def philox_ops(n_sites: int, steps: float, terms: float = 0) -> dict:
+    """Slots by pipe of ``steps`` env-steps that draw ``n_sites`` Philox
+    words each, and of ``terms`` applied update terms."""
+    full, part = divmod(n_sites, 4)
+    products = 16 * full + (16 if part == 3 else 15 if part else 0)
+    xors = 18 * full + (18 if part == 3 else 17 if part else 0)
+    return {"fma": WIDE_PRODUCT_FMA_SLOTS * products * steps,
+            "alu": xors * steps,
+            "issue": (products + xors) * steps + TERM_ISSUE * terms}
+
+
+def bound(nbytes: float, ops: dict) -> tuple:
+    """(ms, what bounds it): the largest of bytes over the memory rate and
+    each pipe's slots (``ops``, as :func:`philox_ops` counts them) over its
+    rate at the card's top SM clock."""
     sm_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int_ops / (INT32_LANES_PER_SM * sms * sm_hz)
+    t_ops = max(ops[p] / (rate * sms * sm_hz) for p, rate in PIPE_LANES_PER_SM.items())
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1926,7 +2026,6 @@ def main() -> int:
         philox4x32_10,
     )
     from gym_po_tpu_torch.ops._build import LAUNCHES, build_log, load_library
-    from gym_po_tpu_torch.ops.kernel_rng import philox_blocks
     from gym_po_tpu_torch.vector import rollout
 
     card = nvidia_smi("name,power.limit")
@@ -1946,6 +2045,9 @@ def main() -> int:
         for line in build_log(name).splitlines():
             if "registers" in line or "build" in line or "spill" in line:
                 say("build", f"{name}: {line.strip()[:160]}")
+
+    sass_check()
+    divisors_check(dev)
 
     z = torch.zeros(1, dtype=torch.int64, device=dev)
     words = tuple(int(w) for w in philox4x32_10((z, z, z, z), (0, 0)))
@@ -2132,41 +2234,40 @@ def main() -> int:
 
     # bounds of this run's main-path shapes
     ns_sites_head = make_fused_taxi_rollout(env, B_HEAD, K_HEAD).n_sites
-    b_taxi = bound(12 * B_HEAD, PHILOX_BLOCK_OPS * philox_blocks(ns_sites_head)
-                   * B_HEAD * K_HEAD)
+    b_taxi = bound(12 * B_HEAD, philox_ops(ns_sites_head, B_HEAD * K_HEAD))
     taxi = gp.make("Taxi-v4", device=dev)
     b_train = {}
     for key, opts in (("fused_qlearning", dict(average_duplicates=True)),
                       ("fused_double_q", "double")):
         run_t = make_trainer(taxi, B_TRAIN, K_TRAIN, opts)
         nq = q_rows(taxi, opts) * 128
-        # per env-step: the Philox blocks and one fixed-point add (two INT32
-        # words) plus one count add per update term
-        per_step = PHILOX_BLOCK_OPS * philox_blocks(run_t.n_sites) + 3
-        b_train[key] = bound(12 * B_TRAIN + 8 * nq,
-                             per_step * B_TRAIN * K_TRAIN)
-    b_rooms = {"fused_rooms": bound(
-        20 * B_HEAD, PHILOX_BLOCK_OPS * philox_blocks(rrun.n_sites) * B_HEAD
-        * K_HEAD)}
+        # per env-step: the Philox blocks and one update term
+        b_train[key] = bound(12 * B_TRAIN + 8 * nq, philox_ops(
+            run_t.n_sites, B_TRAIN * K_TRAIN, B_TRAIN * K_TRAIN))
+    b_rooms = {"fused_rooms": bound(20 * B_HEAD, philox_ops(
+        rrun.n_sites, B_HEAD * K_HEAD))}
     for key, kind, opts in ROOMS_TRAINERS[:2] + ROOMS_TRAINERS[3:]:
         run_t = make_rooms_trainer(renv, kind, B_TRAIN, K_TRAIN, opts)
-        blocks = PHILOX_BLOCK_OPS * philox_blocks(run_t.n_sites) * B_TRAIN * K_TRAIN
+        steps = B_TRAIN * K_TRAIN
         if kind == "ac":  # A + 1 fixed-point adds and one count per env-step
-            ops = blocks + (2 * (renv.num_actions + 1) + 1) * rooms_terms[key]
+            ops = philox_ops(run_t.n_sites, steps, (2 * (renv.num_actions + 1)
+                                                   + 1) / 3 * rooms_terms[key])
             nbytes = 12 * B_TRAIN + 16 * 32 * 128
         else:  # each applied term: one fixed-point add and one count
-            ops = blocks + 3 * rooms_terms[key]
+            ops = philox_ops(run_t.n_sites, steps, rooms_terms[key])
             nbytes = 12 * B_TRAIN + 8 * 32 * 128
         b_rooms[key] = bound(nbytes, ops)
     # path 4: the rollouts read 8 B and write 12 B per env, one Philox block
-    # per env-step; the trainer as the ROOMS one (2 blocks, 3 per applied term)
+    # per env-step; the trainer as the ROOMS one (its sites, 3 per applied
+    # term)
     for key, run_h in (("fused_msrooms", heads[0][0]),
                        ("fused_rocksample", heads[1][0])):
-        b_rooms[key] = bound(20 * B_HEAD, PHILOX_BLOCK_OPS * philox_blocks(
-            run_h.n_sites) * B_HEAD * K_HEAD)
-    b_rooms["fused_q_msrooms"] = bound(
-        12 * B_TRAIN + 8 * 32 * 128,
-        PHILOX_BLOCK_OPS * 2 * B_TRAIN * K_TRAIN + 3 * rooms_terms["fused_q_msrooms"])
+        b_rooms[key] = bound(20 * B_HEAD, philox_ops(run_h.n_sites,
+                                                     B_HEAD * K_HEAD))
+    from gym_po_tpu_torch.ops import make_fused_q_trainer_msrooms
+    b_rooms["fused_q_msrooms"] = bound(12 * B_TRAIN + 8 * 32 * 128, philox_ops(
+        make_fused_q_trainer_msrooms(heads[0][1], B_TRAIN, K_TRAIN).n_sites,
+        B_TRAIN * K_TRAIN, rooms_terms["fused_q_msrooms"]))
     # path 5: the rollouts read their state tiles and write them and the
     # reward sums once per env (CRooms 24 + 28 B, Tag 16 + 20, HeavenHell
     # 12 + 16), their Philox blocks per env-step (3, 6, 2); the CRooms
@@ -2175,13 +2276,12 @@ def main() -> int:
     # live every step).  The transcendentals are not counted.
     for key, nbytes in (("fused_crooms", 52), ("fused_tag", 36),
                         ("fused_heavenhell", 28)):
-        b_rooms[key] = bound(nbytes * B_HEAD, PHILOX_BLOCK_OPS * philox_blocks(
-            heads5[key][0].n_sites) * B_HEAD * K_HEAD)
+        b_rooms[key] = bound(nbytes * B_HEAD, philox_ops(
+            heads5[key][0].n_sites, B_HEAD * K_HEAD))
     run_q = make_fused_q_trainer_crooms(
         gp.make("CRooms-v0", action_type="ordinal", device=dev), B_TRAIN, K_TRAIN)
-    b_rooms["fused_q_crooms"] = bound(
-        36 * B_TRAIN + 8 * 32 * 128,
-        (PHILOX_BLOCK_OPS * philox_blocks(run_q.n_sites) + 3) * B_TRAIN * K_TRAIN)
+    b_rooms["fused_q_crooms"] = bound(36 * B_TRAIN + 8 * 32 * 128, philox_ops(
+        run_q.n_sites, B_TRAIN * K_TRAIN, B_TRAIN * K_TRAIN))
     say("bound", f"fused_taxi {b_taxi[0]:.4f} ms ({b_taxi[1]}); "
         + "; ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in b_rooms.items())
         + "; "

@@ -15,9 +15,16 @@
 //
 // What bounds it on this card: not memory.  Each env reads 8 B of state and
 // writes 8 B (+4 B per f32 output) once per call, whatever K is.  The work
-// is integer: one Philox4x32-10 block per step (3 draw sites), two u % n
-// (the action, the k reset bits), one division by the map width and one
-// shared-memory lookup.
+// is integer: one Philox4x32-10 block per step (3 draw sites) and a few
+// dozen instructions of step.  The parent design also paid three runtime
+// 32-bit divisions per env-step (about twenty instructions each, with a
+// float reciprocal on the quarter-rate unit): the action's u % (5 + k),
+// the position's pos / cols and pos % cols, and the reset bits' u % 2^k.
+// This design carries (y, x) across the loop and composes pos once after
+// it (the rock lookup reads s_rock_at[y * cols + x]); the action reduces
+// by an invariant divisor (gpt::UDiv, constants computed on the host) and
+// the reset bits by the mask 2^k - 1, so no integer division is left in
+// the loop.
 //
 // Draw sites, in body order, every step: action rbits(5 + k), sensor
 // runiform() (unused), reset bitmask rbits(2^k) (drawn whether or not the
@@ -34,6 +41,7 @@ struct RockSampleParams {
   int32_t num_envs, num_steps, rows_per_tile, n_sites;
   int32_t rows, cols, k, init_cell, time_limit, episode_stats;
   uint32_t key0, key1;
+  gpt::UDiv n_act;  // 5 + k actions
 };
 
 namespace {
@@ -60,7 +68,8 @@ __global__ void fused_rocksample_kernel(RockSampleParams P,
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= P.num_envs) return;
 
-  int pos = pos_in[e], mask = mask_in[e];
+  const int pos = pos_in[e];
+  int mask = mask_in[e];
   // A position outside the map would index the table out of bounds.  Such
   // an env comes out as pos' = mask' = -1 with NaN sums, as in the twin.
   if ((unsigned)pos >= (unsigned)ncells) {
@@ -72,22 +81,23 @@ __global__ void fused_rocksample_kernel(RockSampleParams P,
   }
   gpt::KernelRNG<1> rng(tape, P.key0, P.key1, e, P.num_steps, P.rows_per_tile,
                         P.n_sites);
-  const int n_act = 5 + P.k, n_masks = 1 << P.k;
+  const uint32_t reset_bits = (1u << P.k) - 1u;  // u % 2^k
+  // once per env, outside the loop: the loop carries (y, x)
+  const int y0 = P.init_cell / P.cols, x0 = P.init_cell - y0 * P.cols;
+  int y = pos / P.cols, x = pos - y * P.cols;
   int elapsed = 0;
   float racc = 0.f, cur_ret = 0.f, ep_ret = 0.f, ep_len = 0.f, ep_cnt = 0.f;
   for (int t = 0; t < P.num_steps; ++t) {
     rng.begin_step(t);
-    const int a = gpt::rbits(rng.draw(0), n_act);
-    const int y = pos / P.cols, x = pos % P.cols;
+    const int a = gpt::rbits(rng.draw(0), P.n_act);
     // movement (N=0 E=1 S=2 W=3); exit east off-grid terminates
     const bool is_move = a < 4;
     const int ny = y + (a == 0 ? -1 : (a == 2 ? 1 : 0));
     const int nx = x + (a == 1 ? 1 : (a == 3 ? -1 : 0));
     const bool exited = is_move && nx >= P.cols;
     const bool inside = is_move && ny >= 0 && ny < P.rows && nx >= 0 && nx < P.cols;
-    const int pos2 = inside ? ny * P.cols + nx : pos;
     // sampling: the rock at the cell before the move
-    const int ridx = s_rock_at[pos];
+    const int ridx = s_rock_at[y * P.cols + x];
     const bool on_rock = ridx < P.k;
     const int rbit = min(ridx, P.k - 1);
     const bool is_sample = a == 4;
@@ -107,13 +117,14 @@ __global__ void fused_rocksample_kernel(RockSampleParams P,
         cur_ret = 0.f;
       }
     }
-    const int new_mask = gpt::rbits(rng.draw(2), n_masks);
-    pos = reset ? P.init_cell : pos2;
+    const int new_mask = (int)(rng.draw(2) & reset_bits);
+    y = reset ? y0 : (inside ? ny : y);
+    x = reset ? x0 : (inside ? nx : x);
     mask = reset ? new_mask : mask2;
     if (reset) elapsed = 0;
     racc = racc + rew;
   }
-  pos_out[e] = pos;
+  pos_out[e] = y * P.cols + x;
   mask_out[e] = mask;
   rew_out[e] = racc;
   if (P.episode_stats) {

@@ -12,17 +12,24 @@
 //
 // What bounds it on this card: not memory.  Each env reads 4 B of state and
 // writes 4 B (+4 B per f32 output) once per call, whatever K is; the tape,
-// in tape mode, is a test device.  The work is integer: each step does div/mod
-// by the runtime map constants pd, nlocs and cols (a few dozen instructions
-// each, the divisors are not compile-time constants here), two Philox4x32-10
-// blocks (20 rounds of two 32x32 multiplies) for the 5-7 draw sites, and the
-// u % n of each draw.  The design keeps every intermediate in registers and
-// the lookups in shared memory, so the kernel runs at the integer issue rate.
-// The policy choice is a template parameter, so every draw site is a
-// compile-time constant and picks its Philox word without selects (8-9 %
-// off the headline against the runtime choice).  Compile-time map constants,
-// several envs per thread and CUDA graphs are left for later work.  The Taxi
-// step itself is taxi_step.cuh, shared with the tabular trainers.
+// in tape mode, is a test device.  The work is integer: two Philox4x32-10
+// blocks (rounds of 32x32->64 multiplies on the FMA pipe and three-input
+// XORs on the ALU pipe) for the 5-7 draw sites, and the u % n of each draw.
+// The map's divisors (pd, nlocs, nlocs - 1, rows, cols, n_valid) are known
+// only at run time, and a runtime 32-bit u % n is a sequence of about
+// twenty instructions with a float reciprocal on the quarter-rate unit;
+// the parent design paid nine of them per env-step (the state's decode,
+// six draws, the encode).  This design decodes the state into (rc, p, d)
+// once before the K-step loop and encodes it once after; the loop carries
+// the three in registers, the greedy policy's index is two multiply-adds,
+// and every draw reduces by an invariant divisor (gpt::UDiv, constants
+// computed on the host): no integer division is left in the loop.  One
+// kernel serves every map, its divisors in the parameters.  Every
+// intermediate stays in registers and the lookups in shared memory, so the
+// kernel runs at the integer issue rate.  The policy choice is a template
+// parameter, so every draw site is a compile-time constant and picks its
+// Philox word without selects.  The Taxi step itself is taxi_step.cuh,
+// shared with the tabular trainers.
 //
 // Draw sites, in body order, every step whatever the masks say: action
 // (random policy only), then the Taxi step's (taxi_step.cuh: task pn, task
@@ -42,6 +49,7 @@ struct TaxiParams {
   int n_pass, time_limit, episode_stats;
   float r_goal, r_bad, r_any;
   uint32_t key0, key1;
+  gpt::TaxiDivs div;
 };
 
 // kPolicy: actions from the policy table, else drawn.  A compile-time
@@ -76,7 +84,7 @@ __global__ void fused_taxi_kernel(TaxiParams P, const int32_t* __restrict__ s_in
   gpt::KernelRNG<2> rng(tape, P.key0, P.key1, e, P.num_steps,
                         P.rows_per_tile, P.n_sites);
 
-  int s = s_in[e];
+  const int s = s_in[e];
   // An input outside [0, ns) would index the tables out of bounds.  Such an
   // env reads no table and comes out as s' = -1 with NaN sums, as in the
   // twin; every later state is valid by construction.  One unsigned compare
@@ -95,15 +103,22 @@ __global__ void fused_taxi_kernel(TaxiParams P, const int32_t* __restrict__ s_in
   const gpt::TaxiMap M = {P.nlocs, P.rows, P.cols, P.n_valid, P.all_valid,
                           P.n_pass, P.time_limit, P.r_goal, P.r_bad,
                           P.r_any};
+  // decode once (reference extended_taxi.py:84-94); the loop carries x
+  gpt::TaxiPos x;
+  x.rc = (int)gpt::udiv((uint32_t)s, P.div.pd);
+  const int rem = s - x.rc * pd;
+  x.p = (int)gpt::udiv((uint32_t)rem, P.div.nlocs);
+  x.d = rem - x.p * P.nlocs;
   int completed = 0, elapsed = 0;
   float racc = 0.f, cur_ret = 0.f, ep_ret = 0.f, ep_len = 0.f, ep_cnt = 0.f;
   for (int t = 0; t < P.num_steps; ++t) {
     rng.begin_step(t);
     int j = 0;
-    const int a = kPolicy ? s_pol[s] : gpt::rbits(rng.draw(j++), 5);
-    const gpt::TaxiStep st = gpt::taxi_step(M, s_cm, s_la, s_vc, rng, j, s, a,
-                                            completed, elapsed);
-    s = st.s_next;
+    const int a = kPolicy ? s_pol[gpt::taxi_encode(M, x)]
+                          : gpt::rbits(rng.draw(j++), 5);
+    const gpt::TaxiStepPos st = gpt::taxi_step_pos(
+        M, P.div, s_cm, s_la, s_vc, rng, j, x, a, completed, elapsed);
+    x = st.next;
     if (P.episode_stats) {
       cur_ret = cur_ret + st.rew;
       if (st.reset) {
@@ -115,7 +130,7 @@ __global__ void fused_taxi_kernel(TaxiParams P, const int32_t* __restrict__ s_in
     }
     racc = racc + st.rew;
   }
-  s_out[e] = s;
+  s_out[e] = gpt::taxi_encode(M, x);
   rew_out[e] = racc;
   if (P.episode_stats) {
     ep_ret_out[e] = ep_ret;
@@ -133,7 +148,8 @@ extern "C" int fused_taxi_launch(
     unsigned int key0, unsigned int key1, int num_envs, int num_steps,
     int rows_per_tile, int n_sites, int nlocs, int rows, int cols,
     int n_valid, int all_valid, int ns_policy, int n_pass, int time_limit,
-    float r_goal, float r_bad, float r_any, int episode_stats, void* stream) {
+    float r_goal, float r_bad, float r_any, int episode_stats,
+    const gpt::TaxiDivs* divs, void* stream) {
   if (n_sites > 8) return (int)cudaErrorInvalidValue;  // KernelRNG<2>
   TaxiParams P;
   P.num_envs = num_envs;
@@ -155,6 +171,7 @@ extern "C" int fused_taxi_launch(
   P.r_any = r_any;
   P.key0 = key0;
   P.key1 = key1;
+  P.div = *divs;  // host memory: the kernel takes it by value
   const int threads = 256;
   const int blocks = (num_envs + threads - 1) / threads;
   const size_t smem = sizeof(int32_t) * (P.nc * 5 + n_valid + ns_policy);
@@ -164,5 +181,34 @@ extern "C" int fused_taxi_launch(
       (const int32_t*)loc_at, (const int32_t*)valid_cells,
       (const int32_t*)policy, (const int32_t*)tape, (int32_t*)s_out,
       (float*)rew, (float*)ep_ret, (float*)ep_len, (float*)ep_cnt);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// gpt::udiv / gpt::umod against the hardware's u / n and u % n for every
+// uint32 u, one divisor per blockIdx.y; adds each divisor's count of u
+// where either differs to bad[y].
+__global__ void udiv_check_kernel(const gpt::UDiv* __restrict__ divs,
+                                  unsigned long long* __restrict__ bad) {
+  const gpt::UDiv d = divs[blockIdx.y];
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  unsigned int miss = 0;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += stride) {
+    const uint32_t u = (uint32_t)i;
+    miss += (gpt::udiv(u, d) != u / d.n) | (gpt::umod(u, d) != u % d.n);
+  }
+  for (int o = 16; o; o >>= 1) miss += __shfl_xor_sync(0xffffffffu, miss, o);
+  if ((threadIdx.x & 31) == 0 && miss) atomicAdd(bad + blockIdx.y, (unsigned long long)miss);
+}
+
+}  // namespace
+
+// divs: n_divs gpt::UDiv on the device; bad: n_divs zeroed uint64 counts.
+extern "C" int udiv_check_launch(const void* divs, int n_divs, void* bad,
+                                 void* stream) {
+  udiv_check_kernel<<<dim3(4096, n_divs), 256, 0, (cudaStream_t)stream>>>(
+      (const gpt::UDiv*)divs, (unsigned long long*)bad);
   return (int)cudaGetLastError();
 }

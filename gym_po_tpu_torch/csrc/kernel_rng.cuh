@@ -113,6 +113,40 @@ struct KernelRNG {
 __device__ __forceinline__ int rbits(uint32_t u, int n) {
   return (int)(u % (uint32_t)n);
 }
+// Division by an invariant divisor 1 <= n < 2^32, exact for every uint32 u,
+// as one 32x32->64 multiply-add and a shift:
+//   u / n = hi32(mul * u + add) >> sh.
+// For n not a power of two, sh = floor(log2 n) and mul is the 32-bit
+// round-up multiplier ceil(2^(32+sh) / n) with add = 0 where it is exact
+// for every u (Granlund & Montgomery, "Division by invariant integers using
+// multiplication", PLDI 1994, thm. 4.2: error mul * n - 2^(32+sh) at most
+// 2^sh); for the other divisors, which would need its 33-bit form, the
+// round-down multiplier floor(2^(32+sh) / n) with the fix-up add = mul,
+// i.e. mul * (u + 1) (Robison, "N-bit unsigned division via N-bit
+// multiply-add", ARITH 2005: one of the two is always exact).  A power of
+// two 2^k takes mul = 2^(32-k) (k >= 1), and n = 1 takes mul = add =
+// 2^32 - 1.  nvcc makes the quotient an IMAD.HI.U32 with the 64-bit addend,
+// an add and a shift, and the remainder u + q * (2^32 - n) one IMAD: five
+// instructions where a runtime u % n takes about twenty, with a float
+// reciprocal on the quarter-rate unit.  The constants are computed on the
+// host (ops/kernel_rng.py::UDiv.of, whose twin udivmod spells out the same
+// formula) and handed to a kernel in its parameters.
+struct UDiv {
+  uint32_t mul, sh;
+  uint64_t add;  // 0 or mul: the fix-up
+  uint32_t n, neg;  // neg = 2^32 - n (mod 2^32)
+};
+
+__device__ __forceinline__ uint32_t udiv(uint32_t u, const UDiv& d) {
+  return (uint32_t)(((uint64_t)d.mul * u + d.add) >> 32) >> d.sh;  // < 2^64
+}
+__device__ __forceinline__ uint32_t umod(uint32_t u, const UDiv& d) {
+  return u + udiv(u, d) * d.neg;  // u - q * n, mod 2^32
+}
+// uniform int in [0, n) by an invariant divisor: u % n, as rbits(u, n)
+__device__ __forceinline__ int rbits(uint32_t u, const UDiv& d) {
+  return (int)umod(u, d);
+}
 // uniform int in [0, 2^24)
 __device__ __forceinline__ int r24(uint32_t u) { return (int)(u >> 8); }
 // exact f32 in [0, 1) from the top 24 bits

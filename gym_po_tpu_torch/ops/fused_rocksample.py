@@ -11,8 +11,10 @@ episode reset one draw of k random bits; moving east off the map exits
 ``elapsed >= time_limit``, and optional per-env episode statistics.  The
 kernel (``csrc/fused_rocksample.cu``) runs one thread per env over the flat
 ``[B]`` layout with the rock-at-cell table in shared memory; its source note
-says what bounds it on the card.  ``run.twin`` is the plain PyTorch version
-of the same function.
+says what bounds it on the card.  The action's ``u % (5 + k)`` divides by an
+invariant divisor whose constants (:class:`~.kernel_rng.UDiv`) each
+``make_fused_rocksample_rollout`` call computes once (``run.divisors``).
+``run.twin`` is the plain PyTorch version of the same function.
 
 The sensor draw is taken every step, as in the JAX kernel, but its result
 is dead there (the reading is not materialized), so neither the kernel nor
@@ -43,7 +45,7 @@ from ..envs.rocksample import (
     ILLEGAL_SAMPLE_PENALTY,
 )
 from ._build import count_launch
-from .kernel_rng import MASK32, KernelRNG, W, check_batch
+from .kernel_rng import MASK32, KernelRNG, UDiv, W, check_batch
 
 __all__ = ["make_fused_rocksample_rollout", "rock_bitmask"]
 
@@ -56,7 +58,8 @@ class _RockSampleParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int32) for n in (
         "num_envs", "num_steps", "rows_per_tile", "n_sites", "rows", "cols",
         "k", "init_cell", "time_limit", "episode_stats")]
-    _fields_ += [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)]
+    _fields_ += [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32),
+                 ("n_act", UDiv)]
 
 
 @functools.cache
@@ -104,6 +107,7 @@ def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
     grid = num_envs // (R * W)
     time_limit = env.time_limit
     n_act = 5 + k
+    div_act = UDiv.of(n_act)  # the kernel's u % n_act (u % 2^k is a mask)
     init_cell = int(env.init_pos_np[0]) * cols + int(env.init_pos_np[1])
     rock_at = np.full(ncells, k, np.int32)  # k: no rock
     rp = env.rock_positions_np
@@ -205,7 +209,7 @@ def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
             num_envs=num_envs, num_steps=num_steps, rows_per_tile=R,
             n_sites=n_sites, rows=rows_m, cols=cols, k=k, init_cell=init_cell,
             time_limit=time_limit, episode_stats=int(episode_stats),
-            key0=seed & MASK32, key1=(seed >> 32) & MASK32)
+            key0=seed & MASK32, key1=(seed >> 32) & MASK32, n_act=div_act)
 
         def ptr(x):
             return None if x is None else x.data_ptr()
@@ -223,6 +227,7 @@ def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
 
     run.twin = twin
     run.launches = 0
+    run.divisors = {"n_act": n_act}
     run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

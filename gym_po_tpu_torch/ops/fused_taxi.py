@@ -5,7 +5,10 @@ The kernel (``csrc/fused_taxi.cu``) runs one thread per env over the flat
 ``[B]`` layout and keeps a whole K-step rollout in registers, with the
 per-cell tables (and the optional greedy policy table) in shared memory.
 Its source note says what bounds it on the card and what the design does
-about that.
+about that: among others, every draw's ``u % n`` divides by an invariant
+divisor whose constants (:class:`~.kernel_rng.UDiv`) each
+:func:`make_fused_taxi_rollout` call computes once from the env's map
+(``run.divisors``).
 
 ``run(seed, s, *tape)`` keeps the JAX package's public contract: ``s`` is
 int32 ``[B // 128, 128]``; the outputs are ``(s', reward_sums)`` plus
@@ -32,12 +35,14 @@ import torch
 
 from ..envs.taxi import TaxiState
 from ._build import count_launch
-from .kernel_rng import MASK32, KernelRNG, W, check_batch
+from .kernel_rng import MASK32, KernelRNG, UDiv, W, check_batch
 from .taxi_dynamics import TaxiDynamics
 
 __all__ = ["make_fused_taxi_rollout", "state_policy_table"]
 
 _MAX_SMEM = 48 * 1024  # static shared-memory limit without an opt-in
+# gpt::TaxiDivs in csrc/taxi_step.cuh, field for field
+TAXI_DIVISORS = ("pd", "nlocs", "nlocs1", "rows", "cols", "n_valid")
 
 
 def state_policy_table(env, policy: Callable) -> np.ndarray:
@@ -62,7 +67,8 @@ def _launcher():
     lib = load_library("fused_taxi")
     fn = lib.fused_taxi_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 11 + [ctypes.c_uint] * 2 + [i] * 12 + [f] * 3 + [i, p]
+    fn.argtypes = ([p] * 11 + [ctypes.c_uint] * 2 + [i] * 12 + [f] * 3
+                   + [i, ctypes.POINTER(UDiv), p])
     fn.restype = i
     return fn
 
@@ -102,6 +108,13 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
     ns_policy = extra["pol"].size if policy is not None else 0
     if 4 * (dyn.nc * 5 + dyn.n_valid + ns_policy) > _MAX_SMEM:
         raise ValueError("tables exceed the kernel's 48 KB of shared memory")
+
+    if dyn.nlocs < 2:
+        raise ValueError("the Taxi kernels need a map with two or more "
+                         "landmarks (a destination differs from the pickup)")
+    divisors = dict(zip(TAXI_DIVISORS, (dyn.pd, dyn.nlocs, dyn.nlocs - 1,
+                                        dyn.rows, dyn.cols, dyn.n_valid)))
+    div = (UDiv * len(divisors))(*map(UDiv.of, divisors.values()))
 
     # draw sites per step, in body order: action (random policy only), then
     # the Taxi step's (taxi_dynamics.py)
@@ -174,7 +187,7 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
                 seed & MASK32, (seed >> 32) & MASK32, num_envs, num_steps, R,
                 n_sites, dyn.nlocs, dyn.rows, dyn.cols, dyn.n_valid,
                 int(dyn.all_valid), ns_policy, dyn.n_pass, dyn.time_limit,
-                *dyn.rewards, int(episode_stats), stream,
+                *dyn.rewards, int(episode_stats), div, stream,
             )
         if err:
             raise RuntimeError(f"fused_taxi launch failed: CUDA error {err}")
@@ -183,6 +196,7 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
 
     run.twin = twin
     run.launches = 0
+    run.divisors = divisors
     run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

@@ -25,6 +25,12 @@ uint32 arithmetic is done in int64 and masked with ``0xFFFFFFFF``: torch's
 CPU coverage of uint32 is partial.  The 32x32->64 Philox product is split
 into 16-bit halves so that no int64 product overflows.
 
+Division by a map constant: :class:`UDiv` holds the constants of
+``gpt::UDiv`` in ``csrc/kernel_rng.cuh`` (division by an invariant integer
+as one multiply-add and a shift, exact for every uint32), computed here once
+per ``make_fused_*`` call and passed in the kernel's parameters; :func:`udivmod` is
+the device formula written out for the tests.
+
 ``rnormal`` calls the module-level ``_log`` and ``_cos`` (``torch.log`` and
 ``torch.cos``).  On the card they are the same f32 ``logf``/``cosf`` the
 kernels call; on the CPU torch's libm and XLA's differ in the last bit for a
@@ -36,6 +42,7 @@ on every device, as XLA's and the kernels' are.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, Optional, Tuple
 
@@ -43,7 +50,8 @@ import torch
 
 from ..utils.numerics import sqrt_rn
 
-__all__ = ["KernelRNG", "philox4x32_10", "philox_blocks", "check_batch", "W"]
+__all__ = ["KernelRNG", "philox4x32_10", "philox_blocks", "check_batch", "W",
+           "UDiv", "udivmod"]
 
 W = 128
 MASK32 = 0xFFFFFFFF
@@ -59,6 +67,51 @@ def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     t_hi = a * (b >> 16)  # < 2^48
     lo_part = t_lo + ((t_hi & 0xFFFF) << 16)  # < 2^49
     return ((t_hi >> 16) + (lo_part >> 32)) & MASK32, lo_part & MASK32
+
+
+class UDiv(ctypes.Structure):
+    """Constants of ``gpt::UDiv``: division by the invariant ``n``, exact for
+    every uint32 ``u``, as ``u // n = ((mul * u + add) >> 32) >> sh``.  For
+    ``n`` not a power of two, ``sh = floor(log2 n)`` and ``mul`` is the
+    round-up multiplier ``ceil(2^(32+sh) / n)`` with ``add = 0`` where its
+    error is at most ``2^sh`` (Granlund & Montgomery, PLDI 1994, thm. 4.2),
+    else the round-down multiplier ``floor(2^(32+sh) / n)`` with the fix-up
+    ``add = mul`` (Robison, ARITH 2005); a power of two ``2^k`` takes
+    ``mul = 2^(32-k)``, and ``n = 1`` takes ``mul = add = 2^32 - 1``."""
+
+    _fields_ = [("mul", ctypes.c_uint32), ("sh", ctypes.c_uint32),
+                ("add", ctypes.c_uint64), ("n", ctypes.c_uint32),
+                ("neg", ctypes.c_uint32)]  # neg = 2^32 - n (mod 2^32)
+
+    @classmethod
+    def of(cls, n: int) -> "UDiv":
+        n = int(n)
+        if not 1 <= n <= MASK32:
+            raise ValueError(f"divisor must lie in [1, 2^32), got {n}")
+        neg = -n & MASK32
+        sh = n.bit_length() - 1  # floor(log2 n)
+        if n == 1:
+            return cls(MASK32, 0, MASK32, n, neg)
+        if n == 1 << sh:
+            return cls(1 << (32 - sh), 0, 0, n, neg)
+        p = 1 << (32 + sh)
+        up = -(-p // n)
+        if up * n - p <= 1 << sh:  # round-up is exact
+            return cls(up, sh, 0, n, neg)
+        down = p // n  # p - down * n <= 2^sh: round-down with the fix-up
+        return cls(down, sh, down, n, neg)
+
+    def __repr__(self) -> str:
+        return f"UDiv(n={self.n}, mul={self.mul:#x}, sh={self.sh}, add={self.add:#x})"
+
+
+def udivmod(u: torch.Tensor, mul, sh, add, n) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(u // n, u % n)`` as ``gpt::udiv``/``gpt::umod`` compute them, for
+    int64 ``u`` holding uint32 values; the constants are ints or int64
+    tensors that broadcast against ``u`` (as :meth:`UDiv.of` makes them)."""
+    hi, lo = _mulhilo(mul, u)  # mul * u, split: no int64 overflow
+    q = (hi + ((lo + add) >> 32)) >> sh  # hi32(mul * u + add) >> sh
+    return q, u - q * n  # the device adds q * (2^32 - n) mod 2^32: the same
 
 
 def philox_blocks(n_sites: int) -> int:

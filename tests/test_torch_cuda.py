@@ -99,6 +99,43 @@ def test_fused_taxi_kernel_out_of_range_state_equals_twin(cuda, policy):
     assert torch.isnan(got[1].view(-1)[idx]).all()
 
 
+# the decoded rollout's divisors (pd, nlocs, nlocs - 1, rows, cols, n_valid):
+# every cell navigable and one passenger; blocked cells (the n_valid draw)
+# with three; two landmarks (nlocs - 1 = 1) on a 3 x 6 map with blocked cells
+TWO_LANDMARKS = ("R  |  ", "      ", "  | G ")
+DIVISOR_CASES = [("Taxi-v4", {"num_passengers": 1}),
+                 ("ExtendedHansenTaxi-v4", {"num_passengers": 3}),
+                 ("Taxi-v4", {"map": TWO_LANDMARKS, "num_passengers": 3})]
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("policy", [False, True])
+@pytest.mark.parametrize("env_id,kw", DIVISOR_CASES,
+                         ids=["all-valid-1", "n-valid-3", "two-landmarks-3"])
+def test_fused_taxi_kernel_divisor_cases_equal_twin(cuda, mode, policy,
+                                                    env_id, kw):
+    env = gpt_torch.make(env_id, time_limit=25, device=cuda, **kw)
+    assert env._all_cells_valid == (env_id == "Taxi-v4" and "map" not in kw)
+    B, K = 8192, 60
+    opts = {}
+    if policy:
+        opts["policy"] = np.random.default_rng(5).integers(
+            0, 5, env.tables.ns).astype(np.int32)
+    run = make_fused_taxi_rollout(env, B, K, episode_stats=True,
+                                  rng_tape=mode == "tape", rows_per_tile=4,
+                                  **opts)
+    _, st = env.reset_vec(torch.Generator(device=cuda).manual_seed(3), B)
+    s0 = st.s.reshape(-1, 128).contiguous()
+    tape = _tape(run, 4, cuda) if mode == "tape" else ()
+    got = run(9, s0, *tape)
+    want = run.twin(9, s0, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert got[4].sum() > 0  # episodes ended
+
+
 def test_fused_taxi_kernel_rejects_mixed_devices(cuda):
     env = gpt_torch.make("Taxi-v4", device=cuda)
     run = make_fused_taxi_rollout(env, 256, 4, rng_tape=True)
@@ -713,6 +750,34 @@ def test_fused_rocksample_kernel_equals_twin(cuda, mode, map_size, k, stats):
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
     assert (got[2] > 0).any() and (got[2] < 0).any()
+
+
+# the action's divisor 5 + k: 6, 9, 16 (a power of two) and 35, on maps with
+# rows != cols (and 128 cells, the kernel's most)
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("map_size,k,stats", [((3, 7), 1, True),
+                                              ((4, 9), 4, False),
+                                              ((8, 16), 11, True),
+                                              ((12, 10), 30, True)])
+def test_fused_rocksample_kernel_divisor_cases_equal_twin(cuda, mode, map_size,
+                                                          k, stats):
+    env = gpt_torch.make("RockSample-v0", map_size=map_size, num_rocks=k,
+                         time_limit=25)
+    B, K = 8192, 48
+    run = make_fused_rocksample_rollout(env, B, K, rows_per_tile=4,
+                                        episode_stats=stats,
+                                        rng_tape=mode == "tape")
+    p0, m0 = _rocksample_state(env, B, 5)
+    tape = _tape(run, 6, cuda) if mode == "tape" else ()
+    got = run(9, p0, m0, *tape)
+    want = run.twin(9, p0, m0, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    # rewards and resets happened (at k = 1 the illegal samples' -100 outweigh
+    # every exit's +10 in the sums)
+    assert (got[2] < 0).any() and (got[1] != m0).any()
 
 
 def test_fused_rocksample_kernel_out_of_range_pos_equals_twin(cuda):
