@@ -53,14 +53,16 @@ fallback: without a CUDA device the script fails before printing a result.
 Phases: device; build of ``gym_po_tpu_torch/csrc`` (into
 ``build/gym_po_tpu_torch/``, one nvcc per source, in parallel); ``sass``:
 no runtime integer division (MUFU.RCP, I2F.U32.RP) inside the Taxi and
-RockSample rollouts' loops; ``divisors``: the kernels' invariant-divisor
+RockSample rollouts' loops, no I2F.U32.RP inside the Tag and CRooms
+rollouts' (their MUFU.RCP counted); ``divisors``: the kernels' invariant-divisor
 helper against the hardware's ``/`` and ``%`` over all 2^32 u; Philox
 known answers; the Box-Muller normal's logf/cosf against torch's over every
 uniform a draw can give (counts reported); every kernel against its plain twin on the card, exact, in
 tape mode and in Philox mode, and the trainers with per-block update sums
 (Q(lambda), actor-critic, and the one-step Q and double-Q trainers on both
 sides of their slab's choice) from one start cell and over K = 0, 1, 2, 4;
-distribution check against the step_vec
+the Tag and CRooms rollouts also where every env resets as often as it
+can and at cell sizes 0.5 and 0.75; distribution check against the step_vec
 rollout path (Taxi and ROOMS); kernel vs twin at the headline's shape;
 path 1 with the headline timing; path 2 with the trainers' timing and
 learning checks; path 3 with the ROOMS timings and learning checks; path 4
@@ -149,8 +151,23 @@ REDESIGN_KS = (0, 1, 2, 4)  # call lengths of the redesign checks
 # one product and one XOR less in round 10.  Every other operation of a
 # step counts as free, so each bound is a lower bound.
 HBM_BYTES_PER_S = 3.35e12
-PIPE_LANES_PER_SM = {"fma": 64, "alu": 64, "issue": 128}
+# f32 adds, multiplies and FMAs issue to either half of the FMA pipe, 128
+# lanes per SM per clock, integer multiplies to one half only; MUFU and
+# conversions take 16 (the same table)
+PIPE_LANES_PER_SM = {"fma": 64, "fma+fp32": 128, "alu": 64, "xu": 16,
+                     "issue": 128}
 WIDE_PRODUCT_FMA_SLOTS = 2
+# A Box-Muller normal's logf, cosf and sqrtf (gpt::rnormal) by pipe: one
+# pass of a loop that draws two uniforms and takes rnormal of them, less
+# one of the same loop taking their sum, each on its fast path, every
+# forward branch taken over the library's rare cases (a subnormal or huge
+# argument; probe_fused_taxi ``sass``, its ``libm`` lines, on an NVIDIA
+# H100 80GB HBM3 at 700 W: issue 82 of the loop's 151 instructions, and the
+# loop ran at 1.440 normals per SM per clock, 92 % of that issue count's
+# rate).  The other pass-through instructions (moves, predicates) count as
+# issue only.  A normal the function does not need (a resample where no
+# wall is hit) is not counted.
+NORMAL_SLOTS = {"fma": 5, "fp32": 33, "alu": 19, "xu": 2, "issue": 69}
 # the trainers' applied update term: a fixed-point add (two 32-bit atomics)
 # and a count add, three issued instructions on no arithmetic pipe
 TERM_ISSUE = 3
@@ -1487,7 +1504,7 @@ def msrooms_path(dev, kern_ms, errs) -> None:
 
 # ---------------------------------------------- continuous envs (path 5)
 # Path 5: the CRooms rollout on the CRooms-v0 defaults (layout '4': 17x17
-# cells of size 1, 200 walkable; continuous 'yx' actions, s.d. 0.1, power
+# cells of size 1, 200 walkable; continuous 'yx' actions, s.d. 0.2, power
 # 1.0; no velocity; goal fixed at the layout's end; time limit 500), the
 # point-mass TagContinuous-v0 and HeavenHellContinuous-v0 rollouts (time
 # limit 500) at the headline's size, and the CRooms Q trainer with ordinal
@@ -1580,7 +1597,17 @@ CROOMS_ROLLOUT_CASES = [
     (dict(goal_xy=None), 128, True),
     (dict(goal_xy=None, use_velocity=True, layout="16", cell_size=0.5,
           agent_xy=(1, 1), step_reward=-0.01, wall_reward=-0.1), 128, False),
+    # the redesign's edges: every env resetting as often as it can (CRooms
+    # truncates at >, so every second step), a cell size of 0.5 on layout
+    # '4' (the multiply by 1/cs), one that is not a power of two (0.75: the
+    # division)
+    (dict(time_limit=1, goal_xy=None), 128, True),
+    (dict(cell_size=0.5, goal_xy=None, wall_reward=-1.0), 128, True),
+    (dict(cell_size=0.75, use_velocity=True), 128, False),
 ]
+# time limit (1: every env resets every step, the respawn's edge),
+# rows_per_tile, episode stats; HeavenHell beside the first two
+TAG_ROLLOUT_CASES = [(40, 128, False), (40, 1, True), (1, 128, True)]
 # env kwargs (time limit 60), averaged duplicates, lr: summed duplicates take
 # a small lr (hundreds of terms per entry per step at B = 65,536)
 CROOMS_TRAINER_CASES = [
@@ -1679,11 +1706,14 @@ def divisors_check(dev) -> None:
 
 
 def sass_check() -> None:
-    """The Taxi and RockSample rollouts as built: each kernel's registers
-    and spills (ptxas), and its MUFU.RCP and I2F.U32.RP, the runtime
-    integer division's float reciprocal, in all and inside loops
-    (``cuobjdump -sass``).  One inside a loop fails, as does a kernel in
-    which no loop is found."""
+    """The Taxi, RockSample, Tag and CRooms rollouts as built: each kernel's
+    registers and spills (ptxas), and its MUFU.RCP and I2F.U32.RP, the
+    runtime integer division's float reciprocal and conversion, in all and
+    inside loops (``cuobjdump -sass``).  An I2F.U32.RP inside a loop fails,
+    as does a kernel in which no loop is found; so does a MUFU.RCP inside
+    the Taxi or RockSample loop (Tag's flee rule and CRooms' division by a
+    cell size that is not a power of two divide floats legitimately: their
+    count is reported)."""
     from gym_po_tpu_torch.ops._build import _library_path, build_log
     from gym_po_tpu_torch.ops.probe_fused_taxi import (
         DIVISION_OPS,
@@ -1691,16 +1721,18 @@ def sass_check() -> None:
         ptxas_report,
     )
 
-    for name in ("fused_taxi", "fused_rocksample"):
+    for name in ("fused_taxi", "fused_rocksample", "fused_tag", "fused_crooms"):
         regs = ptxas_report(build_log(name))
+        fatal = DIVISION_OPS if name in ("fused_taxi", "fused_rocksample") else (
+            "I2F.U32.RP",)
         for fn, c in division_counts(_library_path(name)).items():
-            if "_kernel" not in fn or "udiv_check" in fn:
+            if "_kernel" not in fn or "udiv_check" in fn or "rnormal_parts" in fn:
                 continue
             say("sass", f"{fn}: " + ", ".join(
                 f"{op} {c[op][0]} ({c[op][1]} inside loops)" for op in DIVISION_OPS)
                 + f"; {c['loops']} instructions inside loops; "
                 + regs.get(fn, "registers not reported"))
-            if not c["loops"] or any(c[op][1] for op in DIVISION_OPS):
+            if not c["loops"] or any(c[op][1] for op in fatal):
                 raise AssertionError(f"{fn}: a runtime division inside its "
                                      "loop, or no loop found")
 
@@ -1726,7 +1758,7 @@ def path5_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
 
     for mode in ("tape", "philox"):
         for kw, rpt, stats in CROOMS_ROLLOUT_CASES:
-            env = gp.make("CRooms-v0", time_limit=40, device=dev, **kw)
+            env = gp.make("CRooms-v0", device=dev, **{"time_limit": 40, **kw})
             run = make_fused_crooms_rollout(env, B, K, rows_per_tile=rpt,
                                             episode_stats=stats,
                                             rng_tape=mode == "tape")
@@ -1745,8 +1777,8 @@ def path5_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
                    if env.use_velocity else "")
             say("crooms-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
                 f"mean reward/step {got[6].mean().item() / K:.6f}{hit}")
-        for rpt, stats in ((128, False), (1, True)):
-            env = gp.make("TagContinuous-v0", time_limit=40, device=dev)
+        for limit, rpt, stats in TAG_ROLLOUT_CASES:
+            env = gp.make("TagContinuous-v0", time_limit=limit, device=dev)
             run = make_fused_tag_rollout(env, B, K, rows_per_tile=rpt,
                                          episode_stats=stats,
                                          rng_tape=mode == "tape")
@@ -1754,12 +1786,16 @@ def path5_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
             tape = tape_for(run, mode)
             got, want = run(3, *s4, *tape), run.twin(3, *s4, *tape)
             torch.cuda.synchronize()
-            name = f"TagContinuous-v0 rows_per_tile={rpt}" + (
+            name = f"TagContinuous-v0 time_limit={limit} rows_per_tile={rpt}" + (
                 " episode_stats" if stats else "") + f" {mode}"
             compare(name, got, want, errs["fused_tag"])
             check_tag(*got[:4])
+            if limit == 1 and not (got[7] == K).all():
+                raise AssertionError(f"{name}: not every env reset every step")
             say("tag-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
                 f"mean reward/step {got[4].mean().item() / K:.6f}")
+            if limit == 1:
+                continue
 
             env = gp.make("HeavenHellContinuous-v0", time_limit=40, device=dev)
             run = make_fused_heavenhell_rollout(env, B, K, rows_per_tile=rpt,
@@ -1901,25 +1937,51 @@ def path5_headline_checks(dev, errs, plain_ms):
     return heads
 
 
-def path5_rollout_times(card, heads, kern_ms) -> None:
-    """The counted rollout timings at B = 2^20, K = 256."""
+def path5_rollout_times(dev, card, heads, kern_ms) -> dict:
+    """The counted rollout timings at B = 2^20, K = 256.  Returns what the
+    warm-up call's data needed of Tag and CRooms: ``{key: {"steps",
+    "resets", "hits"}}``.  Both rewards are 1 at a reset and 0 otherwise
+    (the registry's defaults, no truncation at K < 500), so the warm-up's
+    reward sums count its resets; an uncounted call of CRooms with a
+    reward of 1 on a wall hit (and 0 at the goal), on the same inputs and
+    seed, counts its hits (rewards do not feed back into the state; a hit
+    on a step that reaches the goal is not counted)."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import make_fused_crooms_rollout
+
     checks = {"fused_crooms": lambda env, s: check_crooms(env, *s[:4]),
               "fused_tag": lambda env, s: check_tag(*s),
               "fused_heavenhell": lambda env, s: check_hh(*s)}
     steps = B_HEAD * K_HEAD
+    needs = {}
     for key, (run, env, state) in heads.items():
         carry = {"s": state}
 
         def call(i):
-            carry["s"] = run(1000 + i, *carry["s"])[:len(state)]
+            out = run(1000 + i, *carry["s"])
+            carry["s"] = out[:len(state)]
+            return out
 
-        call(-1)  # warm-up
+        warm = call(-1)
         kern_ms[key] = 1e3 * time_windows(call, windows=5, calls=4)
         checks[key](env, carry["s"])
+        if key != "fused_heavenhell":
+            needs[key] = {"steps": steps, "resets": warm[len(state)].sum().item()}
+        if key == "fused_crooms":
+            hit_env = gp.make("CRooms-v0", device=dev, wall_reward=1.0,
+                              goal_reward=0.0)
+            with uncounted():
+                hits = make_fused_crooms_rollout(hit_env, B_HEAD, K_HEAD)(
+                    999, *state)[len(state)]
+            needs[key]["hits"] = hits.sum().item()
+        share = "".join(f", {k} per env-step {v / steps:.6e}"
+                        for k, v in needs.get(key, {}).items() if k != "steps")
         say("path5-headline", f"fused rollout {key} {type(env).__name__} "
             f"B={B_HEAD} K={K_HEAD} "
             f"on {card}: kernel {steps / kern_ms[key] * 1e3:.6e} env-steps/s "
-            f"({kern_ms[key]:.4f} ms/call, median of 5 windows x 4 calls)")
+            f"({kern_ms[key]:.4f} ms/call, median of 5 windows x 4 calls)"
+            + (f"; the warm-up call's{share[1:]}" if share else ""))
+    return needs
 
 
 def crooms_trainer_path(dev, kern_ms, errs) -> None:
@@ -1987,26 +2049,50 @@ def crooms_trainer_path(dev, kern_ms, errs) -> None:
         raise AssertionError("fused Q did not learn CRooms-v0")
 
 
+def block_ops(full: float, part: float = 0) -> dict:
+    """Slots by pipe of ``full`` Philox blocks of which three or four words
+    are used and ``part`` of which words 0-1 alone are (one product and one
+    XOR fewer in round 10)."""
+    products, xors = 16 * full + 15 * part, 18 * full + 17 * part
+    return {"fma": WIDE_PRODUCT_FMA_SLOTS * products, "alu": xors,
+            "issue": products + xors}
+
+
 def philox_ops(n_sites: int, steps: float, terms: float = 0) -> dict:
     """Slots by pipe of ``steps`` env-steps that draw ``n_sites`` Philox
     words each, and of ``terms`` applied update terms."""
     full, part = divmod(n_sites, 4)
-    products = 16 * full + (16 if part == 3 else 15 if part else 0)
-    xors = 18 * full + (18 if part == 3 else 17 if part else 0)
-    return {"fma": WIDE_PRODUCT_FMA_SLOTS * products * steps,
-            "alu": xors * steps,
-            "issue": (products + xors) * steps + TERM_ISSUE * terms}
+    ops = block_ops((full + (part == 3)) * steps, (0 < part < 3) * steps)
+    ops["issue"] += TERM_ISSUE * terms
+    return ops
+
+
+def normal_ops(n: float) -> dict:
+    """Slots by pipe of ``n`` Box-Muller normals' logf, cosf and sqrtf."""
+    return {pipe: slots * n for pipe, slots in NORMAL_SLOTS.items()}
+
+
+def add_ops(*ops: dict) -> dict:
+    out: dict = {}
+    for o in ops:
+        for pipe, slots in o.items():
+            out[pipe] = out.get(pipe, 0) + slots
+    return out
 
 
 def bound(nbytes: float, ops: dict) -> tuple:
-    """(ms, what bounds it): the largest of bytes over the memory rate and
-    each pipe's slots (``ops``, as :func:`philox_ops` counts them) over its
-    rate at the card's top SM clock."""
+    """(ms, what bounds it, the pipe that binds): the largest of bytes over
+    the memory rate and each pipe's slots (``ops``, as :func:`philox_ops`
+    and :func:`normal_ops` count them; ``fma+fp32`` the two together) over
+    its rate at the card's top SM clock."""
     sm_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(ops[p] / (rate * sms * sm_hz) for p, rate in PIPE_LANES_PER_SM.items())
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    t_ops, pipe = max((sum(ops.get(k, 0) for k in p.split("+"))
+                       / (rate * sms * sm_hz), p)
+                      for p, rate in PIPE_LANES_PER_SM.items())
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, pipe
 
 
 def main() -> int:
@@ -2021,7 +2107,6 @@ def main() -> int:
     from gym_po_tpu_torch.entry import entry
     from gym_po_tpu_torch.ops import (
         KernelRNG,
-        make_fused_q_trainer_crooms,
         make_fused_taxi_rollout,
         philox4x32_10,
     )
@@ -2223,7 +2308,7 @@ def main() -> int:
     # CRooms learning run
     heads5 = path5_headline_checks(dev, p5_errs, plain_ms)
     LAUNCHES.clear()
-    path5_rollout_times(card, heads5, kern_ms)
+    needs = path5_rollout_times(dev, card, heads5, kern_ms)
     crooms_trainer_path(dev, kern_ms, p5_errs["fused_q_crooms"])
     for key in p5_errs:
         launches[key] = LAUNCHES[key]
@@ -2270,22 +2355,46 @@ def main() -> int:
         B_TRAIN * K_TRAIN, rooms_terms["fused_q_msrooms"]))
     # path 5: the rollouts read their state tiles and write them and the
     # reward sums once per env (CRooms 24 + 28 B, Tag 16 + 20, HeavenHell
-    # 12 + 16), their Philox blocks per env-step (3, 6, 2); the CRooms
-    # trainer reads 16 B and writes 20 B per env, Q in and out, 4 blocks per
-    # env-step and 3 per update term, one term per env-step (every env is
-    # live every step).  The transcendentals are not counted.
-    for key, nbytes in (("fused_crooms", 52), ("fused_tag", 36),
-                        ("fused_heavenhell", 28)):
-        b_rooms[key] = bound(nbytes * B_HEAD, philox_ops(
-            heads5[key][0].n_sites, B_HEAD * K_HEAD))
-    run_q = make_fused_q_trainer_crooms(
-        gp.make("CRooms-v0", action_type="ordinal", device=dev), B_TRAIN, K_TRAIN)
-    b_rooms["fused_q_crooms"] = bound(36 * B_TRAIN + 8 * 32 * 128, philox_ops(
-        run_q.n_sites, B_TRAIN * K_TRAIN, B_TRAIN * K_TRAIN))
-    say("bound", f"fused_taxi {b_taxi[0]:.4f} ms ({b_taxi[1]}); "
-        + "; ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in b_rooms.items())
+    # 12 + 16).  HeavenHell: its 5 sites (2 blocks) every env-step.  What
+    # the warm-up call's data needed of the two redesigned rollouts: Tag,
+    # block 0 (sites 0-2) every env-step and at each reset at least block 1
+    # (the agent's y and the first candidate); CRooms, every env-step block
+    # 0, words 0-1 of block 1 and the action's two normals, at each hit
+    # words 2-3 of block 1, block 2's words 0-1 and two normals more, and at
+    # each reset block 2 (at least max(hits, resets) third blocks).  Their
+    # eager counts (every site and normal every step, as the parent kernels
+    # drew them) are printed beside.  The CRooms trainer reads 16 B and
+    # writes 20 B per env, Q in and out; it needs, every env-step, blocks 0
+    # and 1 (the acting draws and the action's normals, sites 0-7) and the
+    # action's two normals, and 3 issue slots per update term, one term per
+    # env-step (every env is live every step).  A wall hit's block 2 and two
+    # normals and a respawn's block 3 are left out: this run does not count
+    # the trainer's hits, and a bound need only be low.
+    b_rooms["fused_heavenhell"] = bound(28 * B_HEAD, philox_ops(
+        heads5["fused_heavenhell"][0].n_sites, B_HEAD * K_HEAD))
+    nt, nc = needs["fused_tag"], needs["fused_crooms"]
+    b_rooms["fused_tag"] = bound(36 * B_HEAD, block_ops(nt["steps"] + nt["resets"]))
+    b_rooms["fused_crooms"] = bound(52 * B_HEAD, add_ops(
+        block_ops(nc["steps"], nc["steps"] + max(nc["hits"], nc["resets"])),
+        {"fma": WIDE_PRODUCT_FMA_SLOTS * nc["hits"], "alu": nc["hits"],
+         "issue": 2 * nc["hits"]},
+        normal_ops(2 * nc["steps"] + 2 * nc["hits"])))
+    eager = {"fused_tag": bound(36 * B_HEAD, philox_ops(
+                 heads5["fused_tag"][0].n_sites, B_HEAD * K_HEAD)),
+             "fused_crooms": bound(52 * B_HEAD, add_ops(philox_ops(
+                 heads5["fused_crooms"][0].n_sites, B_HEAD * K_HEAD),
+                 normal_ops(4 * B_HEAD * K_HEAD)))}
+    say("bound", "at this run's shares, against every site and normal every "
+        "step: " + "; ".join(f"{k} {b_rooms[k][0]:.4f} ms ({b_rooms[k][2]}), "
+                             f"eager {v[0]:.4f} ms ({v[2]})"
+                             for k, v in eager.items()))
+    b_rooms["fused_q_crooms"] = bound(36 * B_TRAIN + 8 * 32 * 128, add_ops(
+        philox_ops(8, B_TRAIN * K_TRAIN, B_TRAIN * K_TRAIN),
+        normal_ops(2 * B_TRAIN * K_TRAIN)))
+    say("bound", f"fused_taxi {b_taxi[0]:.4f} ms ({b_taxi[2]}); "
+        + "; ".join(f"{k} {v[0]:.4f} ms ({v[2]})" for k, v in b_rooms.items())
         + "; "
-        + "; ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in b_train.items())
+        + "; ".join(f"{k} {v[0]:.4f} ms ({v[2]})" for k, v in b_train.items())
         + f"; SM clock {nvidia_smi('clocks.max.sm')} max, now "
         f"{nvidia_smi('clocks.sm')}")
 

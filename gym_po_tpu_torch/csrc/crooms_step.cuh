@@ -15,7 +15,12 @@
 // as the twin's eager PyTorch and the JAX package's XLA on the CPU compute
 // it.  nvcc contracts a*b + c into an FMA by default, which rounds once where
 // they round twice, so each product and sum here is __fmul_rn/__fadd_rn/
-// __fsub_rn (never contracted) and each division __fdiv_rn.
+// __fsub_rn (never contracted) and each division by the cell size
+// __fdiv_rn, or a multiply that rounds the same (over_cs).
+//
+// crooms_move is the trainer's whole step.  The rollout calls its parts
+// (crooms_try, crooms_cell, crooms_resample, crooms_finish), so that it
+// computes a resample only where an env hits a wall.
 //
 // The step draws nothing itself: each kernel takes the draws of its
 // effective action, the two resample normals and its respawns at its own
@@ -39,6 +44,7 @@ struct CRoomsMap {
   float cs, half;  // cell size and f32(cs / 2)
   float pos_hi_y, pos_hi_x, thr2;
   float r_step, r_wall, r_goal;
+  float inv_cs;    // 2^-k where the host found cs = 2^k, else 0 (over_cs)
 };
 
 struct CRoomsMove {
@@ -59,10 +65,19 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
+// y / cs.  Where the host found cs = 2^k it hands inv_cs = 2^-k, and
+// y * 2^-k is y / 2^k for every f32 y (both are the correctly rounded value
+// of the same real number), so one multiply does; any other cs (inv_cs = 0)
+// takes the IEEE division.
+__device__ __forceinline__ float over_cs(const CRoomsMap& M, float y) {
+  if (M.inv_cs != 0.0f) return __fmul_rn(y, M.inv_cs);
+  return __fdiv_rn(y, M.cs);
+}
+
 // flat cell floor(y / cs) * W + floor(x / cs), in int32 as the JAX kernels
 __device__ __forceinline__ int crooms_cell(const CRoomsMap& M, float y, float x) {
-  const int cy = (int)floorf(__fdiv_rn(y, M.cs));
-  const int cx = (int)floorf(__fdiv_rn(x, M.cs));
+  const int cy = (int)floorf(over_cs(M, y));
+  const int cx = (int)floorf(over_cs(M, x));
   return cy * M.W + cx;
 }
 
@@ -79,42 +94,61 @@ __device__ __forceinline__ float crooms_disp_action(float d, float n, float std,
   return __fmul_rn(__fadd_rn(d, __fmul_rn(n, std)), power);
 }
 
-// Moves an env by the effective action (ay, ax); (nry, nrx) are the standard
-// normals of a wall resample, (gy, gx) the goal; wall is the padded wall
-// bank (1 on a wall); elapsed is carried and zeroed at a reset.
+// The move before the wall test: the velocity (kVel: clipped to +-5) and
+// the new position, clipped to [0, pos_hi].
+struct CRoomsTry {
+  float ny, nx, vy, vx;
+};
+
 template <bool kVel>
-__device__ __forceinline__ CRoomsMove crooms_move(const CRoomsMap& M,
-                                                  const uint8_t* wall, float py,
-                                                  float px, float vy, float vx,
-                                                  float ay, float ax, float nry,
-                                                  float nrx, float gy, float gx,
-                                                  int& elapsed) {
-  float vy2 = vy, vx2 = vx, ny, nx;
+__device__ __forceinline__ CRoomsTry crooms_try(const CRoomsMap& M, float py,
+                                                float px, float vy, float vx,
+                                                float ay, float ax) {
+  CRoomsTry out;
+  out.vy = vy;
+  out.vx = vx;
   if (kVel) {
-    vy2 = clampf(__fadd_rn(vy, ay), -kMaxVelocity, kMaxVelocity);
-    vx2 = clampf(__fadd_rn(vx, ax), -kMaxVelocity, kMaxVelocity);
-    ny = __fadd_rn(py, vy2);
-    nx = __fadd_rn(px, vx2);
+    out.vy = clampf(__fadd_rn(vy, ay), -kMaxVelocity, kMaxVelocity);
+    out.vx = clampf(__fadd_rn(vx, ax), -kMaxVelocity, kMaxVelocity);
+    out.ny = __fadd_rn(py, out.vy);
+    out.nx = __fadd_rn(px, out.vx);
   } else {
-    ny = __fadd_rn(py, ay);
-    nx = __fadd_rn(px, ax);
+    out.ny = __fadd_rn(py, ay);
+    out.nx = __fadd_rn(px, ax);
   }
-  ny = clampf(ny, 0.0f, M.pos_hi_y);
-  nx = clampf(nx, 0.0f, M.pos_hi_x);
-  const bool oob = bank_at(wall, M.nbank, crooms_cell(M, ny, nx)) == 1;
-  // a wall hit resamples within the CURRENT cell, its upper edge one ULP down
-  const float ceny = __fadd_rn(__fmul_rn(floorf(__fdiv_rn(py, M.cs)), M.cs), M.half);
-  const float cenx = __fadd_rn(__fmul_rn(floorf(__fdiv_rn(px, M.cs)), M.cs), M.half);
+  out.ny = clampf(out.ny, 0.0f, M.pos_hi_y);
+  out.nx = clampf(out.nx, 0.0f, M.pos_hi_x);
+  return out;
+}
+
+// A wall hit's new position: within the CURRENT cell (py, px), N(0, 0.5)
+// about its center from the standard normals (nry, nrx), its upper edge one
+// ULP down.
+__device__ __forceinline__ void crooms_resample(const CRoomsMap& M, float py,
+                                                float px, float nry, float nrx,
+                                                float& ry, float& rx) {
+  const float ceny =
+      __fadd_rn(__fmul_rn(floorf(over_cs(M, py)), M.cs), M.half);
+  const float cenx =
+      __fadd_rn(__fmul_rn(floorf(over_cs(M, px)), M.cs), M.half);
   const float hiy = nextafterf(__fadd_rn(ceny, M.half), 0.0f);
   const float hix = nextafterf(__fadd_rn(cenx, M.half), 0.0f);
-  const float ry = clampf(__fadd_rn(ceny, __fmul_rn(nry, 0.5f)), __fsub_rn(ceny, M.half), hiy);
-  const float rx = clampf(__fadd_rn(cenx, __fmul_rn(nrx, 0.5f)), __fsub_rn(cenx, M.half), hix);
+  ry = clampf(__fadd_rn(ceny, __fmul_rn(nry, 0.5f)), __fsub_rn(ceny, M.half), hiy);
+  rx = clampf(__fadd_rn(cenx, __fmul_rn(nrx, 0.5f)), __fsub_rn(cenx, M.half), hix);
+}
+
+// The end of the step from the position and velocity after the wall test
+// (oob: it hit): the goal test, the reward, elapsed and truncation.
+__device__ __forceinline__ CRoomsMove crooms_finish(const CRoomsMap& M, bool oob,
+                                                    float py, float px, float vy,
+                                                    float vx, float gy, float gx,
+                                                    int& elapsed) {
   CRoomsMove out;
-  out.py = oob ? ry : ny;
-  out.px = oob ? rx : nx;
-  out.vy = oob ? 0.0f : vy2;
-  out.vx = oob ? 0.0f : vx2;
-  const float dy = __fsub_rn(out.py, gy), dx = __fsub_rn(out.px, gx);
+  out.py = py;
+  out.px = px;
+  out.vy = vy;
+  out.vx = vx;
+  const float dy = __fsub_rn(py, gy), dx = __fsub_rn(px, gx);
   out.done = __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)) <= M.thr2;
   out.rew = out.done ? M.r_goal : (oob ? M.r_wall : M.r_step);
   elapsed += 1;
@@ -124,14 +158,35 @@ __device__ __forceinline__ CRoomsMove crooms_move(const CRoomsMap& M,
   return out;
 }
 
+// Moves an env by the effective action (ay, ax); (nry, nrx) are the standard
+// normals of a wall resample, (gy, gx) the goal; wall is the padded wall
+// bank (1 on a wall); elapsed is carried and zeroed at a reset.  The Q
+// trainer's step: every part computed, a select keeps the hit's.
+template <bool kVel>
+__device__ __forceinline__ CRoomsMove crooms_move(const CRoomsMap& M,
+                                                  const uint8_t* wall, float py,
+                                                  float px, float vy, float vx,
+                                                  float ay, float ax, float nry,
+                                                  float nrx, float gy, float gx,
+                                                  int& elapsed) {
+  const CRoomsTry tr = crooms_try<kVel>(M, py, px, vy, vx, ay, ax);
+  const bool oob = bank_at(wall, M.nbank, crooms_cell(M, tr.ny, tr.nx)) == 1;
+  float ry, rx;
+  crooms_resample(M, py, px, nry, nrx, ry, rx);
+  return crooms_finish(M, oob, oob ? ry : tr.ny, oob ? rx : tr.nx,
+                       oob ? 0.0f : tr.vy, oob ? 0.0f : tr.vx, gy, gx, elapsed);
+}
+
 // a uniform walkable cell's center from one draw, with the reference's
-// implicit cell size 1 for spawns
-__device__ __forceinline__ void crooms_spawn(const int32_t* valid, int n_valid,
-                                             int W, uint32_t u, float& cy,
-                                             float& cx) {
-  const int cell = valid[rbits(u, n_valid)];
-  cy = __fadd_rn((float)(cell / W), 0.5f);
-  cx = __fadd_rn((float)(cell % W), 0.5f);
+// implicit cell size 1 for spawns; n_valid and W are invariant divisors
+// (gpt::UDiv), so no runtime integer division
+__device__ __forceinline__ void crooms_spawn(const int32_t* valid,
+                                             const UDiv& n_valid, const UDiv& W,
+                                             uint32_t u, float& cy, float& cx) {
+  const uint32_t cell = (uint32_t)valid[rbits(u, n_valid)];  // >= 0
+  const uint32_t row = udiv(cell, W);
+  cy = __fadd_rn((float)(int)row, 0.5f);
+  cx = __fadd_rn((float)(int)(cell + row * W.neg), 0.5f);  // cell % W
 }
 
 }  // namespace gpt

@@ -14,12 +14,23 @@
 //
 // What bounds it on this card: not memory.  Each env reads 24 B and writes
 // 28 B (+12 B of stats) once per call, whatever K is.  The work per env-step
-// is three Philox4x32-10 blocks (10-12 draw sites), four logf, four cosf and
-// four sqrtf for the two Box-Muller normals of the action and the two of the
-// resample (both drawn every step, as in the JAX kernel, whether or not the
-// env hits a wall), three IEEE divisions by the cell size, one shared-memory
-// lookup and a few dozen f32 operations.  The respawn choices and the
-// velocity flag are template parameters, so every draw site is a
+// is draws and libm: the contract has 10-12 draw sites in three
+// Philox4x32-10 blocks and four Box-Muller normals (a logf, a cosf and a
+// sqrtf each), two for the action and two for a wall hit's resample, and
+// the JAX kernel computes all of them every step.  A step uses the
+// resample's only where the env hits a wall (about one env-step in eleven
+// at the registry's defaults, but in almost every warp-step) and the spawn
+// draws only where it resets (rarely).  So the kernel draws blocks 0 and 1
+// and the action's two normals every step, and puts the resample (block 2,
+// two normals, the cell's centre) and the spawn (block 2 and two
+// invariant-divisor reductions, no runtime division) under branches on the
+// hit and the reset: a warp in which no env hits skips the resample, and in
+// one where some do, only they compute it.  (Sharing the hitting lanes'
+// normals out over the warp's lanes, one normal a lane, measured slower:
+// probe_fused_taxi's variant warp-packed; an explicit __any_sync vote on
+// each branch, no faster: warp-vote.)  The division by the cell size is one
+// multiply when the host finds the size a power of two (over_cs).  The respawn choices
+// and the velocity flag are template parameters, so every draw site is a
 // compile-time constant.
 //
 // Exactness: the f32 arithmetic is written with __fmul_rn/__fadd_rn/
@@ -28,10 +39,11 @@
 // gpt::rnormal, the same logf/cosf/sqrtf the twin's torch.log/cos/sqrt call
 // on the card.
 //
-// Draw sites, in body order, every step whatever the masks say: ay's uniform,
-// ay's normal (two), ax's uniform, ax's normal (two), the resample normals ry
-// and rx (two each), goal respawn (random goal only), agent respawn (random
-// agent only).
+// Draw sites, in body order: ay's uniform, ay's normal (two), ax's uniform,
+// ax's normal (two) (sites 0-5, every step), the resample normals ry and rx
+// (two each, sites 6-9, where the env hits a wall), goal respawn (random goal
+// only), agent respawn (random agent only) (where it resets).  The twin
+// draws every site every step; the draws skipped here are ones it discards.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +58,8 @@ struct CRoomsParams {
   int32_t W, nbank, n_valid, use_vel, rand_goal, rand_agent;
   float cs, half, pos_hi_y, pos_hi_x, thr2, r_step, r_wall, r_goal;
   float std, power, goal_y, goal_x, agent_y, agent_x;  // fixed spawns
+  float inv_cs;  // 2^-k where cs = 2^k, else 0 (crooms_step.cuh, over_cs)
+  gpt::UDiv valid_div, col_div;  // n_valid and W, for the spawns
 };
 
 namespace {
@@ -68,38 +82,58 @@ fused_crooms_kernel(CRoomsParams P, Ptrs p, const uint8_t* __restrict__ wall,
   if (e >= P.h.num_envs) return;
   float py = p.in_f(0, e), px = p.in_f(1, e), vy = p.in_f(2, e), vx = p.in_f(3, e);
   float gy = p.in_f(4, e), gx = p.in_f(5, e);
-  gpt::KernelRNG<3> rng(tape, P.h.key0, P.h.key1, e, P.h.num_steps,
-                        P.h.rows_per_tile, P.h.n_sites);
+  gpt::LazyRNG rng(tape, P.h.key0, P.h.key1, e, P.h.num_steps,
+                   P.h.rows_per_tile, P.h.n_sites);
   const gpt::CRoomsMap M = {P.W, P.nbank, P.h.time_limit, P.cs, P.half,
                             P.pos_hi_y, P.pos_hi_x, P.thr2, P.r_step, P.r_wall,
-                            P.r_goal};
+                            P.r_goal, P.inv_cs};
   constexpr int kAgentSite = kRandGoal ? 11 : 10;
   int elapsed = 0;
   float racc = 0.f;
   gpt::EpisodeStats stats;
   for (int t = 0; t < P.h.num_steps; ++t) {
     rng.begin_step(t);
-    const float uy = gpt::runiform(rng.draw(0));
+    const gpt::U32x4 b0 = rng.block(0), b1 = rng.block(1);
+    const float uy = gpt::runiform(rng.draw(0, b0));
     const float ay = gpt::crooms_yx_action(
-        uy, gpt::rnormal(rng.draw(1), rng.draw(2)), P.std, P.power);
-    const float ux = gpt::runiform(rng.draw(3));
+        uy, gpt::rnormal(rng.draw(1, b0), rng.draw(2, b0)), P.std, P.power);
+    const float ux = gpt::runiform(rng.draw(3, b0));
     const float ax = gpt::crooms_yx_action(
-        ux, gpt::rnormal(rng.draw(4), rng.draw(5)), P.std, P.power);
-    const float nry = gpt::rnormal(rng.draw(6), rng.draw(7));
-    const float nrx = gpt::rnormal(rng.draw(8), rng.draw(9));
-    const gpt::CRoomsMove mv = gpt::crooms_move<kVel>(
-        M, s_wall, py, px, vy, vx, ay, ax, nry, nrx, gy, gx, elapsed);
-    // goal first, then agent: the JAX kernel's body order
-    float ngy = P.goal_y, ngx = P.goal_x, nay = P.agent_y, nax = P.agent_x;
-    if (kRandGoal) gpt::crooms_spawn(s_valid, P.n_valid, P.W, rng.draw(10), ngy, ngx);
-    if (kRandAgent)
-      gpt::crooms_spawn(s_valid, P.n_valid, P.W, rng.draw(kAgentSite), nay, nax);
-    py = mv.reset ? nay : mv.py;
-    px = mv.reset ? nax : mv.px;
-    vy = mv.reset ? 0.f : mv.vy;
-    vx = mv.reset ? 0.f : mv.vx;
-    gy = mv.reset ? ngy : gy;
-    gx = mv.reset ? ngx : gx;
+        ux, gpt::rnormal(rng.draw(4, b1), rng.draw(5, b1)), P.std, P.power);
+    const gpt::CRoomsTry tr = gpt::crooms_try<kVel>(M, py, px, vy, vx, ay, ax);
+    const bool oob =
+        gpt::bank_at(s_wall, M.nbank, gpt::crooms_cell(M, tr.ny, tr.nx)) == 1;
+    float ny = tr.ny, nx = tr.nx;
+    if (oob) {
+      // a wall hit: block 2, the resample's two normals and its centre
+      const gpt::U32x4 b2 = rng.block(2);
+      const float nry = gpt::rnormal(rng.draw(6, b1), rng.draw(7, b1));
+      const float nrx = gpt::rnormal(rng.draw(8, b2), rng.draw(9, b2));
+      gpt::crooms_resample(M, py, px, nry, nrx, ny, nx);
+    }
+    const gpt::CRoomsMove mv =
+        gpt::crooms_finish(M, oob, ny, nx, oob ? 0.0f : tr.vy,
+                           oob ? 0.0f : tr.vx, gy, gx, elapsed);
+    py = mv.py;
+    px = mv.px;
+    vy = mv.vy;
+    vx = mv.vx;
+    if (mv.reset) {
+      // goal first, then agent: the JAX kernel's body order
+      gpt::U32x4 b2 = {};
+      if (kRandGoal || kRandAgent) b2 = rng.block(2);
+      gy = P.goal_y;
+      gx = P.goal_x;
+      py = P.agent_y;
+      px = P.agent_x;
+      if (kRandGoal)
+        gpt::crooms_spawn(s_valid, P.valid_div, P.col_div, rng.draw(10, b2), gy, gx);
+      if (kRandAgent)
+        gpt::crooms_spawn(s_valid, P.valid_div, P.col_div, rng.draw(kAgentSite, b2),
+                          py, px);
+      vy = 0.f;
+      vx = 0.f;
+    }
     if (P.h.episode_stats) stats.add(mv.rew, mv.reset, mv.ep_len);
     racc = __fadd_rn(racc, mv.rew);
   }
@@ -136,8 +170,8 @@ Kernel pick_goal(bool rand_goal, bool rand_agent) {
 extern "C" int fused_crooms_launch(const CRoomsParams* P, const void* const* in,
                                    void* const* out, const void* const* tab,
                                    const void* tape, void* stream) {
-  if (P->h.n_sites != 10 + P->rand_goal + P->rand_agent || P->h.n_sites > 12)
-    return (int)cudaErrorInvalidValue;  // KernelRNG<3>
+  if (P->h.n_sites != 10 + P->rand_goal + P->rand_agent)
+    return (int)cudaErrorInvalidValue;  // sites 0-11, three blocks
   const int threads = gpt::kRolloutThreads;
   const int blocks = (P->h.num_envs + threads - 1) / threads;
   const size_t smem = sizeof(int32_t) * P->n_valid + ((P->nbank + 3) / 4) * 4;

@@ -31,7 +31,9 @@
 // and wall banks, the walkable cells and the A displacements in shared
 // memory.  Each thread owns up to kMaxEnvsPerThread envs for all K steps.
 // The float arithmetic is __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn, never
-// contracted into an FMA, so it rounds as the twin does.
+// contracted into an FMA, so it rounds as the twin does; the division by a
+// power-of-two cell size is a multiply that rounds the same (crooms_step.cuh,
+// over_cs), and the respawn reduces its draw by invariant divisors.
 //
 // Draw sites per step, in body order, every step whatever the masks say:
 // explore r24, random action rbits(A), failure coin r24() < int(p * 2^24),
@@ -61,6 +63,8 @@ struct QCRoomsParams {
   float cs, half, pos_hi_y, pos_hi_x, thr2, r_step, r_wall, r_goal;
   float std, power, goal_y, goal_x, agent_y, agent_x;  // fixed goal and agent
   float gamma, lr, eps;
+  float inv_cs;  // 2^-k where cs = 2^k, else 0 (crooms_step.cuh, over_cs)
+  gpt::UDiv valid_div, col_div;  // n_valid and W, for the respawn
 };
 
 namespace {
@@ -110,7 +114,7 @@ fused_q_crooms_kernel(QCRoomsParams P, int envs_per_thread, QCRoomsPtrs p,
   const int eps24 = __float2int_rz(__fmul_rn(P.eps, 16777216.0f));
   const gpt::CRoomsMap M = {P.W, P.nbank, P.time_limit, P.cs, P.half,
                             P.pos_hi_y, P.pos_hi_x, P.thr2, P.r_step, P.r_wall,
-                            P.r_goal};
+                            P.r_goal, P.inv_cs};
 
   float py_l[kMaxEnvs], px_l[kMaxEnvs], vy_l[kMaxEnvs], vx_l[kMaxEnvs];
   float racc_l[kMaxEnvs];
@@ -168,7 +172,8 @@ fused_q_crooms_kernel(QCRoomsParams P, int envs_per_thread, QCRoomsPtrs p,
       gpt::accumulate(acc, cnt, a * P.nsp + qidx, wd, average);
       // --- respawn ---
       float nay = P.agent_y, nax = P.agent_x;
-      if (kRandAgent) gpt::crooms_spawn(s_valid, P.n_valid, P.W, rng.draw(12), nay, nax);
+      if (kRandAgent)
+        gpt::crooms_spawn(s_valid, P.valid_div, P.col_div, rng.draw(12), nay, nax);
       py_l[i] = mv.reset ? nay : mv.py;
       px_l[i] = mv.reset ? nax : mv.px;
       vy_l[i] = mv.reset ? 0.f : mv.vy;

@@ -11,9 +11,19 @@
 //
 // What bounds them on this card: not memory (16 B or 12 B in, 20 B or 16 B
 // out per env per call, whatever K is), but the draws and the arithmetic.
-// Tag draws 21 sites per env-step, six Philox4x32-10 blocks, and does the
-// flee rule (one sqrtf and one IEEE division) and the respawn's eight
-// candidate distances and four corner distances: about 80 f32 operations.
+// Tag's contract has 21 sites per env-step in six Philox4x32-10 blocks, but
+// a step uses only block 0 (the two move uniforms and the flee mode) unless
+// the env resets, which at the registry's defaults is a tag, a few in a
+// million env-steps (the agent walks at random, 0.25 a step, and the target
+// flees at 0.5).  So the kernel draws block 0 and does the flee rule (one sqrtf and
+// one IEEE division) every step, and the respawn under a branch: a warp in
+// which no env resets skips it (SIMT runs a branch only if a lane takes it;
+// an explicit __any_sync vote measured no faster, probe_fused_taxi's
+// variant warp-vote), and each resetting env takes its candidates in order,
+// computing each Philox block when its search first reaches it and stopping
+// at the first candidate that qualifies; the corner distances only when
+// none does.  The draws it skips
+// are the ones the twin draws and discards (the draw contract is unchanged).
 // HeavenHell draws 5 sites, two blocks, and does a dozen compares and two
 // squared distances.
 //
@@ -21,9 +31,10 @@
 // __fsqrt_rn, so nvcc contracts nothing into an FMA and each rounds as in
 // the twin's eager PyTorch and the JAX package's XLA on the CPU.
 //
-// Draw sites, in body order, every step whatever the masks say.  Tag: the
-// agent's two move uniforms, the flee mode rbits(4), the respawn agent's x
-// and y, then the eight respawn candidates' x and y.  HeavenHell: the two
+// Draw sites, in body order.  Tag: the agent's two move uniforms, the flee
+// mode rbits(4), the respawn agent's x and y, then the eight respawn
+// candidates' x and y (sites 0-2 used every step, 3-20 only where the env
+// resets).  HeavenHell, drawn every step whatever the masks say: the two
 // move uniforms, the respawn x and y, the heaven coin (bit 0 of the draw).
 
 #include <cuda_runtime.h>
@@ -70,24 +81,62 @@ __device__ __forceinline__ float dist2(float c0, float c1, float a0, float a1) {
 using TagPtrs = gpt::StatePtrs<4>;
 using HHPtrs = gpt::StatePtrs<3>;
 
+// Tag's respawn of one env (an env whose episode ended): the agent uniform
+// in the cage (sites 3, 4); the target the first of 8 candidates (sites
+// 5 + 2k, 6 + 2k) at least 5 away, else the farthest corner (a running
+// strict maximum over the four).  Block b of the step is computed when the
+// search first reaches a site in it; b0 is block 0, already drawn.
+__device__ __forceinline__ void tag_respawn(const gpt::LazyRNG& rng,
+                                            const gpt::U32x4& b0, float& a0,
+                                            float& a1, float& t0, float& t1) {
+  gpt::U32x4 blk = rng.block(1);
+  a0 = rcage(rng.draw(3, b0));
+  a1 = rcage(rng.draw(4, blk));
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int j = 5 + 2 * k;  // x's site; y's is j + 1, in the next block for odd k
+    const float c0 = rcage(rng.draw(j, blk));
+    if (j % 4 == 3) blk = rng.block((j + 1) / 4);
+    const float c1 = rcage(rng.draw(j + 1, blk));
+    if (dist2(c0, c1, a0, a1) >= kMinSpawnDist2) {
+      t0 = c0;
+      t1 = c1;
+      return;
+    }
+  }
+  const float corner[4][2] = {
+      {-kCage, -kCage}, {-kCage, kCage}, {kCage, -kCage}, {kCage, kCage}};
+  t0 = corner[0][0];
+  t1 = corner[0][1];
+  float best = dist2(t0, t1, a0, a1);
+#pragma unroll
+  for (int c = 1; c < 4; ++c) {
+    const float d = dist2(corner[c][0], corner[c][1], a0, a1);
+    if (d > best) {
+      t0 = corner[c][0];
+      t1 = corner[c][1];
+    }
+    best = fmaxf(best, d);
+  }
+}
+
 __global__ void __launch_bounds__(gpt::kRolloutThreads)
 fused_tag_kernel(TagParams P, TagPtrs p, const int32_t* __restrict__ tape) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= P.h.num_envs) return;
   float a0 = p.in_f(0, e), a1 = p.in_f(1, e), t0 = p.in_f(2, e), t1 = p.in_f(3, e);
-  gpt::KernelRNG<6> rng(tape, P.h.key0, P.h.key1, e, P.h.num_steps,
-                        P.h.rows_per_tile, P.h.n_sites);
-  const float corner[4][2] = {
-      {-kCage, -kCage}, {-kCage, kCage}, {kCage, -kCage}, {kCage, kCage}};
+  gpt::LazyRNG rng(tape, P.h.key0, P.h.key1, e, P.h.num_steps,
+                   P.h.rows_per_tile, P.h.n_sites);
   int elapsed = 0;
   float racc = 0.f;
   gpt::EpisodeStats stats;
   for (int t = 0; t < P.h.num_steps; ++t) {
     rng.begin_step(t);
-    a0 = clampf(move(a0, gpt::runiform(rng.draw(0)), P.speed), -kCage, kCage);
-    a1 = clampf(move(a1, gpt::runiform(rng.draw(1)), P.speed), -kCage, kCage);
+    const gpt::U32x4 b0 = rng.block(0);
+    a0 = clampf(move(a0, gpt::runiform(rng.draw(0, b0)), P.speed), -kCage, kCage);
+    a1 = clampf(move(a1, gpt::runiform(rng.draw(1, b0)), P.speed), -kCage, kCage);
     // the target's flee rule: away, the two orthogonals, or stay
-    const int mode = gpt::rbits(rng.draw(2), 4);
+    const int mode = gpt::rbits(rng.draw(2, b0), 4);
     const float w0 = __fsub_rn(t0, a0), w1 = __fsub_rn(t1, a1);
     const float nrm = __fsqrt_rn(__fadd_rn(sq(w0), sq(w1)));
     const float inv = nrm > 1e-9f ? __fdiv_rn(1.0f, fmaxf(nrm, 1e-9f)) : 0.0f;
@@ -106,37 +155,7 @@ fused_tag_kernel(TagParams P, TagPtrs p, const int32_t* __restrict__ tape) {
     const int length = elapsed;
     const bool reset = done || elapsed >= P.h.time_limit;
     if (reset) elapsed = 0;
-    // respawn: the agent uniform in the cage; the target the first of 8
-    // candidates at least 5 away, else the farthest corner (strict max)
-    const float na0 = rcage(rng.draw(3)), na1 = rcage(rng.draw(4));
-    float out0 = corner[0][0], out1 = corner[0][1];
-    float best = dist2(out0, out1, na0, na1);
-#pragma unroll
-    for (int c = 1; c < 4; ++c) {
-      const float d = dist2(corner[c][0], corner[c][1], na0, na1);
-      if (d > best) {
-        out0 = corner[c][0];
-        out1 = corner[c][1];
-      }
-      best = fmaxf(best, d);
-    }
-    bool found = false;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float c0 = rcage(rng.draw(5 + 2 * k)), c1 = rcage(rng.draw(6 + 2 * k));
-      const bool ok = dist2(c0, c1, na0, na1) >= kMinSpawnDist2;
-      if (ok && !found) {
-        out0 = c0;
-        out1 = c1;
-      }
-      found = found || ok;
-    }
-    if (reset) {
-      a0 = na0;
-      a1 = na1;
-      t0 = out0;
-      t1 = out1;
-    }
+    if (reset) tag_respawn(rng, b0, a0, a1, t0, t1);
     if (P.h.episode_stats) stats.add(rew, reset, length);
     racc = __fadd_rn(racc, rew);
   }
@@ -209,7 +228,7 @@ fused_heavenhell_kernel(TagParams P, HHPtrs p, const int32_t* __restrict__ tape)
 extern "C" int fused_tag_launch(const TagParams* P, const void* const* in,
                                 void* const* out, const void* const* /*tab*/,
                                 const void* tape, void* stream) {
-  if (P->h.n_sites != 21) return (int)cudaErrorInvalidValue;  // KernelRNG<6>
+  if (P->h.n_sites != 21) return (int)cudaErrorInvalidValue;  // sites 0-20
   const int threads = gpt::kRolloutThreads;
   const int blocks = (P->h.num_envs + threads - 1) / threads;
   fused_tag_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

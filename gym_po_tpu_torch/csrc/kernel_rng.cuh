@@ -19,6 +19,11 @@
 //    is picked by selects and stays in registers (a runtime block count
 //    would index a local array dynamically and put it in local memory).
 //    It serves n_sites <= 4*NBLK; the launcher checks that.
+//    LazyRNG computes a block only where the kernel first needs one of its
+//    words, so a kernel that uses some sites only on a rare branch (a
+//    respawn, a wall hit) draws nothing there on the other steps; since a
+//    draw depends on (seed, e, t, j) alone, skipping or moving a block
+//    changes no draw that is used.
 #pragma once
 
 #include <stdint.h>
@@ -55,14 +60,32 @@ __device__ __forceinline__ U32x4 philox4x32_10(uint32_t c0, uint32_t c1,
   return out;
 }
 
-// Per-thread draw source for one env.  begin_step(t) must precede the
-// step's draws; draw(j) returns site j's uint32 for that step.
 // word w of a block by selects rather than a dynamic register index, which
 // would put the block in local memory
 __device__ __forceinline__ uint32_t pick4(const U32x4& b, int w) {
   return w == 0 ? b.w[0] : w == 1 ? b.w[1] : w == 2 ? b.w[2] : b.w[3];
 }
 
+// tape offset of env e's (tile, row, lane) at site 0, step 0: the tape is
+// [n_tiles, n_sites, num_steps, rows_per_tile, 128]
+__device__ __forceinline__ long long tape_base_of(long long e, int num_steps,
+                                                  int rows_per_tile, int n_sites) {
+  const long long R = rows_per_tile;
+  const long long g = e / (R * 128), r = (e / 128) % R, lane = e % 128;
+  const long long slab = (long long)n_sites * num_steps * R;
+  return (g * slab + r) * 128 + lane;
+}
+
+// site j's word at step t, from the tape offset tape_base_of gives
+__device__ __forceinline__ uint32_t tape_word(const int32_t* tape,
+                                              long long tape_base, int j, int t,
+                                              int num_steps, int rows_per_tile) {
+  const long long row = ((long long)j * num_steps + t) * rows_per_tile;
+  return (uint32_t)__ldg(tape + tape_base + row * 128);
+}
+
+// Per-thread draw source for one env.  begin_step(t) must precede the
+// step's draws; draw(j) returns site j's uint32 for that step.
 template <int NBLK>
 struct KernelRNG {
   const int32_t* tape;  // null: Philox mode
@@ -79,10 +102,7 @@ struct KernelRNG {
       : tape(tape_), num_steps(num_steps_), rows_per_tile(rows_per_tile_),
         n_sites(n_sites_), env((uint32_t)e), key0(seed_lo), key1(seed_hi),
         step(0) {
-    const long long R = rows_per_tile_;
-    const long long g = e / (R * 128), r = (e / 128) % R, lane = e % 128;
-    const long long slab = (long long)n_sites_ * num_steps_ * R;
-    tape_base = (g * slab + r) * 128 + lane;
+    tape_base = tape_base_of(e, num_steps_, rows_per_tile_, n_sites_);
   }
 
   __device__ __forceinline__ void begin_step(int t) {
@@ -96,16 +116,46 @@ struct KernelRNG {
   }
 
   __device__ __forceinline__ uint32_t draw(int j) const {
-    if (tape) {
-      const long long row = ((long long)j * num_steps + step) * rows_per_tile;
-      return (uint32_t)__ldg(tape + tape_base + row * 128);
-    }
+    if (tape) return tape_word(tape, tape_base, j, step, num_steps, rows_per_tile);
     // j < 4 ? block 0 : j < 8 ? block 1 : ..., by selects
     uint32_t u = pick4(blk[NBLK - 1], j & 3);
 #pragma unroll
     for (int b = NBLK - 2; b >= 0; --b)
       if (j < 4 * (b + 1)) u = pick4(blk[b], j & 3);
     return u;
+  }
+};
+
+// Per-thread draw source that computes a Philox block where the kernel asks
+// for it: block(b) is block b of the current step (all zero in tape mode),
+// draw(j, blk) site j's word, word j % 4 of blk, the block that holds it (the
+// tape's word in tape mode).
+struct LazyRNG {
+  const int32_t* tape;  // null: Philox mode
+  long long tape_base;
+  int num_steps, rows_per_tile;
+  uint32_t env, key0, key1;
+  int step;
+
+  __device__ __forceinline__ LazyRNG(const int32_t* tape_, uint32_t seed_lo,
+                                     uint32_t seed_hi, long long e,
+                                     int num_steps_, int rows_per_tile_,
+                                     int n_sites)
+      : tape(tape_), num_steps(num_steps_), rows_per_tile(rows_per_tile_),
+        env((uint32_t)e), key0(seed_lo), key1(seed_hi), step(0) {
+    tape_base = tape_base_of(e, num_steps_, rows_per_tile_, n_sites);
+  }
+
+  __device__ __forceinline__ void begin_step(int t) { step = t; }
+
+  __device__ __forceinline__ U32x4 block(int b) const {
+    if (tape) return U32x4{};
+    return philox4x32_10(env, (uint32_t)step, (uint32_t)b, 0u, key0, key1);
+  }
+
+  __device__ __forceinline__ uint32_t draw(int j, const U32x4& blk) const {
+    if (tape) return tape_word(tape, tape_base, j, step, num_steps, rows_per_tile);
+    return pick4(blk, j & 3);
   }
 };
 

@@ -10,8 +10,11 @@ cell, the in-cell resample on a wall hit (one-ULP clamp), the goal-distance
 test, truncation, and masked respawns at cell centers, with optional
 per-env episode statistics.  The kernel (``csrc/fused_crooms.cu``) runs one
 thread per env over the flat ``[B]`` layout and keeps a whole rollout in
-registers; its source note says what bounds it on the card.  The step is
-shared with the Q trainer (:mod:`.crooms_dynamics`).  ``run.twin`` is the
+registers; its source note says what bounds it on the card and what it
+skips of the draws the twin makes.  The host hands it the invariant
+divisors of its spawns (``run.divisors``) and, where the cell size is a
+power of two, its inverse (``run.inv_cs``, :func:`inverse_cell_size`).
+The step is shared with the Q trainer (:mod:`.crooms_dynamics`).  ``run.twin`` is the
 plain PyTorch version of the same function.
 
 ``run(seed, py, px, vy, vx, gy, gx, *tape)`` keeps the JAX package's
@@ -27,13 +30,16 @@ zero at every call.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from .crooms_dynamics import CRoomsDynamics
+from .kernel_rng import UDiv
 from .state_rollout import Header, make_state_rollout
 
-__all__ = ["make_fused_crooms_rollout"]
+__all__ = ["make_fused_crooms_rollout", "inverse_cell_size"]
 
 
 class _CRoomsParams(Header):
@@ -43,7 +49,23 @@ class _CRoomsParams(Header):
         "W", "nbank", "n_valid", "use_vel", "rand_goal", "rand_agent")]
     _fields_ += [(n, ctypes.c_float) for n in (
         "cs", "half", "pos_hi_y", "pos_hi_x", "thr2", "r_step", "r_wall",
-        "r_goal", "std", "power", "goal_y", "goal_x", "agent_y", "agent_x")]
+        "r_goal", "std", "power", "goal_y", "goal_x", "agent_y", "agent_x",
+        "inv_cs")]
+    _fields_ += [("valid_div", UDiv), ("col_div", UDiv)]
+
+
+def inverse_cell_size(cs) -> float:
+    """``2^-k`` where the f32 cell size ``cs`` is ``2^k`` and ``2^-k`` is an
+    f32, else 0.0.  For such a size ``y * 2^-k`` and ``y / 2^k`` are the
+    correctly rounded values of the same real number, so the kernel's
+    multiply equals the twin's division for every f32 ``y``; for any other
+    size (0.0) the kernel divides."""
+    cs = np.float32(cs)
+    if not (np.isfinite(cs) and cs > 0) or math.frexp(float(cs))[0] != 0.5:
+        return 0.0
+    with np.errstate(over="ignore"):
+        inv = np.float32(1.0) / cs
+    return float(inv) if float(inv) * float(cs) == 1.0 else 0.0
 
 
 def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
@@ -93,9 +115,13 @@ def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
         r_step=r_step, r_wall=r_wall, r_goal=r_goal, std=dyn.std,
         power=dyn.power, goal_y=fg[0] if fg else 0.0,
         goal_x=fg[1] if fg else 0.0, agent_y=fa[0] if fa else 0.0,
-        agent_x=fa[1] if fa else 0.0)
-    return make_state_rollout(
+        agent_x=fa[1] if fa else 0.0, inv_cs=inverse_cell_size(dyn.cs),
+        valid_div=UDiv.of(dyn.n_valid), col_div=UDiv.of(dyn.W))
+    run = make_state_rollout(
         "fused_crooms", "fused_crooms_launch", "fused_crooms",
         (torch.float32,) * 6, n_sites, num_envs, num_steps, rows_per_tile,
         episode_stats, rng_tape, _CRoomsParams, params, step,
         tables_on=dyn.tables_on, table_names=("wall", "valid"))
+    run.divisors = {"n_valid": dyn.n_valid, "W": dyn.W}  # the spawns' UDiv
+    run.inv_cs = params["inv_cs"]
+    return run

@@ -18,8 +18,10 @@ over a state of four floats per env; it shares the step with the rollout
 (``csrc/crooms_step.cuh``, :mod:`.crooms_dynamics`) and the lookups,
 fixed-point sums and launch geometry with the other trainers
 (``csrc/tabular.cuh``; :func:`.fused_qlearning.apply_update`), so the
-kernel equals the twin bit for bit.  ``run.twin`` is the plain PyTorch
-version.
+kernel equals the twin bit for bit.  The host hands it, as the rollout's,
+the inverse of a power-of-two cell size (``run.inv_cs``) and the invariant
+divisors of its respawn (``run.divisors``).  ``run.twin`` is the plain
+PyTorch version.
 
 ``run(seed, lr, epsilon, py, px, vy, vx, q_banks, *tape) -> (py', px', vy',
 vx', q_banks', reward_sums)`` keeps the JAX package's contract: four f32
@@ -49,7 +51,8 @@ from .fused_qlearning import (
     f32,
     first_argmax,
 )
-from .kernel_rng import MASK32, KernelRNG, W
+from .fused_crooms import inverse_cell_size
+from .kernel_rng import MASK32, KernelRNG, UDiv, W
 from .rooms_dynamics import RoomsDynamics
 from .state_rollout import _ptrs, tiling
 
@@ -67,7 +70,8 @@ class _QCRoomsParams(ctypes.Structure):
     _fields_ += [(n, ctypes.c_float) for n in (
         "cs", "half", "pos_hi_y", "pos_hi_x", "thr2", "r_step", "r_wall",
         "r_goal", "std", "power", "goal_y", "goal_x", "agent_y", "agent_x",
-        "gamma", "lr", "eps")]
+        "gamma", "lr", "eps", "inv_cs")]
+    _fields_ += [("valid_div", UDiv), ("col_div", UDiv)]
 
 
 @functools.cache
@@ -223,7 +227,8 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
             thr2=dyn.thr2, r_step=r_step, r_wall=r_wall, r_goal=r_goal,
             std=dyn.std, power=dyn.power, goal_y=gy, goal_x=gx,
             agent_y=fa[0] if fa else 0.0, agent_x=fa[1] if fa else 0.0,
-            gamma=gamma, lr=lr, eps=epsilon)
+            gamma=gamma, lr=lr, eps=epsilon, inv_cs=run.inv_cs,
+            valid_div=UDiv.of(dyn.n_valid), col_div=UDiv.of(dyn.W))
         tab = dyn.tables_on(dev)
         outs = [torch.empty_like(x) for x in state]
         outs.append(torch.empty((R, W), dtype=torch.float32, device=dev))
@@ -245,6 +250,8 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
         return (*outs[:4], q_out, outs[4])
 
     run.twin = twin
+    run.inv_cs = inverse_cell_size(dyn.cs)
+    run.divisors = {"n_valid": dyn.n_valid, "W": dyn.W}  # the respawn's UDiv
     run.launches = 0
     run.grid = None  # (blocks, envs per thread) of the last launch
     run.tape_shape = tape_shape

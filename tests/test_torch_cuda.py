@@ -863,6 +863,159 @@ def test_fused_tag_kernels_equal_twins(cuda, mode, stats):
         assert (got[7] >= 2).all() and (got_h[6] >= 2).all()
 
 
+# The redesigned rollouts [9] and [8] draw and compute only what a step
+# uses, the respawn and the wall hit's resample under branches: held to
+# their twins (which draw every site every step) where no env resets, where
+# every env resets as often as it can, in warps half resetting or half
+# hitting, over short calls, at every kind of cell size and at the largest
+# batch.
+def _tag_state(env, B, seed):
+    _, st = env.reset_vec(torch.Generator(device=env.device).manual_seed(seed), B)
+    return [c.reshape(-1, 128).contiguous() for c in (
+        st.agent_xy[:, 0], st.agent_xy[:, 1], st.target_xy[:, 0],
+        st.target_xy[:, 1])]
+
+
+def _equal(run, state, tape, K=None, seed=9):
+    """The kernel's outputs == the twin's (at K = 0, where the twin refuses
+    a call that draws nothing, == the state handed in and zero sums)."""
+    got = run(seed, *state, *tape)
+    if K != 0:
+        want = run.twin(seed, *state, *tape)
+    else:
+        want = [*state] + [torch.zeros_like(state[0])] * (len(got) - len(state))
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    return got
+
+
+# (time limit, even lanes tagged at the start, steps); episode stats on
+TAG_RESET_CASES = {"no-resets": (500, False, 16), "every-step": (1, False, 16),
+                   "half-warps": (500, True, 4)}
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("case", list(TAG_RESET_CASES))
+def test_fused_tag_kernel_resets_equal_twin(cuda, mode, case):
+    limit, half, K = TAG_RESET_CASES[case]
+    B = 8192
+    env = gpt_torch.make("TagContinuous-v0", time_limit=limit)
+    run = make_fused_tag_rollout(env, B, K, episode_stats=True,
+                                 rng_tape=mode == "tape")
+    state = _tag_state(env, B, 21)
+    if half:  # the target on the agent: a tag at the first step
+        for i in (0, 1):
+            state[2 + i].view(-1)[0::2] = state[i].view(-1)[0::2]
+    tape = _tape(run, 22, cuda) if mode == "tape" else ()
+    ep_cnt = _equal(run, state, tape)[7].view(-1)
+    if case == "no-resets":
+        assert ep_cnt.sum() < B // 100
+    elif case == "every-step":
+        assert (ep_cnt == K).all()
+    else:
+        assert (ep_cnt[0::2] >= 1).all() and ep_cnt[1::2].sum() < B // 100
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 4])
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+def test_fused_tag_kernel_few_steps_equal_twin(cuda, mode, K):
+    B = 8192
+    env = gpt_torch.make("TagContinuous-v0", time_limit=2)
+    run = make_fused_tag_rollout(env, B, K, rows_per_tile=4,
+                                 episode_stats=True, rng_tape=mode == "tape")
+    state = _tag_state(env, B, 23)
+    state[2].view(-1)[0::2] = state[0].view(-1)[0::2]
+    state[3].view(-1)[0::2] = state[1].view(-1)[0::2]
+    _equal(run, state, _tape(run, 24, cuda) if mode == "tape" else (), K)
+
+
+# env kwargs and what the start does: time limit 1 (CRooms truncates at >,
+# so every env resets every second step); even lanes in the wall corner
+# (hitting at almost every step) and odd lanes free; even lanes on the goal
+# with a wide goal threshold (resetting at the first step)
+CROOMS_EDGE_CASES = {
+    "no-resets": ({"goal_xy": None}, None),
+    "every-second-step": ({"time_limit": 1, "goal_xy": None}, None),
+    "half-hitting": ({"wall_reward": -1.0}, "corner"),
+    "half-resetting": ({"goal_threshold": 3.0, "goal_xy": None}, "goal"),
+}
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("case", list(CROOMS_EDGE_CASES))
+def test_fused_crooms_kernel_edge_cases_equal_twin(cuda, mode, case):
+    kw, start = CROOMS_EDGE_CASES[case]
+    B, K = 8192, 16
+    env = gpt_torch.make("CRooms-v0", **{"time_limit": 500, **kw})
+    run = make_fused_crooms_rollout(env, B, K, episode_stats=True,
+                                    rng_tape=mode == "tape")
+    state = list(_crooms_state(env, B, 25))
+    if start == "corner":
+        state[0].view(-1)[0::2] = 0.05
+        state[1].view(-1)[0::2] = 0.05
+    elif start == "goal":
+        state[0].view(-1)[0::2] = state[4].view(-1)[0::2]
+        state[1].view(-1)[0::2] = state[5].view(-1)[0::2]
+    tape = _tape(run, 26, cuda) if mode == "tape" else ()
+    got = _equal(run, state, tape)
+    ep_cnt = got[9].view(-1)
+    if case == "no-resets":
+        assert ep_cnt.sum() < B // 10
+    elif case == "every-second-step":  # a goal reached resets early
+        assert (ep_cnt >= K // 2).all()
+    elif case == "half-hitting":  # every hit costs 1
+        racc = got[6].view(-1)
+        assert racc[0::2].mean() < 4 * racc[1::2].mean() < 0
+    else:
+        assert (ep_cnt[0::2] >= 1).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("spawns", ["random", "fixed"])
+@pytest.mark.parametrize("vel", [False, True])
+@pytest.mark.parametrize("cs", [0.5, 1.0, 2.0, 0.75])
+def test_fused_crooms_kernel_cell_sizes_equal_twin(cuda, mode, spawns, vel, cs):
+    kw = ({"goal_xy": None} if spawns == "random"
+          else {"goal_xy": (3, 3), "agent_xy": (1, 1)})
+    env = gpt_torch.make("CRooms-v0", time_limit=12, cell_size=cs,
+                         use_velocity=vel, **kw)
+    B, K = 8192, 32
+    run = make_fused_crooms_rollout(env, B, K, rows_per_tile=4,
+                                    episode_stats=True, rng_tape=mode == "tape")
+    assert (run.inv_cs != 0) == (cs != 0.75)
+    state = _crooms_state(env, B, 27)
+    _equal(run, state, _tape(run, 28, cuda) if mode == "tape" else ())
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 4])
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+def test_fused_crooms_kernel_few_steps_equal_twin(cuda, mode, K):
+    B = 8192
+    env = gpt_torch.make("CRooms-v0", time_limit=1, goal_xy=None)
+    run = make_fused_crooms_rollout(env, B, K, episode_stats=True,
+                                    rng_tape=mode == "tape")
+    state = list(_crooms_state(env, B, 29))
+    state[0].view(-1)[0::2] = 0.05
+    _equal(run, state, _tape(run, 30, cuda) if mode == "tape" else (), K)
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("which", ["tag", "crooms"])
+def test_redesigned_rollouts_largest_batch_equal_twin(cuda, mode, which):
+    B, K = 1 << 20, 8
+    if which == "tag":
+        env = gpt_torch.make("TagContinuous-v0", time_limit=4)
+        run = make_fused_tag_rollout(env, B, K, rng_tape=mode == "tape")
+        state = _tag_state(env, B, 31)
+    else:
+        env = gpt_torch.make("CRooms-v0", time_limit=4)
+        run = make_fused_crooms_rollout(env, B, K, rng_tape=mode == "tape")
+        state = _crooms_state(env, B, 31)
+    _equal(run, state, _tape(run, 32, cuda) if mode == "tape" else ())
+
+
 CROOMS_TRAINER_CASES = [
     ({}, True, 0.1),
     ({"use_velocity": True}, False, 0.002),
@@ -891,3 +1044,25 @@ def test_crooms_trainer_kernel_equals_twin(cuda, mode, kw, average, lr):
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
     assert 0 < int((got[4] != qb).sum()) < qb.numel()
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("cs", [0.5, 1.0, 2.0, 0.75])
+def test_crooms_trainer_kernel_cell_sizes_equal_twin(cuda, mode, cs):
+    """The trainer's cell lookups and resample multiply by the inverse of a
+    power-of-two cell size and divide by any other; its respawn reduces by
+    invariant divisors."""
+    env = gpt_torch.make("CRooms-v0", action_type="ordinal", time_limit=12,
+                         cell_size=cs)
+    B, K = 8192, 32
+    run = make_fused_q_trainer_crooms(env, B, K, rng_tape=mode == "tape")
+    assert (run.inv_cs != 0) == (cs != 0.75)
+    py, px, vy, vx, _, _ = _crooms_state(env, B, 33)
+    tape = _tape(run, 34, cuda) if mode == "tape" else ()
+    qb = torch.zeros((32, 128), device=cuda)
+    got = run(7, 0.1, 0.3, py, px, vy, vx, qb, *tape)
+    want = run.twin(7, 0.1, 0.3, py, px, vy, vx, qb, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
