@@ -53,16 +53,21 @@ fallback: without a CUDA device the script fails before printing a result.
 Phases: device; build of ``gym_po_tpu_torch/csrc`` (into
 ``build/gym_po_tpu_torch/``, one nvcc per source, in parallel); ``sass``:
 no runtime integer division (MUFU.RCP, I2F.U32.RP) inside the Taxi and
-RockSample rollouts' loops, no I2F.U32.RP inside the Tag and CRooms
-rollouts' (their MUFU.RCP counted); ``divisors``: the kernels' invariant-divisor
-helper against the hardware's ``/`` and ``%`` over all 2^32 u; Philox
-known answers; the Box-Muller normal's logf/cosf against torch's over every
-uniform a draw can give (counts reported); every kernel against its plain twin on the card, exact, in
-tape mode and in Philox mode, and the trainers with per-block update sums
-(Q(lambda), actor-critic, and the one-step Q and double-Q trainers on both
-sides of their slab's choice) from one start cell and over K = 0, 1, 2, 4;
-the Tag and CRooms rollouts also where every env resets as often as it
-can and at cell sizes 0.5 and 0.75; distribution check against the step_vec
+RockSample rollouts' loops, no I2F.U32.RP inside the Tag, CRooms and
+MSRooms rollouts' or the CRooms Q trainer's (their MUFU.RCP counted), the
+ROOMS rollout's and the other trainers' counts reported; ``divisors``: the
+kernels' invariant-divisor helper against the hardware's ``/`` and ``%``
+over all 2^32 u; Philox known answers; the Box-Muller normal's logf/cosf
+against torch's over every uniform a draw can give (counts reported);
+every kernel against its plain twin on the card, exact, in tape mode and
+in Philox mode, and the trainers with per-block update sums (Q(lambda),
+actor-critic, the one-step Q and double-Q trainers and the CRooms Q
+trainer on both sides of their slab's choice) from one start and over
+K = 0, 1, 2, 4 (the CRooms Q trainer also from a table holding -0 entries
+and at time limit 1); the Tag, CRooms and MSRooms rollouts also where
+every env resets as often as it can, the CRooms ones at cell sizes 0.5
+and 0.75, the MSRooms one with each of its four spawn combinations;
+distribution check against the step_vec
 rollout path (Taxi and ROOMS); kernel vs twin at the headline's shape;
 path 1 with the headline timing; path 2 with the trainers' timing and
 learning checks; path 3 with the ROOMS timings and learning checks; path 4
@@ -1197,12 +1202,16 @@ def good_share(env, mask: torch.Tensor) -> float:
     return bits.double().mean().item()
 
 
-# env kwargs, rows_per_tile (B = 65,536: 4 or 512 tiles), stats
+# env kwargs (time limit 40 unless given), rows_per_tile (B = 65,536: 4 or
+# 512 tiles), stats: the four spawn combinations (goal fixed or drawn, agent
+# drawn or fixed), and every env resetting every second step
 MSROOMS_ROLLOUT_CASES = [
     (dict(grid_z=1), 128, False),
     (dict(grid_z=3), 1, True),
     (dict(grid_z=3, goal_xyz=None), 128, True),
     (dict(grid_z=3, action_type="ordinal", agent_xyz=(1, 1, 0)), 128, False),
+    (dict(grid_z=3, goal_xyz=None, agent_xyz=(1, 1, 0)), 128, True),
+    (dict(grid_z=3, goal_xyz=None, time_limit=1), 128, True),
 ]
 ROCKSAMPLE_CASES = [((5, 5), 5, 1, True), ((7, 7), 8, 128, False),
                     ((11, 11), 11, 128, True)]
@@ -1220,8 +1229,8 @@ def path4_rollout_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
     gen = torch.Generator(device=dev).manual_seed(51)
     for mode in ("tape", "philox"):
         for kw, rpt, stats in MSROOMS_ROLLOUT_CASES:
-            env = gp.make("MultistoryFourRooms-v0", time_limit=40, device=dev,
-                          **kw)
+            env = gp.make("MultistoryFourRooms-v0", device=dev,
+                          **{"time_limit": 40, **kw})
             run = make_fused_msrooms_rollout(env, B, K, rows_per_tile=rpt,
                                              episode_stats=stats,
                                              rng_tape=mode == "tape")
@@ -1238,6 +1247,9 @@ def path4_rollout_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
             check_msrooms_cells(env, got[0])
             if stats and got[5].sum().item() == 0:
                 raise AssertionError(f"{name}: no episode completed")
+            if kw.get("time_limit") == 1 and not (got[5] >= K // 2).all():
+                raise AssertionError(f"{name}: an env did not reset every "
+                                     "second step")
             say("msrooms-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
                 f"floor shares {[round(x, 4) for x in floor_share(env, got[0]).tolist()]}")
         for map_size, k, rpt, stats in ROCKSAMPLE_CASES:
@@ -1665,12 +1677,14 @@ def divisors_check(dev) -> None:
     """``gpt::udiv`` and ``gpt::umod`` (``csrc/kernel_rng.cuh``, the
     constants of ``UDiv.of``) against the hardware's ``u / n`` and ``u % n``
     over all 2^32 u, on the card, for n = 1 ... 64 and each divisor that
-    paths 1 and 4 hand the Taxi and RockSample rollouts
-    (``udiv_check_launch`` in ``csrc/fused_taxi.cu``).  Any mismatch fails."""
+    paths 1 and 4 hand the Taxi, RockSample and MultistoryFourRooms
+    rollouts (``udiv_check_launch`` in ``csrc/fused_taxi.cu``).  Any
+    mismatch fails."""
     import ctypes
 
     import gym_po_tpu_torch as gp
     from gym_po_tpu_torch.ops import (
+        make_fused_msrooms_rollout,
         make_fused_rocksample_rollout,
         make_fused_taxi_rollout,
     )
@@ -1684,6 +1698,9 @@ def divisors_check(dev) -> None:
                       device=dev)
         for name, n in make_fused_rocksample_rollout(env, B_HEAD, K_HEAD).divisors.items():
             used[f"RockSample{(rows, cols, k)} {name}"] = n
+    menv = gp.make("MultistoryFourRooms-v0", grid_z=MSROOMS_Z, device=dev)
+    for name, n in make_fused_msrooms_rollout(menv, B_HEAD, K_HEAD).divisors.items():
+        used[f"MSRooms grid_z={MSROOMS_Z} {name}"] = n
     ns = sorted(set(range(1, 65)) | set(used.values()))
     host = (UDiv * len(ns))(*map(UDiv.of, ns))
     divs = torch.frombuffer(bytearray(host), dtype=torch.uint8).to(dev)
@@ -1706,14 +1723,16 @@ def divisors_check(dev) -> None:
 
 
 def sass_check() -> None:
-    """The Taxi, RockSample, Tag and CRooms rollouts as built: each kernel's
-    registers and spills (ptxas), and its MUFU.RCP and I2F.U32.RP, the
-    runtime integer division's float reciprocal and conversion, in all and
-    inside loops (``cuobjdump -sass``).  An I2F.U32.RP inside a loop fails,
-    as does a kernel in which no loop is found; so does a MUFU.RCP inside
-    the Taxi or RockSample loop (Tag's flee rule and CRooms' division by a
-    cell size that is not a power of two divide floats legitimately: their
-    count is reported)."""
+    """The kernels as built: each one's registers and spills (ptxas), and
+    its MUFU.RCP and I2F.U32.RP, the runtime integer division's float
+    reciprocal and conversion, in all and inside loops (``cuobjdump
+    -sass``).  A kernel in which no loop is found fails.  Inside a loop, an
+    I2F.U32.RP fails the Taxi, RockSample, Tag, CRooms and MSRooms rollouts
+    and the CRooms Q trainer, and a MUFU.RCP the Taxi and RockSample
+    rollouts (Tag's flee rule, CRooms' division by a cell size that is not a
+    power of two and the trainers' averaging divide floats legitimately:
+    their count is reported).  The ROOMS rollout and the other trainers'
+    counts are reported only: the runtime divisions left to take out."""
     from gym_po_tpu_torch.ops._build import _library_path, build_log
     from gym_po_tpu_torch.ops.probe_fused_taxi import (
         DIVISION_OPS,
@@ -1721,10 +1740,12 @@ def sass_check() -> None:
         ptxas_report,
     )
 
-    for name in ("fused_taxi", "fused_rocksample", "fused_tag", "fused_crooms"):
+    checked = ("fused_tag", "fused_crooms", "fused_msrooms", "fused_q_crooms")
+    for name in ("fused_taxi", "fused_rocksample", *checked, "fused_rooms",
+                 "fused_qlearning", "fused_ac"):
         regs = ptxas_report(build_log(name))
-        fatal = DIVISION_OPS if name in ("fused_taxi", "fused_rocksample") else (
-            "I2F.U32.RP",)
+        fatal = (DIVISION_OPS if name in ("fused_taxi", "fused_rocksample")
+                 else ("I2F.U32.RP",) if name in checked else ())
         for fn, c in division_counts(_library_path(name)).items():
             if "_kernel" not in fn or "udiv_check" in fn or "rnormal_parts" in fn:
                 continue
@@ -1899,6 +1920,78 @@ def path5_trainer_philox(dev, errs, plain_ms) -> None:
         f"CRooms-v0 ordinal B={B_TRAIN} K={K_TRAIN} lr={LR_TRAIN} "
         f"eps={EPS_TRAIN} averaged, from Q = 0, grid {run.grid} (blocks, "
         f"envs/thread); twin {plain_ms['fused_q_crooms']:.3f} ms/call")
+
+
+def crooms_trainer_redesign_checks(dev, errs) -> None:
+    """The CRooms Q trainer [14] on the one-barrier step protocol with lazy
+    draws == its twin where that design could go wrong: at B = 65,536 (the
+    slab on chip) every env from one position next to the goal (every term
+    of a step on the same few entries), Philox, K = 16; K = 0, 1, 2, 4 on a
+    tape from a random table a third of whose entries are -0 (the rotating
+    accumulators before and after their first reuse; the load's + 0); time
+    limit 1 on a tape (every env resets every second step: the respawn's
+    block and spawn); at B = 2^20, K = 4, Philox, both sides of the slab's
+    choice (CRooms-v0 keeps it on chip, layout '16''s 422 observations send
+    the terms straight to the global accumulator)."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import make_fused_q_trainer_crooms
+
+    gen = torch.Generator(device=dev).manual_seed(73)
+
+    def case(B, K, tape=False, **kw):
+        env = gp.make("CRooms-v0", device=dev, **{
+            "action_type": "ordinal", "time_limit": 30, **kw})
+        run = make_fused_q_trainer_crooms(env, B, K, average_duplicates=True,
+                                          rng_tape=tape)
+        _, st = env.reset_vec(gen, B)
+        s4 = list(crooms_tiles(st)[:4])
+        taped = (torch.randint(-2**31, 2**31, run.tape_shape, generator=gen,
+                               dtype=torch.int32, device=dev),) if tape else ()
+        return env, run, s4, taped
+
+    def held(name, run, s4, q, taped, K):
+        got = run(5, 0.1, 0.3, *s4, q, *taped)
+        want = (run.twin(5, 0.1, 0.3, *s4, q, *taped) if K
+                else (*s4, q, torch.zeros_like(s4[0])))
+        torch.cuda.synchronize()
+        compare(f"fused_q_crooms {name}", got, want, errs)
+        return got
+
+    env, run, s4, _ = case(B_ROOMS_CHECK, 16)
+    gy, gx = (float(v) for v in env.fixed_goal_coord)
+    start = next((gy + dy, gx + dx) for dy, dx in ((-1, 0), (0, -1), (1, 0), (0, 1))
+                 if env.grid_np[int(gy + dy), int(gx + dx)] != -1)
+    s4[0], s4[1] = torch.full_like(s4[0], start[0]), torch.full_like(s4[1], start[1])
+    q0 = torch.zeros((32, 128), device=dev)
+    got = held("one start", run, s4, q0, (), 16)
+    if run.grid[1:] != (1, 1) or not (got[4] != q0).any():
+        raise AssertionError(f"fused_q_crooms one start: grid {run.grid}, "
+                             "or no Q entry moved")
+    grid_one = run.grid
+    q = 0.1 * torch.randn((32, 128), generator=gen, device=dev)
+    q[torch.rand(q.shape, generator=gen, device=dev) < 0.33] = -0.0
+    for K in REDESIGN_KS:
+        _, run, s4, taped = case(B_ROOMS_CHECK, K, tape=True)
+        got = held(f"tape K={K} with -0 entries", run, s4, q, taped, K)
+        if K and torch.signbit(got[4][got[4] == 0]).any():
+            raise AssertionError("fused_q_crooms: a -0 entry came out")
+    _, run, s4, taped = case(B_ROOMS_CHECK, 16, tape=True, time_limit=1)
+    held("time_limit=1 tape", run, s4, q, taped, 16)
+    sides = []
+    for side, kw in ((1, {}), (0, {"layout": "16"})):
+        _, run, s4, _ = case(B_HEAD, 4, **kw)
+        held(f"{kw} B={B_HEAD} K=4", run, s4,
+             0.1 * torch.randn((32, 128), generator=gen, device=dev), (), 4)
+        if run.grid[2] != side:
+            raise AssertionError(f"fused_q_crooms {kw} B={B_HEAD}: grid "
+                                 f"{run.grid}, expected side {side}")
+        sides.append(f"{kw or 'CRooms-v0'} grid {run.grid}")
+    say("crooms-trainer-redesign", f"kernel == twin exactly: fused_q_crooms "
+        f"B={B_ROOMS_CHECK}: every env from {start}, K=16, Philox, grid "
+        f"{grid_one} (blocks, envs/thread, slab on chip); tape K = "
+        f"{', '.join(map(str, REDESIGN_KS))} from a random table with -0 "
+        f"entries (all come out +0); time_limit=1; B={B_HEAD} K=4 Philox: "
+        f"{'; '.join(sides)}")
 
 
 def path5_headline_checks(dev, errs, plain_ms):
@@ -2177,6 +2270,7 @@ def main() -> int:
     path5_checks(dev, p5_errs)
     path5_distribution_checks(dev)
     path5_trainer_philox(dev, p5_errs["fused_q_crooms"], plain_ms)
+    crooms_trainer_redesign_checks(dev, p5_errs["fused_q_crooms"])
 
     # plain versions first: the twin of the headline kernel, and the
     # step_vec rollout path
@@ -2369,7 +2463,8 @@ def main() -> int:
     # action's two normals, and 3 issue slots per update term, one term per
     # env-step (every env is live every step).  A wall hit's block 2 and two
     # normals and a respawn's block 3 are left out: this run does not count
-    # the trainer's hits, and a bound need only be low.
+    # the trainer's hits, and a bound need only be low (probe_fused_taxi
+    # ``shares`` counts them and prints the bound at its shares).
     b_rooms["fused_heavenhell"] = bound(28 * B_HEAD, philox_ops(
         heads5["fused_heavenhell"][0].n_sites, B_HEAD * K_HEAD))
     nt, nc = needs["fused_tag"], needs["fused_crooms"]

@@ -21,10 +21,10 @@ Two learners over the same table:
 inside the kernel of :mod:`gym_po_tpu_torch.ops.fused_ac` the same way.
 
 All run on the env's device.  Not ported yet: the ``mesh`` of both fused
-trainers (ROADMAP Queue 1 item 11), and
+trainers (ROADMAP Queue 1, "Multi-GPU"), and
 ``make_xla_q_chunk_trainer`` with ``chunk_trainer="xla"``, the JAX
-package's stand-in for its kernel on its multi-device CPU test mesh (item
-11).
+package's stand-in for its kernel on its multi-device CPU test mesh (the
+same item).
 """
 
 from __future__ import annotations
@@ -185,7 +185,7 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
 
     if mesh is not None:
         raise ValueError("multi-device fused training is not ported yet "
-                         "(ROADMAP Queue 1 item 11)")
+                         "(ROADMAP Queue 1, Multi-GPU)")
     if not isinstance(env, (Taxi, Rooms, MultistoryFourRooms, CRooms)):
         raise ValueError(
             f"no fused Q trainer for {type(env).__name__}: Taxi, Rooms, "
@@ -266,7 +266,7 @@ def fused_actor_critic(env, seed: int, schedule, num_envs: int = 8192,
 
     if mesh is not None:
         raise ValueError("multi-device fused training is not ported yet "
-                         "(ROADMAP Queue 1 item 11)")
+                         "(ROADMAP Queue 1, Multi-GPU)")
     if not isinstance(env, Rooms):
         raise ValueError(f"no fused AC trainer for {type(env).__name__}: "
                          "Rooms only")

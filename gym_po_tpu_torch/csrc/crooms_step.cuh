@@ -18,9 +18,9 @@
 // __fsub_rn (never contracted) and each division by the cell size
 // __fdiv_rn, or a multiply that rounds the same (over_cs).
 //
-// crooms_move is the trainer's whole step.  The rollout calls its parts
-// (crooms_try, crooms_cell, crooms_resample, crooms_finish), so that it
-// computes a resample only where an env hits a wall.
+// The step comes in parts (crooms_try, crooms_cell, crooms_resample,
+// crooms_finish), so that the rollout and the trainer compute a resample
+// only where an env hits a wall.
 //
 // The step draws nothing itself: each kernel takes the draws of its
 // effective action, the two resample normals and its respawns at its own
@@ -156,25 +156,6 @@ __device__ __forceinline__ CRoomsMove crooms_finish(const CRoomsMap& M, bool oob
   out.reset = out.done || elapsed > M.time_limit;  // strict >
   if (out.reset) elapsed = 0;
   return out;
-}
-
-// Moves an env by the effective action (ay, ax); (nry, nrx) are the standard
-// normals of a wall resample, (gy, gx) the goal; wall is the padded wall
-// bank (1 on a wall); elapsed is carried and zeroed at a reset.  The Q
-// trainer's step: every part computed, a select keeps the hit's.
-template <bool kVel>
-__device__ __forceinline__ CRoomsMove crooms_move(const CRoomsMap& M,
-                                                  const uint8_t* wall, float py,
-                                                  float px, float vy, float vx,
-                                                  float ay, float ax, float nry,
-                                                  float nrx, float gy, float gx,
-                                                  int& elapsed) {
-  const CRoomsTry tr = crooms_try<kVel>(M, py, px, vy, vx, ay, ax);
-  const bool oob = bank_at(wall, M.nbank, crooms_cell(M, tr.ny, tr.nx)) == 1;
-  float ry, rx;
-  crooms_resample(M, py, px, nry, nrx, ry, rx);
-  return crooms_finish(M, oob, oob ? ry : tr.ny, oob ? rx : tr.nx,
-                       oob ? 0.0f : tr.vy, oob ? 0.0f : tr.vx, gy, gx, elapsed);
 }
 
 // a uniform walkable cell's center from one draw, with the reference's

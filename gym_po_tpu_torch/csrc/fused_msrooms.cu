@@ -16,15 +16,23 @@
 // writes 8 B (+4 B per f32 output) once per call, whatever K is; the tape,
 // in tape mode, is a test device.  The work is integer: one Philox4x32-10
 // block per step (3-5 draw sites), the u % n of each draw, two or three
-// shared-memory lookups and one division by the floor size.  The respawn
-// choices (random or fixed goal and agent) are template parameters, so
-// every draw site is a compile-time constant.  The step itself is
-// msrooms_step.cuh, shared with the Q trainer.
+// shared-memory lookups and the floor of the new cell.  None of it divides
+// at run time: every reduction (n_act, n_act - 1, the two banks' sizes)
+// and the floor (the cells per floor) go through an invariant divisor
+// (gpt::UDiv, one multiply-add and a shift) whose constants the host hands
+// in.  The respawns (their draws and bank lookups) run only where the
+// episode ends, drawn through gpt::LazyRNG: block 1 (the agent's site when
+// both spawns are random) is computed only there.  The respawn choices
+// (random or fixed goal and agent) are template parameters, so every draw
+// site is a compile-time constant.  The step itself is msrooms_step.cuh,
+// shared with the Q trainer.
 //
-// Draw sites, in body order, every step whatever the masks say: commanded
-// action rbits(A), failure coin runiform() < p, alternative action
-// rbits(A - 1), goal respawn from the top-floor bank (random goal only),
-// agent respawn from the ground-floor bank (random agent only).
+// Draw sites, in body order: commanded action rbits(A), failure coin
+// runiform() < p, alternative action rbits(A - 1) (every step), goal
+// respawn from the top-floor bank (random goal only), agent respawn from
+// the ground-floor bank (random agent only) (where the episode ends).  The
+// twin draws every site every step; the draws skipped here are ones it
+// discards.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +48,11 @@ struct MSRoomsParams {
   int32_t fixed_goal, fixed_agent;  // flat cells, -1 when drawn
   uint32_t key0, key1;
   float p_fail, r_step, r_wall, r_goal;
+  // the reductions' invariant divisors: n_act, n_act - 1, n_goal, n_agent,
+  // and the step's floor_cells (after the fields above, which keep the
+  // layout of the struct without them: a probe can launch an older build
+  // on these params)
+  gpt::UDiv act_div, alt_div, goal_div, agent_div, floor_div;
 };
 
 namespace {
@@ -84,29 +97,35 @@ __global__ void fused_msrooms_kernel(MSRoomsParams P,
     if (P.episode_stats) ep_ret_out[e] = ep_len_out[e] = ep_cnt_out[e] = nan;
     return;
   }
-  gpt::KernelRNG<2> rng(tape, P.key0, P.key1, e, P.num_steps,
-                        P.rows_per_tile, P.n_sites);
-  const gpt::MSRoomsMap M = {P.ncells, P.floor_cells, P.up_to, P.down_to,
+  gpt::LazyRNG rng(tape, P.key0, P.key1, e, P.num_steps, P.rows_per_tile,
+                   P.n_sites);
+  const gpt::MSRoomsMap M = {P.ncells, P.floor_div, P.up_to, P.down_to,
                              P.time_limit, P.r_step, P.r_wall, P.r_goal};
   constexpr int kAgentSite = kRandGoal ? 4 : 3;
   int elapsed = 0;
   float racc = 0.f, cur_ret = 0.f, ep_ret = 0.f, ep_len = 0.f, ep_cnt = 0.f;
   for (int t = 0; t < P.num_steps; ++t) {
     rng.begin_step(t);
-    const int a_cmd = gpt::rbits(rng.draw(0), P.n_act);
-    const bool fail = gpt::runiform(rng.draw(1)) < P.p_fail;
-    const int alt = gpt::rbits(rng.draw(2), P.n_act - 1);
+    const gpt::U32x4 b0 = rng.block(0);
+    const int a_cmd = gpt::rbits(rng.draw(0, b0), P.act_div);
+    const bool fail = gpt::runiform(rng.draw(1, b0)) < P.p_fail;
+    const int alt = gpt::rbits(rng.draw(2, b0), P.alt_div);
     const gpt::RoomsMove mv =
         gpt::msrooms_move(M, s_cell, s_disp, agent, goal,
                           gpt::rooms_executed(fail, alt, a_cmd), elapsed);
-    // goal first, then agent: the JAX kernel's body order
-    const int g_new =
-        kRandGoal ? s_gbank[gpt::rbits(rng.draw(3), P.n_goal)] : P.fixed_goal;
-    const int a_new =
-        kRandAgent ? s_abank[gpt::rbits(rng.draw(kAgentSite), P.n_agent)]
-                   : P.fixed_agent;
-    goal = mv.reset ? g_new : goal;
-    agent = mv.reset ? a_new : mv.agent;
+    agent = mv.agent;
+    if (mv.reset) {
+      // goal first (site 3, block 0), then agent (site 3 or 4): the JAX
+      // kernel's body order
+      goal = kRandGoal ? s_gbank[gpt::rbits(rng.draw(3, b0), P.goal_div)]
+                       : P.fixed_goal;
+      if (kRandAgent) {
+        const gpt::U32x4 b1 = kAgentSite > 3 ? rng.block(1) : b0;
+        agent = s_abank[gpt::rbits(rng.draw(kAgentSite, b1), P.agent_div)];
+      } else {
+        agent = P.fixed_agent;
+      }
+    }
     if (P.episode_stats) {
       cur_ret = cur_ret + mv.rew;
       if (mv.reset) {
@@ -138,8 +157,12 @@ extern "C" int fused_msrooms_launch(const MSRoomsParams* P, const void* agent_in
                                     void* ep_ret, void* ep_len, void* ep_cnt,
                                     void* stream) {
   const bool rand_goal = P->fixed_goal < 0, rand_agent = P->fixed_agent < 0;
-  if (P->n_sites != 3 + rand_goal + rand_agent || P->n_sites > 8)
-    return (int)cudaErrorInvalidValue;  // KernelRNG<2>
+  // sites 0-4 in two blocks; the divisors the ones the params name
+  if (P->n_sites != 3 + rand_goal + rand_agent || P->act_div.n != (uint32_t)P->n_act ||
+      P->alt_div.n != (uint32_t)P->n_act - 1 || P->goal_div.n != (uint32_t)P->n_goal ||
+      P->agent_div.n != (uint32_t)P->n_agent ||
+      P->floor_div.n != (uint32_t)P->floor_cells)
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const int blocks = (P->num_envs + threads - 1) / threads;
   const size_t smem = sizeof(int32_t) * (P->n_agent + P->n_goal + P->n_act) +

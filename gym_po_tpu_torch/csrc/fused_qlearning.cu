@@ -121,6 +121,9 @@ struct QParams {
   // up and going down land on
   int32_t floor_cells, up_to, down_to;
   int32_t n_obs;  // values of the Q index (obs, or state for double Q)
+  // MultistoryFourRooms: floor_cells as the step's invariant divisor (last,
+  // so that the fields above keep the layout of the struct without it)
+  gpt::UDiv floor_div;
 };
 
 namespace {
@@ -259,7 +262,7 @@ struct MSRoomsQ {
   int n_bank, goal, pfail24;
 
   __device__ MSRoomsQ(const QParams& P, int32_t* smem, const void* const* tab)
-      : M{P.rows * P.cols, P.floor_cells, P.up_to, P.down_to, P.time_limit,
+      : M{P.rows * P.cols, P.floor_div, P.up_to, P.down_to, P.time_limit,
           P.r_any, P.r_bad, P.r_goal},
         n_bank(P.n_valid), goal(P.goal), pfail24(P.pfail24) {
     const int nc = M.ncells;
@@ -549,7 +552,8 @@ extern "C" int fused_q_rooms_launch(Q_LAUNCH_ARGS) {
 }
 
 extern "C" int fused_q_msrooms_launch(Q_LAUNCH_ARGS) {
-  if (P->trace_len != 1) return (int)cudaErrorInvalidValue;
+  if (P->trace_len != 1 || P->floor_div.n != (uint32_t)P->floor_cells)
+    return (int)cudaErrorInvalidValue;
   if (P->n_act == 4) return launch<2, false, false, MSRoomsQ<4>>(Q_LAUNCH_PASS);
   if (P->n_act == 8) return launch<2, false, false, MSRoomsQ<8>>(Q_LAUNCH_PASS);
   return (int)cudaErrorInvalidValue;

@@ -145,6 +145,16 @@ struct LazyRNG {
         env((uint32_t)e), key0(seed_lo), key1(seed_hi), step(0) {
     tape_base = tape_base_of(e, num_steps_, rows_per_tile_, n_sites);
   }
+  // with the tape offset given: a launch whose batch is one tile
+  // (rows_per_tile * 128 = B) has env e at offset e, and a kernel that makes
+  // its RNG inside a loop then divides nothing there
+  __device__ __forceinline__ LazyRNG(const int32_t* tape_, long long tape_base_,
+                                     uint32_t seed_lo, uint32_t seed_hi,
+                                     long long e, int num_steps_,
+                                     int rows_per_tile_)
+      : tape(tape_), tape_base(tape_base_), num_steps(num_steps_),
+        rows_per_tile(rows_per_tile_), env((uint32_t)e), key0(seed_lo),
+        key1(seed_hi), step(0) {}
 
   __device__ __forceinline__ void begin_step(int t) { step = t; }
 

@@ -9,8 +9,10 @@
 // wall), the wall test on the cell codes {0 wall, 1 room, 2 stair down,
 // 3 stair up}, the stair transit when the agent moved (up lands at
 // (z+1)*HW + SW, down at (z-1)*HW + NE), the goal test after the transit,
-// the reward, and elapsed > time_limit truncation.  Its plain PyTorch twin
-// is gym_po_tpu_torch/ops/msrooms_dynamics.py::MSRoomsDynamics.  The ROOMS
+// the reward, and elapsed > time_limit truncation.  The floor of a cell is
+// its index over the cells per floor, an invariant divisor (gpt::UDiv), so
+// the step divides no integer at run time.  Its plain PyTorch twin is
+// gym_po_tpu_torch/ops/msrooms_dynamics.py::MSRoomsDynamics.  The ROOMS
 // step (rooms_step.cuh) tests the goal before any transit, so it is not
 // this one; the executed action and the result type are shared with it.
 //
@@ -22,12 +24,15 @@
 
 #include <stdint.h>
 
+#include "kernel_rng.cuh"
 #include "rooms_step.cuh"
 
 namespace gpt {
 
 struct MSRoomsMap {
-  int ncells, floor_cells, up_to, down_to, time_limit;
+  int ncells;
+  UDiv floor_cells;  // cells per floor (H * W)
+  int up_to, down_to, time_limit;
   float r_step, r_wall, r_goal;
 };
 
@@ -44,9 +49,10 @@ __device__ __forceinline__ RoomsMove msrooms_move(const MSRoomsMap& M,
   int a = oob ? agent : proposed;
   if (!oob) {
     const int code = cell[a];
-    const int z = a / M.floor_cells;
-    if (code == 3) a = (z + 1) * M.floor_cells + M.up_to;
-    else if (code == 2) a = (z - 1) * M.floor_cells + M.down_to;
+    const int z = (int)udiv((uint32_t)a, M.floor_cells);  // a >= 0
+    const int hw = (int)M.floor_cells.n;
+    if (code == 3) a = (z + 1) * hw + M.up_to;
+    else if (code == 2) a = (z - 1) * hw + M.down_to;
   }
   RoomsMove out;
   out.agent = a;

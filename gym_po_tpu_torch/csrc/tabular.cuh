@@ -23,9 +23,8 @@
 //    applies the finished sums to its own copy of the table.  Where the
 //    slab does not fit beside a launch that takes the batch, the terms go
 //    straight into the step's global accumulator (accumulate), with the
-//    same rotation, barrier and apply.  accumulate alone, with a barrier to
-//    apply the sums and a second one to reload the table, is the older
-//    protocol that fused_q_crooms.cu still runs.
+//    same rotation, barrier and apply.  Every one-step trainer, Q(lambda),
+//    the actor-critic and the CRooms Q trainer run this protocol.
 //  * The geometry of a persistent cooperative launch: as many blocks as are
 //    co-resident (occupancy API), each thread owning up to
 //    kMaxEnvsPerThread envs for all K steps; coop_geometry_room also makes

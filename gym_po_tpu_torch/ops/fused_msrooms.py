@@ -10,7 +10,12 @@ respawns from the ground-floor bank, and optional per-env episode
 statistics.  The kernel (``csrc/fused_msrooms.cu``) runs one thread per env
 over the flat ``[B]`` layout and keeps a whole rollout in registers, with
 the step's tables in shared memory; its source note says what bounds it on
-the card.  ``run.twin`` is the plain PyTorch version of the same function.
+the card.  It reduces every draw, and finds the floor of a cell, by
+invariant divisors whose constants the host hands in (``run.divisors``:
+the actions, the actions less one, the two spawn banks' sizes, the cells
+per floor), and draws a respawn only where an episode ends; the twin draws
+every site every step.  ``run.twin`` is the plain PyTorch version of the
+same function.
 
 ``run(seed, agent, goal, *tape)`` keeps the JAX package's contract:
 ``agent`` and ``goal`` are flat cells (``z * H * W + y * W + x``) laid out
@@ -28,6 +33,7 @@ from __future__ import annotations
 import ctypes
 
 from .fused_rooms import rooms_family_rollout
+from .kernel_rng import UDiv
 from .msrooms_dynamics import MSRoomsDynamics
 
 __all__ = ["make_fused_msrooms_rollout"]
@@ -43,6 +49,8 @@ class _MSRoomsParams(ctypes.Structure):
     _fields_ += [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)]
     _fields_ += [(n, ctypes.c_float) for n in (
         "p_fail", "r_step", "r_wall", "r_goal")]
+    _fields_ += [(n, UDiv) for n in (
+        "act_div", "alt_div", "goal_div", "agent_div", "floor_div")]
 
 
 def make_fused_msrooms_rollout(env, num_envs: int, num_steps: int,
@@ -58,9 +66,16 @@ def make_fused_msrooms_rollout(env, num_envs: int, num_steps: int,
     of shape ``run.tape_shape`` in place of Philox.
     """
     dyn = MSRoomsDynamics(env)
-    return rooms_family_rollout(
+    divisors = {"n_act": dyn.n_act, "n_act - 1": dyn.n_act - 1,
+                "n_goal": dyn.n_goal, "n_agent": dyn.n_agent,
+                "floor_cells": dyn.HW}
+    run = rooms_family_rollout(
         dyn, "fused_msrooms", _MSRoomsParams,
         dict(floor_cells=dyn.HW, up_to=dyn.up_to, down_to=dyn.down_to,
-             n_agent=dyn.n_agent, n_goal=dyn.n_goal),
+             n_agent=dyn.n_agent, n_goal=dyn.n_goal,
+             **dict(zip(("act_div", "alt_div", "goal_div", "agent_div",
+                         "floor_div"), map(UDiv.of, divisors.values())))),
         ("cell", "agent_bank", "goal_bank", "disp"), num_envs, num_steps,
         rows_per_tile, episode_stats, rng_tape)
+    run.divisors = divisors
+    return run

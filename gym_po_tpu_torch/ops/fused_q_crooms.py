@@ -13,15 +13,20 @@ the agent's cell: the port's own continuous observation function at the
 cell centers (any discrete obs model), walls read 0.
 
 The kernel (``csrc/fused_q_crooms.cu``) is one persistent cooperative
-launch per call, like the other trainers (``csrc/fused_qlearning.cu``),
+launch per call, on the other one-step trainers' step protocol
+(``csrc/fused_qlearning.cu``: per-block update sums, one grid barrier per
+step; ``run.grid[2]`` says whether the sums' slab was in shared memory),
 over a state of four floats per env; it shares the step with the rollout
 (``csrc/crooms_step.cuh``, :mod:`.crooms_dynamics`) and the lookups,
 fixed-point sums and launch geometry with the other trainers
 (``csrc/tabular.cuh``; :func:`.fused_qlearning.apply_update`), so the
-kernel equals the twin bit for bit.  The host hands it, as the rollout's,
-the inverse of a power-of-two cell size (``run.inv_cs``) and the invariant
-divisors of its respawn (``run.divisors``).  ``run.twin`` is the plain
-PyTorch version.
+kernel equals the twin bit for bit.  It draws a wall hit's resample and a
+respawn only where they are taken; the twin draws every site every step.
+The host hands it, as the rollout's, the inverse of a power-of-two cell
+size (``run.inv_cs``) and the invariant divisors of its respawn
+(``run.divisors``), and the update sums' row stride as one more
+(:func:`table_index`).
+``run.twin`` is the plain PyTorch version.
 
 ``run(seed, lr, epsilon, py, px, vy, vx, q_banks, *tape) -> (py', px', vy',
 vx', q_banks', reward_sums)`` keeps the JAX package's contract: four f32
@@ -52,11 +57,11 @@ from .fused_qlearning import (
     first_argmax,
 )
 from .fused_crooms import inverse_cell_size
-from .kernel_rng import MASK32, KernelRNG, UDiv, W
+from .kernel_rng import MASK32, KernelRNG, UDiv, W, udivmod
 from .rooms_dynamics import RoomsDynamics
 from .state_rollout import _ptrs, tiling
 
-__all__ = ["make_fused_q_trainer_crooms"]
+__all__ = ["make_fused_q_trainer_crooms", "table_index"]
 
 
 class _QCRoomsParams(ctypes.Structure):
@@ -71,7 +76,25 @@ class _QCRoomsParams(ctypes.Structure):
         "cs", "half", "pos_hi_y", "pos_hi_x", "thr2", "r_step", "r_wall",
         "r_goal", "std", "power", "goal_y", "goal_x", "agent_y", "agent_x",
         "gamma", "lr", "eps", "inv_cs")]
-    _fields_ += [("valid_div", UDiv), ("col_div", UDiv)]
+    _fields_ += [("valid_div", UDiv), ("col_div", UDiv), ("n_obs", ctypes.c_int32),
+                 ("stride_div", UDiv)]
+
+
+def slab_stride(n_obs: int) -> int:
+    """``n_obs`` rounded up to 4: the update sums' words per action
+    (``slab_stride`` in ``csrc/tabular.cuh``)."""
+    return (n_obs + 3) & ~3
+
+
+def table_index(c: torch.Tensor, n_obs: int, nsp: int) -> torch.Tensor:
+    """The flat-table index ``a * nsp + obs`` of the update sums' compact
+    index ``c = a * slab_stride(n_obs) + obs``, as the kernel's apply maps
+    it: ``a`` by the invariant divisor ``UDiv.of(slab_stride(n_obs))``, no
+    runtime division."""
+    no = slab_stride(n_obs)
+    d = UDiv.of(no)
+    a, _ = udivmod(c, d.mul, d.sh, d.add, d.n)
+    return c + a * (nsp - no)
 
 
 @functools.cache
@@ -122,6 +145,7 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
     B, K = num_envs, num_steps
     nsb, nb = bank_geometry(n_obs, A)
     nsp, nq = nsb * W, nb * W
+    n_sums = A * slab_stride(n_obs)  # words of one step's update sums
     gy, gx = dyn.fixed_goal
     fa = dyn.fixed_agent
     p_fail = 1.0 - float(env._cum[0][0])
@@ -129,7 +153,8 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
     # draw sites per step, in body order: explore r24, random action,
     # failure r24, alternative action, the ay and ax normals (two each), the
     # wall-resample normals ry and rx (two each), agent respawn (fixed spawn:
-    # no draw)
+    # no draw).  The kernel draws sites 8-11 only where an env hits a wall
+    # and site 12 only where its episode ends
     n_sites = 12 + int(fa is None)
     tape_shape = (KernelRNG.tape_rows(n_sites, K, R), W)
 
@@ -228,14 +253,16 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
             std=dyn.std, power=dyn.power, goal_y=gy, goal_x=gx,
             agent_y=fa[0] if fa else 0.0, agent_x=fa[1] if fa else 0.0,
             gamma=gamma, lr=lr, eps=epsilon, inv_cs=run.inv_cs,
-            valid_div=UDiv.of(dyn.n_valid), col_div=UDiv.of(dyn.W))
+            valid_div=UDiv.of(dyn.n_valid), col_div=UDiv.of(dyn.W),
+            n_obs=n_obs, stride_div=UDiv.of(slab_stride(n_obs)))
         tab = dyn.tables_on(dev)
         outs = [torch.empty_like(x) for x in state]
         outs.append(torch.empty((R, W), dtype=torch.float32, device=dev))
         q_out = torch.empty_like(q)
-        acc = torch.zeros(nq, dtype=torch.int64, device=dev)
-        cnt = torch.zeros(nq, dtype=torch.int32, device=dev)
-        grid = (ctypes.c_int * 2)()
+        # three rotating accumulators of the update sums, the first two zero
+        acc = torch.zeros(3 * n_sums, dtype=torch.int64, device=dev)
+        cnt = torch.zeros(3 * n_sums, dtype=torch.int32, device=dev)
+        grid = (ctypes.c_int * 3)()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = _launcher()(
@@ -246,14 +273,15 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
         if err:
             raise RuntimeError(f"fused_q_crooms_launch failed: CUDA error {err}")
         count_launch(run, "fused_q_crooms")
-        run.grid = (grid[0], grid[1])
+        run.grid = tuple(grid)
         return (*outs[:4], q_out, outs[4])
 
     run.twin = twin
     run.inv_cs = inverse_cell_size(dyn.cs)
     run.divisors = {"n_valid": dyn.n_valid, "W": dyn.W}  # the respawn's UDiv
     run.launches = 0
-    run.grid = None  # (blocks, envs per thread) of the last launch
+    # (blocks, envs per thread, update sums' slab on chip) of the last launch
+    run.grid = None
     run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ._build import count_launch
-from .kernel_rng import MASK32, KernelRNG, W, check_batch
+from .kernel_rng import MASK32, KernelRNG, UDiv, W, check_batch
 from .msrooms_dynamics import MSRoomsDynamics
 from .rooms_dynamics import RoomsDynamics
 from .taxi_dynamics import TaxiDynamics
@@ -154,6 +154,7 @@ class _QParams(ctypes.Structure):
     _fields_ += [(n, ctypes.c_int32) for n in (
         "n_act", "goal", "fixed_agent", "pfail24", "floor_cells", "up_to",
         "down_to", "n_obs")]
+    _fields_ += [("floor_div", UDiv)]
 
 
 @functools.cache
@@ -389,6 +390,7 @@ class MSRoomsTrainerSpec(_CellTrainerSpec, MSRoomsDynamics):
             lr=lr, eps=epsilon, n_act=self.n_act, goal=self.goal,
             fixed_agent=-1, pfail24=self.pfail24, floor_cells=self.HW,
             up_to=self.up_to, down_to=self.down_to,
+            floor_div=UDiv.of(self.HW),
         )
         P.r_any, P.r_bad, P.r_goal = self.rewards  # step, wall, goal
         return P

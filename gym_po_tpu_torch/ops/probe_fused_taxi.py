@@ -88,6 +88,7 @@ import numpy as np
 import torch
 
 B_HEAD, K_HEAD = 1 << 20, 256
+B_TRAIN = 1 << 16  # the trainers' width in chip_smoke.py
 SECTIONS = ("sweep", "profile", "variants", "spread", "acting", "ab", "sass",
             "rates", "shares")
 DEFAULT_SECTIONS = ("sweep", "profile", "variants", "spread", "acting")
@@ -172,10 +173,11 @@ def _setup_state(kind, B=B_HEAD, K=K_HEAD, **kw):
     return make(env, B, K), tuple(c.reshape(-1, 128).contiguous() for c in cols)
 
 
-def _setup_rooms(kind, B=B_HEAD, K=K_HEAD):
+def _setup_rooms(kind, B=B_HEAD, K=K_HEAD, twin=False, **kw):
     """One call of the ROOMS (``Rooms-v0``) or MultistoryFourRooms
-    (``grid_z = 3``) rollout at the registry's defaults, from ``reset_vec``
-    with seed 0, as chip_smoke.py's heads."""
+    (``grid_z = 3``) rollout at the registry's defaults (``kw`` on top),
+    from ``reset_vec`` with seed 0, as chip_smoke.py's heads; with
+    ``twin``, ``(call, the twin's call)``."""
     import gym_po_tpu_torch as gp
     from . import make_fused_msrooms_rollout, make_fused_rooms_rollout
 
@@ -187,30 +189,52 @@ def _setup_rooms(kind, B=B_HEAD, K=K_HEAD):
         cells = [(yx[:, 0].int() * W + yx[:, 1].int()) for yx in (st.agent_yx, st.goal_yx)]
         run = make_fused_rooms_rollout(env, B, K)
     else:
-        env = gp.make("MultistoryFourRooms-v0", grid_z=3, device=dev)
+        env = gp.make("MultistoryFourRooms-v0", grid_z=3, device=dev, **kw)
         _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B)
         _, H, GW = env.grid_np.shape
         cells = [(z[:, 0].int() * H * GW + z[:, 1].int() * GW + z[:, 2].int())
                  for z in (st.agent_zyx, st.goal_zyx)]
         run = make_fused_msrooms_rollout(env, B, K)
     state = tuple(c.reshape(-1, 128).contiguous() for c in cells)
-    return lambda: run(1, *state)
+    call = lambda: run(1, *state)  # noqa: E731
+    return (call, lambda: run.twin(1, *state)) if twin else call
 
 
-def _setup_q_crooms(B=1 << 16, K=K_HEAD):
+def _setup_q_crooms(B=B_TRAIN, K=K_HEAD, twin=False, **kw):
     """A call of the CRooms Q trainer at chip_smoke.py's shape (ordinal
-    actions, B = 65,536, K = 256, lr = eps = 0.1, averaged, from Q = 0)."""
+    actions, B = 65,536, K = 256, lr = eps = 0.1, averaged, from Q = 0;
+    ``kw`` on top of the env's defaults); with ``twin``, ``(call, the
+    twin's call)``."""
     import gym_po_tpu_torch as gp
     from . import make_fused_q_trainer_crooms
 
     dev = torch.device("cuda")
-    env = gp.make("CRooms-v0", action_type="ordinal", device=dev)
+    env = gp.make("CRooms-v0", action_type="ordinal", device=dev, **kw)
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(5), B)
     s4 = tuple(c.reshape(-1, 128).contiguous() for c in (
         st.agent_yx[:, 0], st.agent_yx[:, 1], st.vel_yx[:, 0], st.vel_yx[:, 1]))
     run = make_fused_q_trainer_crooms(env, B, K, average_duplicates=True)
     q0 = torch.zeros((32, 128), device=dev)
-    return lambda: run(1, 0.1, 0.1, *s4, q0)
+    call = lambda: run(1, 0.1, 0.1, *s4, q0)  # noqa: E731
+    return (call, lambda: run.twin(1, 0.1, 0.1, *s4, q0)) if twin else call
+
+
+def _setup_q_msrooms(B=B_TRAIN, K=K_HEAD):
+    """A call of the MultistoryFourRooms Q trainer [4] at chip_smoke.py's
+    shape (grid_z = 3, B = 65,536, K = 256, lr = eps = 0.1, averaged, from
+    Q = 0)."""
+    import gym_po_tpu_torch as gp
+    from . import make_fused_q_trainer_msrooms
+
+    dev = torch.device("cuda")
+    env = gp.make("MultistoryFourRooms-v0", grid_z=3, device=dev)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(5), B)
+    _, H, GW = env.grid_np.shape
+    z = st.agent_zyx.int()
+    a0 = (z[:, 0] * H * GW + z[:, 1] * GW + z[:, 2]).reshape(-1, 128).contiguous()
+    run = make_fused_q_trainer_msrooms(env, B, K, average_duplicates=True)
+    q0 = torch.zeros((32, 128), device=dev)
+    return lambda: run(1, 0.1, 0.1, a0, q0)
 
 
 def _report(label: str, B: int, K: int, ms: float) -> None:
@@ -296,17 +320,37 @@ def _edit(text: str, old: str, new: str) -> str:
 @contextlib.contextmanager
 def _launcher_from(module, lib_path, entry):
     """Make ``module``'s wrappers (``fused_taxi``, ``fused_rocksample``,
-    ``fused_q_crooms``, or ``state_rollout`` for the Tag, HeavenHell and
+    ``fused_q_crooms``, ``fused_qlearning``, ``fused_rooms`` for the ROOMS
+    and MSRooms rollouts, or ``state_rollout`` for the Tag, HeavenHell and
     CRooms rollouts) launch ``lib_path``'s ``entry``.  A Taxi library from
     before the invariant divisors takes the argument list without them; a
-    CRooms library from before the spawns' divisors reads the head of the
-    longer params struct, which is laid out as its own."""
+    parent library whose params struct is the head of the current one (the
+    CRooms kernels' before their spawn divisors, [14] before its stride
+    divisor, [6] before its draws' divisors, [4] before its floor divisor)
+    reads that head.  A [14] from before the one-barrier protocol sized its
+    scratch [nq] (the current wrapper's 3 * A * slab_stride(n_obs) words
+    cover that at CRooms-v0's 200 observations)."""
     fn = getattr(ctypes.CDLL(str(lib_path)), entry)
     fn.restype = ctypes.c_int
     if module.__name__.endswith("state_rollout"):
         fn.argtypes = [ctypes.c_void_p] * 6
         saved = module._launcher
         module._launcher = lambda source, name: fn
+        try:
+            yield
+        finally:
+            module._launcher = saved
+        return
+    if module.__name__.endswith("fused_qlearning"):  # the trainers' entries
+        saved = module._launcher
+
+        def trainer(name):
+            fn = getattr(ctypes.CDLL(str(lib_path)), name)
+            fn.argtypes = saved(name).argtypes
+            fn.restype = ctypes.c_int
+            return fn
+
+        module._launcher = trainer
         try:
             yield
         finally:
@@ -509,6 +553,34 @@ def min_blocks(source, n):
             f"__global__ void __launch_bounds__(gpt::kRolloutThreads, {n})")
 
 
+# [14] with every Philox block of the step computed at its start, as the
+# parent's KernelRNG<4> did (the normals stay where the sources draw them)
+EAGER_RNG_FN = r"""// every block of the step computed at begin_step, as KernelRNG<4> does
+struct EagerRNG : gpt::LazyRNG {
+  gpt::U32x4 blk[4];
+  __device__ EagerRNG(const int32_t* tape_, long long base, uint32_t k0,
+                      uint32_t k1, long long e, int K, int R)
+      : gpt::LazyRNG(tape_, base, k0, k1, e, K, R) {}
+  __device__ __forceinline__ void begin_step(int t) {
+    gpt::LazyRNG::begin_step(t);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      blk[b] = gpt::LazyRNG::block(b);
+      asm volatile("" ::"r"(blk[b].w[0]), "r"(blk[b].w[1]), "r"(blk[b].w[2]),
+                   "r"(blk[b].w[3]));
+    }
+  }
+  __device__ __forceinline__ gpt::U32x4 block(int b) const {
+    return b == 0 ? blk[0] : b == 1 ? blk[1] : b == 2 ? blk[2] : blk[3];
+  }
+};
+
+namespace {
+"""
+EAGER_RNG = [("fused_q_crooms.cu", "\nnamespace {\n", "\n" + EAGER_RNG_FN),
+             ("fused_q_crooms.cu", "      gpt::LazyRNG rng(tape, e,",
+              "      EagerRNG rng(tape, e,")]
+
 # kernel: {variant: edits (file, old, new)}
 VARIANTS = {
     "fused_taxi": {
@@ -550,6 +622,20 @@ VARIANTS = {
         "min-blocks-8": [min_blocks("fused_crooms.cu", 8)],
         "warp-vote": VOTE_CROOMS,
     },
+    "fused_q_crooms": {
+        "as-is": [],
+        # the update sums always straight into the global accumulator
+        "global-sums": [("fused_q_crooms.cu",
+                         "coop_geometry_room(kern, base, slab, gpt::kMaxEnvsPerThread,",
+                         "coop_geometry_room(kern, base, slab, 0,")],
+        "eager-rng": EAGER_RNG,
+        "philox-0-rounds": [PHILOX_0],
+    },
+    "fused_msrooms": {
+        "as-is": [],
+        "runtime-div": [RUNTIME_DIV],
+        "philox-0-rounds": [PHILOX_0],
+    },
 }
 # the continuous kernels' variants are timed on these cells: (label, the
 # env's kwargs)
@@ -569,7 +655,7 @@ def _edited(files: dict, edits) -> dict:
 
 
 def variants(parent=None) -> None:
-    from . import fused_rocksample, fused_taxi, state_rollout
+    from . import fused_q_crooms, fused_rocksample, fused_rooms, fused_taxi, state_rollout
     from ._build import BUILD_DIR, CSRC
 
     jobs = [(BUILD_DIR / "probe" / kernel / name, kernel,
@@ -583,27 +669,43 @@ def variants(parent=None) -> None:
     built = _nvcc_builds(jobs)
     print(f"variants: {len(jobs)} libraries built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    setups = {"fused_taxi": [("HansenTaxi-v4", _setup()[1:])],
+    def roll(run, state):
+        state = state if isinstance(state, tuple) else (state,)
+        return lambda: run(1, *state)
+
+    # kernel: [(cell, B, one call)]
+    setups = {"fused_taxi": [("HansenTaxi-v4", B_HEAD, roll(*_setup()[1:]))],
               "fused_rocksample": [
-                  (f"RockSample{ms + (k,)}", _setup_rock(ms, k)[1:])
-                  for ms, k in ROCK_CELLS]}
+                  (f"RockSample{ms + (k,)}", B_HEAD, roll(*_setup_rock(ms, k)[1:]))
+                  for ms, k in ROCK_CELLS],
+              "fused_q_crooms": [
+                  ("CRooms-v0 ordinal Q", B_TRAIN, _setup_q_crooms()),
+                  ("CRooms-v0 ordinal Q time_limit=1", B_TRAIN,
+                   _setup_q_crooms(time_limit=1))],
+              "fused_msrooms": [
+                  ("MultistoryFourRooms-v0 grid_z=3", B_HEAD, _setup_rooms("msrooms")),
+                  ("MultistoryFourRooms-v0 grid_z=3 time_limit=1", B_HEAD,
+                   _setup_rooms("msrooms", time_limit=1))]}
     for kernel, cells in VARIANT_CELLS.items():
         kind = kernel.split("_")[1]
-        setups[kernel] = [(cell, _setup_state(kind, **kw)) for cell, kw in cells]
+        setups[kernel] = [(cell, B_HEAD, roll(*_setup_state(kind, **kw)))
+                          for cell, kw in cells]
     modules = {"fused_taxi": fused_taxi, "fused_rocksample": fused_rocksample,
-               "fused_tag": state_rollout, "fused_crooms": state_rollout}
+               "fused_tag": state_rollout, "fused_crooms": state_rollout,
+               "fused_q_crooms": fused_q_crooms, "fused_msrooms": fused_rooms}
     for (d, kernel, _), (lib, log) in zip(jobs, built):
         regs = ",".join(re.findall(r"Used (\d+) registers", log))
-        for cell, (run, state) in setups[kernel]:
-            state = state if isinstance(state, tuple) else (state,)
+        for cell, B, call in setups[kernel]:
             with _launcher_from(modules[kernel], lib, f"{kernel}_launch"):
-                ms = event_ms(lambda: run(1, *state))
+                ms = event_ms(call)
             _report(f"variant {kernel} {d.name} {cell} (registers {regs})",
-                    B_HEAD, K_HEAD, ms)
+                    B, K_HEAD, ms)
 
 
-# ``shares``: counter copies of the Tag and CRooms rollouts.  Each lane
-# counts in registers and adds its counts to g_counts once, at the end:
+# ``shares``: counter copies of the Tag and CRooms rollouts, the CRooms Q
+# trainer [14] and the MSRooms rollout [6].  Each lane counts in registers
+# (the trainer per thread, over its envs) and adds its counts to g_counts
+# once, at the end:
 # [0] env-steps that reset, [1] env-steps whose warp votes to reset (each
 # lane of the warp counts it), [2] env-steps that hit a wall, [3] env-steps
 # whose warp has a hit, [4] env-steps whose warp has more than 16 hits (two
@@ -656,15 +758,89 @@ SHARES = {
         ("fused_crooms.cu", "  if (P.h.episode_stats) stats.store(p, 7, e);\n}\n",
          "  if (P.h.episode_stats) stats.store(p, 7, e);" + COUNTS_FLUSH),
     ],
+    # the trainer's warps are whole (B a multiple of 1024), so a vote takes
+    # every lane
+    "fused_q_crooms": [
+        ("fused_q_crooms.cu", '#include "tabular.cuh"\n',
+         '#include "tabular.cuh"\n' + COUNTS_DEF),
+        ("fused_q_crooms.cu", "  const int B = P.num_envs;\n",
+         COUNTS_DECL + "  const int B = P.num_envs;\n"),
+        ("fused_q_crooms.cu", "      if (oob) {\n",
+         "      n[2] += oob; n[3] += __any_sync(0xffffffffu, oob) != 0; n[7] += 1;\n"
+         "      if (oob) {\n"),
+        ("fused_q_crooms.cu", "      if (mv.reset) {\n",
+         "      n[0] += mv.reset; n[1] += __any_sync(0xffffffffu, mv.reset) != 0;\n"
+         "      if (mv.reset) {\n"),
+        ("fused_q_crooms.cu", "    p.out[4][e] = racc_l[i];\n  }\n}\n",
+         "    p.out[4][e] = racc_l[i];\n  }" + COUNTS_FLUSH),
+    ],
+    "fused_msrooms": [
+        ("fused_msrooms.cu", '#include "msrooms_step.cuh"\n',
+         '#include "msrooms_step.cuh"\n' + COUNTS_DEF),
+        ("fused_msrooms.cu", "  gpt::LazyRNG rng(tape,", COUNTS_DECL + "  gpt::LazyRNG rng(tape,"),
+        ("fused_msrooms.cu", "    if (mv.reset) {\n",
+         "    n[0] += mv.reset; n[1] += __any_sync(0xffffffffu, mv.reset) != 0; n[7] += 1;\n"
+         "    if (mv.reset) {\n"),
+        ("fused_msrooms.cu", "    ep_cnt_out[e] = ep_cnt;\n  }\n}\n",
+         "    ep_cnt_out[e] = ep_cnt;\n  }" + COUNTS_FLUSH),
+    ],
 }
+# the counter copies of [14] and [6] are read at these cells: (label, setup
+# kwargs)
+SHARE_CELLS = {
+    "fused_q_crooms": [("CRooms-v0 ordinal Q B=65536", {}),
+                       ("CRooms-v0 ordinal Q B=65536 time_limit=1",
+                        {"time_limit": 1})],
+    "fused_msrooms": [("MultistoryFourRooms-v0 grid_z=3", {}),
+                      ("MultistoryFourRooms-v0 grid_z=3 random goal and agent",
+                       {"goal_xyz": None}),
+                      ("MultistoryFourRooms-v0 grid_z=3 time_limit=1",
+                       {"time_limit": 1})],
+}
+
+
+def _share_line(kernel, cell, B, n) -> str:
+    steps = n[7]
+    line = (f"shares {kernel} {cell} B={B} K={K_HEAD}: resets per env-step "
+            f"{n[0] / steps:.6e}, warp-steps voting to reset {n[1] / steps:.6e}")
+    if kernel in ("fused_crooms", "fused_q_crooms"):
+        line += (f"; wall hits per env-step {n[2] / steps:.6e}, warp-steps "
+                 f"with a hit {n[3] / steps:.6e}")
+    if kernel == "fused_crooms":
+        line += f", with more than 16 hits {n[4] / steps:.6e}"
+    if kernel == "fused_tag":
+        line += (f"; candidates per respawn {n[5] / max(n[0], 1):.4f}, "
+                 f"corner fallbacks per respawn {n[6] / max(n[0], 1):.4f}")
+    return line
+
+
+def _q_crooms_share_bound(n) -> str:
+    """[14]'s bound at the shares ``n`` of one counted call, counted as
+    chip_smoke.py counts bounds (its ``bound``, ``philox_ops``,
+    ``block_ops``, ``normal_ops``; run from the repository's root): per
+    env-step blocks 0-1, the action's 2 normals and one update term, per
+    wall hit block 2 and 2 normals more, per reset block 3 (its word 0
+    alone); the bytes as chip_smoke.py's."""
+    import chip_smoke as cs
+
+    steps, hits, resets = n[7], n[2], n[0]
+    ops = cs.add_ops(cs.philox_ops(8, steps, steps), cs.normal_ops(2 * steps),
+                     cs.block_ops(hits, resets), cs.normal_ops(2 * hits))
+    ms, by, pipe = cs.bound(36 * B_TRAIN + 8 * 32 * 128, ops)
+    every = cs.bound(36 * B_TRAIN + 8 * 32 * 128, cs.add_ops(
+        cs.philox_ops(8, steps, steps), cs.normal_ops(2 * steps)))
+    return (f"; bound at these shares {ms:.4f} ms ({by}, {pipe}), blocks 0-1 "
+            f"and 2 normals per env-step alone {every[0]:.4f} ms")
 
 
 def shares() -> None:
     """The reset and wall-hit shares of [9] and [8] at B = 2^20, K = 256,
-    per lane and per warp, from counter copies of the sources (the draws
-    and results are the sources' own: each copy's first call is held to the
-    twin's on a smaller batch)."""
-    from . import state_rollout
+    of [14] at B = 65,536, K = 256 from Q = 0 (chip_smoke.py's timing
+    shape) and the reset shares of [6] at B = 2^20, K = 256, per lane and
+    per warp, from counter copies of the sources (the draws and results are
+    the sources' own: each copy's first call is held to the twin's on a
+    smaller batch)."""
+    from . import fused_q_crooms, fused_rooms, state_rollout
     from ._build import BUILD_DIR, CSRC
 
     jobs = [(BUILD_DIR / "probe" / "shares" / kernel, kernel,
@@ -690,19 +866,33 @@ def shares() -> None:
                 run(1, *state)
                 torch.cuda.synchronize()
                 read(out)
-                n = list(out)
-                steps = n[7]
-                line = (f"shares {kernel} {cell} B={B_HEAD} K={K_HEAD}: resets per "
-                        f"env-step {n[0] / steps:.6e}, warp-steps voting to reset "
-                        f"{n[1] / steps:.6e}")
-                if kernel == "fused_crooms":
-                    line += (f"; wall hits per env-step {n[2] / steps:.6e}, "
-                             f"warp-steps with a hit {n[3] / steps:.6e}, with more "
-                             f"than 16 hits {n[4] / steps:.6e}")
-                else:
-                    line += (f"; candidates per respawn {n[5] / max(n[0], 1):.4f}, "
-                             f"corner fallbacks per respawn "
-                             f"{n[6] / max(n[0], 1):.4f}")
+                print(_share_line(kernel, cell, B_HEAD, list(out)), flush=True)
+    # [14] and [6]: each copy held to its twin, then read at its cells
+    held = {"fused_q_crooms": (fused_q_crooms, lambda **kw: _setup_q_crooms(
+                B=8192, K=32, twin=True, **kw), B_TRAIN,
+                lambda **kw: _setup_q_crooms(**kw)),
+            "fused_msrooms": (fused_rooms, lambda **kw: _setup_rooms(
+                "msrooms", B=1 << 14, K=64, twin=True, time_limit=40, **kw),
+                B_HEAD, lambda **kw: _setup_rooms("msrooms", **kw))}
+    for kernel, (module, small, B, setup) in held.items():
+        lib = built[kernel][0]
+        read = ctypes.CDLL(str(lib)).probe_counts
+        read.argtypes = [ctypes.c_void_p]
+        with _launcher_from(module, lib, f"{kernel}_launch"):
+            call, twin = small()
+            got, want = call(), twin()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"counter copy of {kernel} differs from the twin")
+            for cell, kw in SHARE_CELLS[kernel]:
+                call = setup(**kw)
+                torch.cuda.synchronize()
+                read(out)  # cleared
+                call()
+                torch.cuda.synchronize()
+                read(out)
+                line = _share_line(kernel, cell, B, list(out))
+                if kernel == "fused_q_crooms":
+                    line += _q_crooms_share_bound(list(out))
                 print(line, flush=True)
 
 
@@ -765,12 +955,20 @@ def acting() -> None:
 
 
 # ab's cases: (label, source, the wrapper module to patch, its entry, setup
-# returning one call); the continuous cases at the registry's defaults and
-# at the reset-heavy time limit 1, and the controls [10], [14], [5] and [6]
+# returning one call); the redesigned kernels at the registry's defaults and
+# at the reset-heavy time limit 1 (and [6] with both spawns drawn), and the
+# controls [10], [5], [8] and [4]
 def _ab_cases():
     import gym_po_tpu_torch as gp
 
-    from . import fused_q_crooms, fused_rocksample, fused_rooms, fused_taxi, state_rollout
+    from . import (
+        fused_q_crooms,
+        fused_qlearning,
+        fused_rocksample,
+        fused_rooms,
+        fused_taxi,
+        state_rollout,
+    )
 
     def roll(run, state):
         state = state if isinstance(state, tuple) else (state,)
@@ -786,6 +984,7 @@ def _ab_cases():
     qcr = ("fused_q_crooms", fused_q_crooms, "fused_q_crooms_launch")
     rooms = ("fused_rooms", fused_rooms, "fused_rooms_launch")
     msrooms = ("fused_msrooms", fused_rooms, "fused_msrooms_launch")
+    qms = ("fused_qlearning", fused_qlearning, "fused_q_msrooms_launch")
     cases = [("[1] HansenTaxi-v4 random policy", *taxi,
               lambda: roll(*_setup()[1:])),
              ("[1] HansenTaxi-v4 greedy-table policy", *taxi,
@@ -798,16 +997,22 @@ def _ab_cases():
     cases += [("[9] TagContinuous-v0", *tag, lambda: roll(*_setup_state("tag"))),
               ("[9] TagContinuous-v0 time_limit=1", *tag,
                lambda: roll(*_setup_state("tag", time_limit=1))),
-              ("[8] CRooms-v0", *crooms, lambda: roll(*_setup_state("crooms"))),
-              ("[8] CRooms-v0 time_limit=1", *crooms,
-               lambda: roll(*_setup_state("crooms", time_limit=1))),
+              ("[14] CRooms-v0 ordinal Q trainer B=65536", *qcr, _setup_q_crooms),
+              ("[14] CRooms-v0 ordinal Q trainer B=65536 time_limit=1", *qcr,
+               lambda: _setup_q_crooms(time_limit=1)),
+              ("[6] MultistoryFourRooms-v0 grid_z=3", *msrooms,
+               lambda: _setup_rooms("msrooms")),
+              ("[6] MultistoryFourRooms-v0 grid_z=3 random goal and agent",
+               *msrooms, lambda: _setup_rooms("msrooms", goal_xyz=None)),
+              ("[6] MultistoryFourRooms-v0 grid_z=3 time_limit=1", *msrooms,
+               lambda: _setup_rooms("msrooms", time_limit=1)),
+              ("[8] CRooms-v0 (control)", *crooms,
+               lambda: roll(*_setup_state("crooms"))),
               ("[10] HeavenHellContinuous-v0 (control)", *hh,
                lambda: roll(*_setup_state("heavenhell"))),
-              ("[14] CRooms-v0 ordinal Q trainer B=65536 (control)", *qcr,
-               _setup_q_crooms),
               ("[5] Rooms-v0 (control)", *rooms, lambda: _setup_rooms("rooms")),
-              ("[6] MultistoryFourRooms-v0 grid_z=3 (control)", *msrooms,
-               lambda: _setup_rooms("msrooms"))]
+              ("[4] MultistoryFourRooms-v0 grid_z=3 Q trainer B=65536 (control)",
+               *qms, _setup_q_msrooms)]
     return cases
 
 

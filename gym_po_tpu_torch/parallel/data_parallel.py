@@ -2,7 +2,7 @@
 :func:`gym_po_tpu.parallel.data_parallel.chunk_seeds` (NumPy only).
 
 The multi-device half of that module (sharding, the per-chunk table
-all-reduce) is not ported yet: ROADMAP Queue 1 item 11.
+all-reduce) is not ported yet: ROADMAP Queue 1, "Multi-GPU".
 """
 
 from __future__ import annotations

@@ -144,18 +144,23 @@ def test_spawn_divisors_are_exact(layout):
 
 
 def test_trainer_params_layout_mirrors_the_source():
-    """The trainer's struct: inv_cs follows its 17 floats, the two UDiv,
-    8-aligned, end it."""
+    """The trainer's struct: inv_cs follows its 17 floats, then the two
+    UDiv, 8-aligned, and the observation count with the update sums' stride
+    divisor."""
     assert _QCRoomsParams.key0.offset == 60
     assert _QCRoomsParams.cs.offset == 68
     assert _QCRoomsParams.eps.offset == 132
     assert _QCRoomsParams.inv_cs.offset == 136
     assert _QCRoomsParams.valid_div.offset == 144
     assert _QCRoomsParams.col_div.offset == 168
-    assert ctypes.sizeof(_QCRoomsParams) == 192
+    assert _QCRoomsParams.n_obs.offset == 192
+    assert _QCRoomsParams.stride_div.offset == 200
+    assert ctypes.sizeof(_QCRoomsParams) == 224
     src = (CSRC / "fused_q_crooms.cu").read_text()
     assert "  float gamma, lr, eps;\n  float inv_cs;" in src
-    assert "  gpt::UDiv valid_div, col_div;  // n_valid and W, for the respawn\n};" in src
+    assert ("  gpt::UDiv valid_div, col_div;  // n_valid and W, for the respawn\n"
+            "  int32_t n_obs;") in src
+    assert "  gpt::UDiv stride_div;  // slab_stride(n_obs): the update sums' row stride\n};" in src
 
 
 @pytest.mark.parametrize("cs", [0.5, 1.0, 2.0, 0.75])

@@ -1066,3 +1066,147 @@ def test_crooms_trainer_kernel_cell_sizes_equal_twin(cuda, mode, cs):
     assert run.launches == 1
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
+
+
+# [14] on the one-barrier step protocol (per-block update sums in a
+# shared-memory slab, or straight into the step's global accumulator where
+# the slab does not fit beside a launch that takes the batch; run.grid[2]:
+# 1 for the slab) with lazy draws: held to its twin exactly where that
+# design could go wrong
+def _crooms_redesign_call(mode, B, K, kw=None, q=None, start=None, seed=21,
+                          lr=0.1, average=True):
+    """``(run, got, want, q in)``: one call of the CRooms Q trainer and of
+    its twin on the same inputs (at K = 0, where the twin draws nothing and
+    refuses, ``want`` is the inputs handed back with zero reward sums)."""
+    env = gpt_torch.make("CRooms-v0", **{"action_type": "ordinal",
+                                         "time_limit": 30, **(kw or {})})
+    run = make_fused_q_trainer_crooms(env, B, K, average_duplicates=average,
+                                      rng_tape=mode == "tape")
+    py, px, vy, vx, _, _ = _crooms_state(env, B, seed)
+    if start is not None:
+        py, px = torch.full_like(py, start[0]), torch.full_like(px, start[1])
+    gen = torch.Generator(device=env.device).manual_seed(seed + 1)
+    if q is None:
+        q = (torch.zeros((32, 128), device=env.device) if mode == "philox"
+             else 0.1 * torch.randn((32, 128), generator=gen, device=env.device))
+    tape = _tape(run, seed + 2, env.device) if mode == "tape" else ()
+    got = run(5, lr, 0.3, py, px, vy, vx, q, *tape)
+    want = (run.twin(5, lr, 0.3, py, px, vy, vx, q, *tape) if K
+            else (py, px, vy, vx, q, torch.zeros_like(py)))
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    return run, got, want, q
+
+
+def _next_to_crooms_goal(env):
+    """The centre of a walkable cell next to the fixed goal's cell."""
+    gy, gx = (float(v) for v in env.fixed_goal_coord)
+    for dy, dx in ((-1, 0), (0, -1), (1, 0), (0, 1)):
+        y, x = gy + dy, gx + dx
+        if env.grid_np[int(y), int(x)] != -1:
+            return y, x
+    raise AssertionError("the goal has no walkable neighbour")
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+def test_crooms_trainer_one_start_equals_twin(cuda, mode):
+    """Every env starts at one position next to the goal: every term of a
+    step lands on the same few entries of the block's slab."""
+    env = gpt_torch.make("CRooms-v0", action_type="ordinal")
+    run, got, want, q = _crooms_redesign_call(
+        mode, 8192, 16, start=_next_to_crooms_goal(env))
+    _assert_exact(got, want)
+    assert run.grid[1:] == (1, 1)  # one env per thread, the slab on chip
+    assert torch.count_nonzero(got[4] != q) > 0
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 4])
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+def test_crooms_trainer_few_steps_equal_twin(cuda, mode, K):
+    """K = 0, 1, 2 and 4: the three rotating accumulators before and after
+    their first reuse; K = 0 hands the inputs back unchanged."""
+    _, got, want, _ = _crooms_redesign_call(mode, 8192, K)
+    _assert_exact(got, want)
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+def test_crooms_trainer_time_limit_1_equals_twin(cuda, mode):
+    """Every env resets every second step (truncation at elapsed > 1): the
+    respawn's block 3 and its spawn on half the env-steps."""
+    run, got, want, _ = _crooms_redesign_call(mode, 8192, 16,
+                                              kw={"time_limit": 1})
+    _assert_exact(got, want)
+    assert run.grid[2] == 1
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+def test_crooms_trainer_negative_zeros_equal_twin(cuda, mode):
+    """-0 entries in q_in (all padding and a third of the used entries):
+    the kernel's table load adds + 0, as the twin's whole-table add does,
+    so every zero comes out +0 on both."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q = 0.1 * torch.randn((32, 128), generator=gen, device=cuda)
+    q[torch.rand(q.shape, generator=gen, device=cuda) < 0.33] = -0.0
+    q[:, 100:] = -0.0
+    _, got, want, _ = _crooms_redesign_call(mode, 8192, 4, q=q)
+    _assert_exact(got, want)
+    zeros = got[4] == 0
+    assert zeros.sum() > 1000 and not torch.signbit(got[4][zeros]).any()
+    assert torch.equal(torch.signbit(got[4]), torch.signbit(want[4]))
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("side", ["slab", "global"])
+def test_crooms_trainer_slab_sides_equal_twin(cuda, mode, side):
+    """Both sides of the slab's choice: CRooms-v0 (200 observations, a slab
+    of 1,600 words) at B = 8,192 keeps it on chip; layout '16' (422
+    observations, 3,392 words, 41 KB of slab beside 16 KB of table) at
+    B = 2^20 leaves too few blocks per SM for the batch, so its terms go
+    straight into the global accumulator."""
+    if side == "slab":
+        run, got, want, _ = _crooms_redesign_call(mode, 8192, 8)
+    else:
+        run, got, want, _ = _crooms_redesign_call(mode, 1 << 20, 8,
+                                                  kw={"layout": "16"})
+        assert run.grid[1] >= 4
+    _assert_exact(got, want)
+    assert run.grid[2] == (side == "slab")
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+def test_crooms_trainer_diverging_step_equals_twin(cuda, mode):
+    """Summed duplicates with a large step: terms past the fixed point's
+    range flag their entries NaN through the count words, as in the twin."""
+    _, got, want, _ = _crooms_redesign_call(mode, 8192, 12, lr=1e3,
+                                            average=False)
+    _assert_exact(got, want)
+    assert torch.isnan(got[4]).any()
+
+
+# [6] without runtime integer division and with its respawns drawn only
+# where an episode ends
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("time_limit", [20, 1])
+@pytest.mark.parametrize("goal", ["fixed", "random"])
+@pytest.mark.parametrize("agent", ["fixed", "random"])
+def test_fused_msrooms_kernel_spawns_equal_twin(cuda, mode, time_limit, goal,
+                                                agent):
+    """All four spawn combinations, at time limit 20 and at 1 (every env
+    resets every second step)."""
+    kw = {} if goal == "fixed" else {"goal_xyz": None}
+    if agent == "fixed":
+        kw["agent_xyz"] = (1, 1, 0)
+    env = gpt_torch.make("MultistoryFourRooms-v0", grid_z=3,
+                         time_limit=time_limit, **kw)
+    B, K = 8192, 48
+    run = make_fused_msrooms_rollout(env, B, K, rows_per_tile=4,
+                                     episode_stats=True, rng_tape=mode == "tape")
+    a0, g0 = _msrooms_cells(env, B, 5)
+    tape = _tape(run, 6, cuda) if mode == "tape" else ()
+    got = run(9, a0, g0, *tape)
+    want = run.twin(9, a0, g0, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    _assert_exact(got, want)
+    if time_limit == 1:
+        assert (got[5] >= K // 2).all()  # episodes per env

@@ -2,22 +2,32 @@
 the host constants of ``ops/kernel_rng.py::UDiv.of`` through the device
 formula, emulated in int64 (``udivmod``), against ``u // n`` and ``u % n``.
 
-The Taxi and RockSample rollout kernels reduce their draws, and the Taxi
-rollout decodes its state, by these constants; the kernels against their
-twins on the card are in test_torch_cuda.py, and ``chip_smoke.py``'s
+The Taxi, RockSample and MultistoryFourRooms rollout kernels reduce their
+draws, the Taxi rollout decodes its state and the MultistoryFourRooms step
+finds a cell's floor by these constants; the kernels against their twins
+on the card are in test_torch_cuda.py, and ``chip_smoke.py``'s
 ``divisors`` phase holds the device helper to the hardware's ``/`` and
-``%`` over all 2^32 u.
+``%`` over all 2^32 u.  The parameter structs that carry them are held to
+the C sources' declarations, field by field.
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
 import torch
 
 import gym_po_tpu_torch as gpt_torch
-from gym_po_tpu_torch.ops import make_fused_rocksample_rollout, make_fused_taxi_rollout
+from gym_po_tpu_torch.ops import (
+    make_fused_msrooms_rollout,
+    make_fused_rocksample_rollout,
+    make_fused_taxi_rollout,
+)
 from gym_po_tpu_torch.ops._build import CSRC
+from gym_po_tpu_torch.ops.fused_msrooms import _MSRoomsParams
+from gym_po_tpu_torch.ops.fused_q_crooms import _QCRoomsParams
+from gym_po_tpu_torch.ops.fused_qlearning import MAX_TRACE, _QParams
 from gym_po_tpu_torch.ops.fused_rocksample import _RockSampleParams
 from gym_po_tpu_torch.ops.fused_taxi import TAXI_DIVISORS
 from gym_po_tpu_torch.ops.kernel_rng import MASK32, UDiv, udivmod
@@ -162,6 +172,72 @@ def test_rocksample_rollout_divisors_are_exact():
         run = make_fused_rocksample_rollout(env, 256, 2)
         assert run.divisors == {"n_act": 5 + k}
         assert mismatches(dense_u(5 + k)[None, :], [5 + k]) == 0
+
+
+@pytest.mark.parametrize("grid_z", [1, 2, 3, 4])
+@pytest.mark.parametrize("goal", ["fixed", "random"])
+@pytest.mark.parametrize("agent", ["fixed", "random"])
+def test_msrooms_rollout_divisors_are_exact(grid_z, goal, agent):
+    """The MultistoryFourRooms rollout's divisors: the actions, the actions
+    less one, the two spawn banks' sizes and the cells per floor, each
+    exact over dense u, whichever spawns are drawn."""
+    kw = {} if goal == "fixed" else {"goal_xyz": None}
+    if agent == "fixed":
+        kw["agent_xyz"] = (1, 1, 0)
+    env = gpt_torch.make("MultistoryFourRooms-v0", grid_z=grid_z, device="cpu",
+                         **kw)
+    run = make_fused_msrooms_rollout(env, 256, 2)
+    _, H, GW = env.grid_np.shape
+    A = int(env.num_actions)
+    assert tuple(run.divisors.values()) == (
+        A, A - 1, len(env.valid_goal_states), len(env.valid_agent_states),
+        H * GW)
+    for n in run.divisors.values():
+        assert mismatches(dense_u(n)[None, :], [n]) == 0
+
+
+C_TYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32,
+           "float": ctypes.c_float, "gpt::UDiv": UDiv}
+C_CONSTANTS = {"kMaxTrace": MAX_TRACE}
+
+
+def c_struct(source: str, name: str) -> type:
+    """A ctypes mirror of struct ``name`` built from its declaration in
+    ``csrc/<source>`` (one type per line, comma-separated fields, fixed
+    arrays), laid out by ctypes' C rules as the compiler lays it out."""
+    text = (CSRC / source).read_text()
+    body = re.search(r"\nstruct %s \{\n(.*?)\n\};" % name, text, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if not line:
+            continue
+        ctype, decls = re.fullmatch(r"(\S+) (.+);", line).groups()
+        for decl in decls.split(","):
+            arr = re.fullmatch(r"(\w+)\[(\w+)\]", decl.strip())
+            fields.append((arr.group(1), C_TYPES[ctype] * C_CONSTANTS[arr.group(2)])
+                          if arr else (decl.strip(), C_TYPES[ctype]))
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+@pytest.mark.parametrize("mirror,source,name", [
+    (_QCRoomsParams, "fused_q_crooms.cu", "QCRoomsParams"),
+    (_MSRoomsParams, "fused_msrooms.cu", "MSRoomsParams"),
+    (_QParams, "fused_qlearning.cu", "QParams"),
+])
+def test_trainer_and_msrooms_params_mirror_the_sources(mirror, source, name):
+    """The wrappers' ctypes structs against the C declarations: the same
+    fields in the same order, each at the same offset with the same size,
+    and the same total size (the invariant divisors 8-byte aligned)."""
+    c = c_struct(source, name)
+
+    def layout(cls):
+        return [(f, getattr(cls, f).offset, getattr(cls, f).size)
+                for f, _ in cls._fields_]
+
+    assert layout(mirror) == layout(c)
+    assert ctypes.sizeof(mirror) == ctypes.sizeof(c)
+    assert ctypes.alignment(mirror) == 8
 
 
 def test_parameter_layouts_mirror_the_sources():

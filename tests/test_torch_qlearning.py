@@ -280,7 +280,7 @@ def test_fused_q_learning_shapes_and_history():
 
 def test_fused_q_learning_rejects_what_is_not_ported():
     env = gpt_torch.make("Taxi-v4", device="cpu")
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="Multi-GPU"):
         fused_q_learning(env, 0, [(0.1, 0.1, 8)], mesh=object())
     with pytest.raises(ValueError, match="Taxi"):
         fused_q_learning(object(), 0, [(0.1, 0.1, 8)])
