@@ -53,9 +53,9 @@ fallback: without a CUDA device the script fails before printing a result.
 Phases: device; build of ``gym_po_tpu_torch/csrc`` (into
 ``build/gym_po_tpu_torch/``, one nvcc per source, in parallel); ``sass``:
 no runtime integer division (MUFU.RCP, I2F.U32.RP) inside the Taxi and
-RockSample rollouts' loops, no I2F.U32.RP inside the Tag, CRooms and
-MSRooms rollouts' or the CRooms Q trainer's (their MUFU.RCP counted), the
-ROOMS rollout's and the other trainers' counts reported; ``divisors``: the
+RockSample rollouts' loops, no I2F.U32.RP inside the Tag, CRooms, ROOMS
+and MSRooms rollouts' or the CRooms Q trainer's (their MUFU.RCP counted),
+the other trainers' counts reported; ``divisors``: the
 kernels' invariant-divisor helper against the hardware's ``/`` and ``%``
 over all 2^32 u; Philox known answers; the Box-Muller normal's logf/cosf
 against torch's over every uniform a draw can give (counts reported);
@@ -64,9 +64,10 @@ in Philox mode, and the trainers with per-block update sums (Q(lambda),
 actor-critic, the one-step Q and double-Q trainers and the CRooms Q
 trainer on both sides of their slab's choice) from one start and over
 K = 0, 1, 2, 4 (the CRooms Q trainer also from a table holding -0 entries
-and at time limit 1); the Tag, CRooms and MSRooms rollouts also where
-every env resets as often as it can, the CRooms ones at cell sizes 0.5
-and 0.75, the MSRooms one with each of its four spawn combinations;
+and at time limit 1); the Tag, HeavenHell, CRooms, ROOMS and MSRooms
+rollouts also where every env resets as often as it can, the CRooms ones
+at cell sizes 0.5 and 0.75, the ROOMS and MSRooms ones with each of their
+four spawn combinations;
 distribution check against the step_vec
 rollout path (Taxi and ROOMS); kernel vs twin at the headline's shape;
 path 1 with the headline timing; path 2 with the trainers' timing and
@@ -619,41 +620,58 @@ def rooms_occupancy(env, agent: torch.Tensor) -> torch.Tensor:
     return torch.bincount(a, minlength=env.grid_np.size).double() / a.numel()
 
 
-# layout, env kwargs, rows_per_tile (B = 65,536: 4 or 512 tiles), stats
+# layout, env kwargs (time limit 40 unless given), rows_per_tile (B =
+# 65,536: 4 or 512 tiles), stats; the last four: the four spawn
+# combinations at time limit 1 (ROOMS truncates at >, so every env resets
+# every second step), the respawns' edge
 ROOMS_ROLLOUT_CASES = [
     ("4", {}, 128, False),
     ("16", {"goal_xy": None}, 1, True),
     ("32b", {"action_type": "cardinal"}, 128, True),
+    ("4", {"time_limit": 1, "goal_xy": None}, 128, True),
+    ("4", {"time_limit": 1}, 1, True),
+    ("4", {"time_limit": 1, "goal_xy": None, "agent_xy": (1, 1)}, 128, True),
+    ("16", {"time_limit": 1, "agent_xy": (1, 1)}, 128, True),
 ]
 
 
 def rooms_rollout_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
-    """The ROOMS rollout kernel == its twin, exactly: on a random tape for
-    three layouts (a random goal, episode stats, 4 and 512 tiles), and in
+    """The ROOMS rollout kernel == its twin, exactly: on a random tape and
+    in Philox mode for three layouts (a random goal, episode stats, 4 and
+    512 tiles) and the four spawn combinations at time limit 1, and in
     Philox mode over the headline's K."""
     import gym_po_tpu_torch as gp
     from gym_po_tpu_torch.ops import make_fused_rooms_rollout
 
     gen = torch.Generator(device=dev).manual_seed(31)
-    for layout, kw, rpt, stats in ROOMS_ROLLOUT_CASES:
-        env = gp.make("Rooms-v0", layout=layout, time_limit=40, device=dev, **kw)
-        run = make_fused_rooms_rollout(env, B, K, rows_per_tile=rpt,
-                                       episode_stats=stats, rng_tape=True)
-        _, st = env.reset_vec(gen, B)
-        a0, g0 = rooms_cells(env, st.agent_yx), rooms_cells(env, st.goal_yx)
-        tape = torch.randint(-2**31, 2**31, run.tape_shape, generator=gen,
-                             dtype=torch.int32, device=dev)
-        got = run(3, a0, g0, tape)
-        want = run.twin(3, a0, g0, tape)
-        torch.cuda.synchronize()
-        name = f"Rooms-v0 layout {layout} {kw or ''} rows_per_tile={rpt}" + (
-            " episode_stats" if stats else "")
-        compare(name, got, want, errs)
-        check_cells(env, got[0])
-        if stats and got[5].sum().item() == 0:
-            raise AssertionError(f"{name}: no episode completed")
-        say("rooms-tape", f"kernel == twin exactly: {name}, B={B} K={K}, "
-            f"{run.tape_shape[0] // (B // 128)} tape rows per 128 envs")
+    for mode in ("tape", "philox"):
+        for layout, kw, rpt, stats in ROOMS_ROLLOUT_CASES:
+            env = gp.make("Rooms-v0", layout=layout, device=dev,
+                          **{"time_limit": 40, **kw})
+            run = make_fused_rooms_rollout(env, B, K, rows_per_tile=rpt,
+                                           episode_stats=stats,
+                                           rng_tape=mode == "tape")
+            _, st = env.reset_vec(gen, B)
+            a0, g0 = rooms_cells(env, st.agent_yx), rooms_cells(env, st.goal_yx)
+            tape = (torch.randint(-2**31, 2**31, run.tape_shape, generator=gen,
+                                  dtype=torch.int32, device=dev),
+                    ) if mode == "tape" else ()
+            got = run(3, a0, g0, *tape)
+            want = run.twin(3, a0, g0, *tape)
+            torch.cuda.synchronize()
+            name = f"Rooms-v0 layout {layout} {kw or ''} rows_per_tile={rpt}" + (
+                " episode_stats" if stats else "") + f" {mode}"
+            compare(name, got, want, errs)
+            check_cells(env, got[0])
+            if stats and got[5].sum().item() == 0:
+                raise AssertionError(f"{name}: no episode completed")
+            if env.time_limit == 1 and not (got[5] >= K // 2).all():
+                raise AssertionError(f"{name}: an env reset less than every "
+                                     "second step")
+            say("rooms-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
+                f"{run.n_sites} sites" + (
+                    f", episodes per env {got[5].mean().item():.4f}" if stats
+                    else ""))
     env = gp.make("Rooms-v0", goal_xy=None, time_limit=100, device=dev)
     run = make_fused_rooms_rollout(env, B, K_HEAD, episode_stats=True)
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(32), B)
@@ -1618,7 +1636,8 @@ CROOMS_ROLLOUT_CASES = [
     (dict(cell_size=0.75, use_velocity=True), 128, False),
 ]
 # time limit (1: every env resets every step, the respawn's edge),
-# rows_per_tile, episode stats; HeavenHell beside the first two
+# rows_per_tile, episode stats (HeavenHell, beside each: the other way
+# round, and on at time limit 1)
 TAG_ROLLOUT_CASES = [(40, 128, False), (40, 1, True), (1, 128, True)]
 # env kwargs (time limit 60), averaged duplicates, lr: summed duplicates take
 # a small lr (hundreds of terms per entry per step at B = 65,536)
@@ -1676,16 +1695,19 @@ def libm_check(dev) -> None:
 def divisors_check(dev) -> None:
     """``gpt::udiv`` and ``gpt::umod`` (``csrc/kernel_rng.cuh``, the
     constants of ``UDiv.of``) against the hardware's ``u / n`` and ``u % n``
-    over all 2^32 u, on the card, for n = 1 ... 64 and each divisor that
-    paths 1 and 4 hand the Taxi, RockSample and MultistoryFourRooms
-    rollouts (``udiv_check_launch`` in ``csrc/fused_taxi.cu``).  Any
-    mismatch fails."""
+    over all 2^32 u, on the card, for n = 1 ... 64, each divisor that
+    paths 1, 3 and 4 hand the Taxi, ROOMS, RockSample and
+    MultistoryFourRooms rollouts, and the ROOMS rollout's on every layout
+    (``udiv_check_launch`` in ``csrc/fused_taxi.cu``).  Any mismatch
+    fails."""
     import ctypes
 
     import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.maps import LAYOUT_NAMES
     from gym_po_tpu_torch.ops import (
         make_fused_msrooms_rollout,
         make_fused_rocksample_rollout,
+        make_fused_rooms_rollout,
         make_fused_taxi_rollout,
     )
     from gym_po_tpu_torch.ops._build import load_library
@@ -1698,6 +1720,10 @@ def divisors_check(dev) -> None:
                       device=dev)
         for name, n in make_fused_rocksample_rollout(env, B_HEAD, K_HEAD).divisors.items():
             used[f"RockSample{(rows, cols, k)} {name}"] = n
+    for layout in LAYOUT_NAMES:
+        renv = gp.make("Rooms-v0", layout=layout, device=dev)
+        for name, n in make_fused_rooms_rollout(renv, B_HEAD, K_HEAD).divisors.items():
+            used[f"Rooms-v0 layout {layout} {name}"] = n
     menv = gp.make("MultistoryFourRooms-v0", grid_z=MSROOMS_Z, device=dev)
     for name, n in make_fused_msrooms_rollout(menv, B_HEAD, K_HEAD).divisors.items():
         used[f"MSRooms grid_z={MSROOMS_Z} {name}"] = n
@@ -1727,12 +1753,12 @@ def sass_check() -> None:
     its MUFU.RCP and I2F.U32.RP, the runtime integer division's float
     reciprocal and conversion, in all and inside loops (``cuobjdump
     -sass``).  A kernel in which no loop is found fails.  Inside a loop, an
-    I2F.U32.RP fails the Taxi, RockSample, Tag, CRooms and MSRooms rollouts
-    and the CRooms Q trainer, and a MUFU.RCP the Taxi and RockSample
-    rollouts (Tag's flee rule, CRooms' division by a cell size that is not a
-    power of two and the trainers' averaging divide floats legitimately:
-    their count is reported).  The ROOMS rollout and the other trainers'
-    counts are reported only: the runtime divisions left to take out."""
+    I2F.U32.RP fails the Taxi, RockSample, Tag, CRooms, ROOMS and MSRooms
+    rollouts and the CRooms Q trainer, and a MUFU.RCP the Taxi and
+    RockSample rollouts (Tag's flee rule, CRooms' division by a cell size
+    that is not a power of two and the trainers' averaging divide floats
+    legitimately: their count is reported).  The other trainers' counts are
+    reported only: the runtime divisions left to take out."""
     from gym_po_tpu_torch.ops._build import _library_path, build_log
     from gym_po_tpu_torch.ops.probe_fused_taxi import (
         DIVISION_OPS,
@@ -1740,9 +1766,10 @@ def sass_check() -> None:
         ptxas_report,
     )
 
-    checked = ("fused_tag", "fused_crooms", "fused_msrooms", "fused_q_crooms")
-    for name in ("fused_taxi", "fused_rocksample", *checked, "fused_rooms",
-                 "fused_qlearning", "fused_ac"):
+    checked = ("fused_tag", "fused_crooms", "fused_rooms", "fused_msrooms",
+               "fused_q_crooms")
+    for name in ("fused_taxi", "fused_rocksample", *checked, "fused_qlearning",
+                 "fused_ac"):
         regs = ptxas_report(build_log(name))
         fatal = (DIVISION_OPS if name in ("fused_taxi", "fused_rocksample")
                  else ("I2F.U32.RP",) if name in checked else ())
@@ -1815,23 +1842,25 @@ def path5_checks(dev, errs, B=B_ROOMS_CHECK, K=K_ROOMS_TAPE) -> None:
                 raise AssertionError(f"{name}: not every env reset every step")
             say("tag-check", f"kernel == twin exactly: {name}, B={B} K={K}, "
                 f"mean reward/step {got[4].mean().item() / K:.6f}")
-            if limit == 1:
-                continue
 
-            env = gp.make("HeavenHellContinuous-v0", time_limit=40, device=dev)
+            hh_stats = not stats or limit == 1
+            env = gp.make("HeavenHellContinuous-v0", time_limit=limit, device=dev)
             run = make_fused_heavenhell_rollout(env, B, K, rows_per_tile=rpt,
-                                                episode_stats=not stats,
+                                                episode_stats=hh_stats,
                                                 rng_tape=mode == "tape")
             s3 = hh_tiles(env.reset_vec(gen, B)[1])
             tape = tape_for(run, mode)
             got, want = run(3, *s3, *tape), run.twin(3, *s3, *tape)
             torch.cuda.synchronize()
-            name = f"HeavenHellContinuous-v0 rows_per_tile={rpt}" + (
-                " episode_stats" if not stats else "") + f" {mode}"
+            name = (f"HeavenHellContinuous-v0 time_limit={limit} "
+                    f"rows_per_tile={rpt}" + (" episode_stats" if hh_stats
+                                              else "") + f" {mode}")
             compare(name, got, want, errs["fused_heavenhell"])
             check_hh(*got[:3])
             if got[2].dtype != torch.int32:
                 raise AssertionError(f"{name}: heaven tile is {got[2].dtype}")
+            if limit == 1 and not (got[6] == K).all():
+                raise AssertionError(f"{name}: not every env reset every step")
             say("heavenhell-check", f"kernel == twin exactly: {name}, B={B} "
                 f"K={K}, mean reward/step {got[3].mean().item() / K:.6f}, "
                 f"heaven share {got[2].double().mean().item():.4f}")
@@ -2032,15 +2061,21 @@ def path5_headline_checks(dev, errs, plain_ms):
 
 def path5_rollout_times(dev, card, heads, kern_ms) -> dict:
     """The counted rollout timings at B = 2^20, K = 256.  Returns what the
-    warm-up call's data needed of Tag and CRooms: ``{key: {"steps",
-    "resets", "hits"}}``.  Both rewards are 1 at a reset and 0 otherwise
-    (the registry's defaults, no truncation at K < 500), so the warm-up's
-    reward sums count its resets; an uncounted call of CRooms with a
-    reward of 1 on a wall hit (and 0 at the goal), on the same inputs and
-    seed, counts its hits (rewards do not feed back into the state; a hit
-    on a step that reaches the goal is not counted)."""
+    warm-up call's data needed of the three rollouts: ``{key: {"steps",
+    "resets", "hits"}}``.  Tag's and CRooms' rewards are 1 at a reset and 0
+    otherwise (the registry's defaults, no truncation at K < 500), so the
+    warm-up's reward sums count its resets; an uncounted call of CRooms
+    with a reward of 1 on a wall hit (and 0 at the goal), on the same
+    inputs and seed, counts its hits (rewards do not feed back into the
+    state; a hit on a step that reaches the goal is not counted).
+    HeavenHell's +1 and -1 cancel in the sums: an uncounted call with
+    episode stats, on the same inputs and seed, counts its resets
+    (``ep_cnt``)."""
     import gym_po_tpu_torch as gp
-    from gym_po_tpu_torch.ops import make_fused_crooms_rollout
+    from gym_po_tpu_torch.ops import (
+        make_fused_crooms_rollout,
+        make_fused_heavenhell_rollout,
+    )
 
     checks = {"fused_crooms": lambda env, s: check_crooms(env, *s[:4]),
               "fused_tag": lambda env, s: check_tag(*s),
@@ -2060,6 +2095,11 @@ def path5_rollout_times(dev, card, heads, kern_ms) -> dict:
         checks[key](env, carry["s"])
         if key != "fused_heavenhell":
             needs[key] = {"steps": steps, "resets": warm[len(state)].sum().item()}
+        else:
+            with uncounted():
+                ep_cnt = make_fused_heavenhell_rollout(
+                    env, B_HEAD, K_HEAD, episode_stats=True)(999, *state)[6]
+            needs[key] = {"steps": steps, "resets": ep_cnt.sum().item()}
         if key == "fused_crooms":
             hit_env = gp.make("CRooms-v0", device=dev, wall_reward=1.0,
                               goal_reward=0.0)
@@ -2449,8 +2489,10 @@ def main() -> int:
         B_TRAIN * K_TRAIN, rooms_terms["fused_q_msrooms"]))
     # path 5: the rollouts read their state tiles and write them and the
     # reward sums once per env (CRooms 24 + 28 B, Tag 16 + 20, HeavenHell
-    # 12 + 16).  HeavenHell: its 5 sites (2 blocks) every env-step.  What
-    # the warm-up call's data needed of the two redesigned rollouts: Tag,
+    # 12 + 16).  What the warm-up call's data needed of the three
+    # rollouts: HeavenHell, words 0-1 of block 0 every env-step and word 0
+    # of block 1 at each reset (the spawn's x and y, words 2-3 of block 0,
+    # left out: a bound need only be low); Tag,
     # block 0 (sites 0-2) every env-step and at each reset at least block 1
     # (the agent's y and the first candidate); CRooms, every env-step block
     # 0, words 0-1 of block 1 and the action's two normals, at each hit
@@ -2465,16 +2507,18 @@ def main() -> int:
     # normals and a respawn's block 3 are left out: this run does not count
     # the trainer's hits, and a bound need only be low (probe_fused_taxi
     # ``shares`` counts them and prints the bound at its shares).
-    b_rooms["fused_heavenhell"] = bound(28 * B_HEAD, philox_ops(
-        heads5["fused_heavenhell"][0].n_sites, B_HEAD * K_HEAD))
-    nt, nc = needs["fused_tag"], needs["fused_crooms"]
+    nh, nt, nc = needs["fused_heavenhell"], needs["fused_tag"], needs["fused_crooms"]
+    b_rooms["fused_heavenhell"] = bound(28 * B_HEAD, block_ops(
+        0, nh["steps"] + nh["resets"]))
     b_rooms["fused_tag"] = bound(36 * B_HEAD, block_ops(nt["steps"] + nt["resets"]))
     b_rooms["fused_crooms"] = bound(52 * B_HEAD, add_ops(
         block_ops(nc["steps"], nc["steps"] + max(nc["hits"], nc["resets"])),
         {"fma": WIDE_PRODUCT_FMA_SLOTS * nc["hits"], "alu": nc["hits"],
          "issue": 2 * nc["hits"]},
         normal_ops(2 * nc["steps"] + 2 * nc["hits"])))
-    eager = {"fused_tag": bound(36 * B_HEAD, philox_ops(
+    eager = {"fused_heavenhell": bound(28 * B_HEAD, philox_ops(
+                 heads5["fused_heavenhell"][0].n_sites, B_HEAD * K_HEAD)),
+             "fused_tag": bound(36 * B_HEAD, philox_ops(
                  heads5["fused_tag"][0].n_sites, B_HEAD * K_HEAD)),
              "fused_crooms": bound(52 * B_HEAD, add_ops(philox_ops(
                  heads5["fused_crooms"][0].n_sites, B_HEAD * K_HEAD),

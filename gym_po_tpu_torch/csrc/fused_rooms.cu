@@ -14,16 +14,22 @@
 // What bounds it on this card: not memory.  Each env reads 8 B of state and
 // writes 8 B (+4 B per f32 output) once per call, whatever K is; the tape,
 // in tape mode, is a test device.  The work is integer: one Philox4x32-10
-// block per step (4-5 draw sites), the u % n of each draw and two
-// shared-memory lookups.  The respawn choices (random or fixed goal and
-// agent) are template parameters, so every draw site is a compile-time
-// constant and picks its Philox word without selects.  The step itself is
-// rooms_step.cuh, shared with the trainers.
+// block per step (3-5 draw sites), the u % n of each draw and two
+// shared-memory lookups.  None of it divides at run time: every reduction
+// (n_act, n_act - 1, n_valid) goes through an invariant divisor (gpt::UDiv,
+// one multiply-add and a shift) whose constants the host hands in.  The
+// respawns (their draws and the walkable-cell lookups) run only where the
+// episode ends, drawn through gpt::LazyRNG: block 1 (the agent's site when
+// both spawns are random) is computed only there.  The respawn choices
+// (random or fixed goal and agent) are template parameters, so every draw
+// site is a compile-time constant.  The step itself is rooms_step.cuh,
+// shared with the trainers.
 //
-// Draw sites, in body order, every step whatever the masks say: commanded
-// action rbits(A), failure coin runiform() < p, alternative action
-// rbits(A - 1), goal respawn (random goal only), agent respawn (random
-// agent only).
+// Draw sites, in body order: commanded action rbits(A), failure coin
+// runiform() < p, alternative action rbits(A - 1) (every step), goal
+// respawn (random goal only), agent respawn (random agent only) (where the
+// episode ends).  The twin draws every site every step; the draws skipped
+// here are ones it discards.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,6 +44,10 @@ struct RoomsParams {
   int32_t fixed_goal, fixed_agent;  // flat cells, -1 when drawn
   uint32_t key0, key1;
   float p_fail, r_step, r_wall, r_goal;
+  // the reductions' invariant divisors: n_act, n_act - 1, n_valid (after
+  // the fields above, which keep the layout of the struct without them: a
+  // probe can launch an older build on these params)
+  gpt::UDiv act_div, alt_div, valid_div;
 };
 
 namespace {
@@ -80,8 +90,8 @@ __global__ void fused_rooms_kernel(RoomsParams P,
     if (P.episode_stats) ep_ret_out[e] = ep_len_out[e] = ep_cnt_out[e] = nan;
     return;
   }
-  gpt::KernelRNG<2> rng(tape, P.key0, P.key1, e, P.num_steps,
-                        P.rows_per_tile, P.n_sites);
+  gpt::LazyRNG rng(tape, P.key0, P.key1, e, P.num_steps, P.rows_per_tile,
+                   P.n_sites);
   const gpt::RoomsMap M = {P.ncells, P.n_valid, P.time_limit,
                            P.r_step, P.r_wall, P.r_goal};
   constexpr int kAgentSite = kRandGoal ? 4 : 3;
@@ -89,20 +99,26 @@ __global__ void fused_rooms_kernel(RoomsParams P,
   float racc = 0.f, cur_ret = 0.f, ep_ret = 0.f, ep_len = 0.f, ep_cnt = 0.f;
   for (int t = 0; t < P.num_steps; ++t) {
     rng.begin_step(t);
-    const int a_cmd = gpt::rbits(rng.draw(0), P.n_act);
-    const bool fail = gpt::runiform(rng.draw(1)) < P.p_fail;
-    const int alt = gpt::rbits(rng.draw(2), P.n_act - 1);
+    const gpt::U32x4 b0 = rng.block(0);
+    const int a_cmd = gpt::rbits(rng.draw(0, b0), P.act_div);
+    const bool fail = gpt::runiform(rng.draw(1, b0)) < P.p_fail;
+    const int alt = gpt::rbits(rng.draw(2, b0), P.alt_div);
     const gpt::RoomsMove mv =
         gpt::rooms_move(M, s_wall, s_disp, agent, goal,
                         gpt::rooms_executed(fail, alt, a_cmd), elapsed);
-    // goal first, then agent: the JAX kernel's body order
-    const int g_new =
-        kRandGoal ? gpt::rooms_spawn(s_valid, P.n_valid, rng.draw(3)) : P.fixed_goal;
-    const int a_new = kRandAgent
-                          ? gpt::rooms_spawn(s_valid, P.n_valid, rng.draw(kAgentSite))
-                          : P.fixed_agent;
-    goal = mv.reset ? g_new : goal;
-    agent = mv.reset ? a_new : mv.agent;
+    agent = mv.agent;
+    if (mv.reset) {
+      // goal first (site 3, block 0), then agent (site 3 or 4): the JAX
+      // kernel's body order
+      goal = kRandGoal ? gpt::rooms_spawn(s_valid, P.valid_div, rng.draw(3, b0))
+                       : P.fixed_goal;
+      if (kRandAgent) {
+        const gpt::U32x4 b1 = kAgentSite > 3 ? rng.block(1) : b0;
+        agent = gpt::rooms_spawn(s_valid, P.valid_div, rng.draw(kAgentSite, b1));
+      } else {
+        agent = P.fixed_agent;
+      }
+    }
     if (P.episode_stats) {
       cur_ret = cur_ret + mv.rew;
       if (mv.reset) {
@@ -133,8 +149,10 @@ extern "C" int fused_rooms_launch(const RoomsParams* P, const void* agent_in,
                                   void* goal_out, void* rew, void* ep_ret,
                                   void* ep_len, void* ep_cnt, void* stream) {
   const bool rand_goal = P->fixed_goal < 0, rand_agent = P->fixed_agent < 0;
-  if (P->n_sites != 3 + rand_goal + rand_agent || P->n_sites > 8)
-    return (int)cudaErrorInvalidValue;  // KernelRNG<2>
+  // sites 0-4 in two blocks; the divisors the ones the params name
+  if (P->n_sites != 3 + rand_goal + rand_agent || P->act_div.n != (uint32_t)P->n_act ||
+      P->alt_div.n != (uint32_t)P->n_act - 1 || P->valid_div.n != (uint32_t)P->n_valid)
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const int blocks = (P->num_envs + threads - 1) / threads;
   const size_t smem =

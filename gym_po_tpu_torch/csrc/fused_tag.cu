@@ -24,8 +24,12 @@
 // at the first candidate that qualifies; the corner distances only when
 // none does.  The draws it skips
 // are the ones the twin draws and discards (the draw contract is unchanged).
-// HeavenHell draws 5 sites, two blocks, and does a dozen compares and two
-// squared distances.
+// HeavenHell's contract has 5 sites in two blocks, but a step uses only the
+// two move uniforms (block 0) unless the env resets, which at the registry's
+// defaults only reaching a site does (its time limit, 500, is past a call of
+// K = 256 steps, and elapsed restarts at every call): so it draws block 0
+// every step and the spawn (sites 2-3 from block 0, the coin from block 1)
+// under a branch, and does a dozen compares and two squared distances.
 //
 // Exactness: every f32 operation is __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn/
 // __fsqrt_rn, so nvcc contracts nothing into an FMA and each rounds as in
@@ -34,8 +38,9 @@
 // Draw sites, in body order.  Tag: the agent's two move uniforms, the flee
 // mode rbits(4), the respawn agent's x and y, then the eight respawn
 // candidates' x and y (sites 0-2 used every step, 3-20 only where the env
-// resets).  HeavenHell, drawn every step whatever the masks say: the two
-// move uniforms, the respawn x and y, the heaven coin (bit 0 of the draw).
+// resets).  HeavenHell: the two move uniforms (sites 0-1, every step), the
+// respawn x and y and the heaven coin (bit 0 of the draw) (sites 2-4, only
+// where the env resets).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,15 +184,16 @@ fused_heavenhell_kernel(TagParams P, HHPtrs p, const int32_t* __restrict__ tape)
   if (e >= P.h.num_envs) return;
   float x = p.in_f(0, e), y = p.in_f(1, e);
   int h = p.in_i(2, e);
-  gpt::KernelRNG<2> rng(tape, P.h.key0, P.h.key1, e, P.h.num_steps,
-                        P.h.rows_per_tile, P.h.n_sites);
+  gpt::LazyRNG rng(tape, P.h.key0, P.h.key1, e, P.h.num_steps,
+                   P.h.rows_per_tile, P.h.n_sites);
   int elapsed = 0;
   float racc = 0.f;
   gpt::EpisodeStats stats;
   for (int t = 0; t < P.h.num_steps; ++t) {
     rng.begin_step(t);
-    const float px = move(x, gpt::runiform(rng.draw(0)), P.speed);
-    const float py = move(y, gpt::runiform(rng.draw(1)), P.speed);
+    const gpt::U32x4 b0 = rng.block(0);
+    const float px = move(x, gpt::runiform(rng.draw(0, b0)), P.speed);
+    const float py = move(y, gpt::runiform(rng.draw(1, b0)), P.speed);
     if (in_free(px, py)) {
       x = px;
       y = py;
@@ -201,15 +207,13 @@ fused_heavenhell_kernel(TagParams P, HHPtrs p, const int32_t* __restrict__ tape)
     elapsed += 1;
     const int length = elapsed;
     const bool reset = done || elapsed >= P.h.time_limit;
-    if (reset) elapsed = 0;
-    // spawn: x ~ U(-1, 1), y ~ U(0, 1), a fair heaven coin
-    const float nx = __fsub_rn(__fmul_rn(gpt::runiform(rng.draw(2)), 2.0f), 1.0f);
-    const float ny = gpt::runiform(rng.draw(3));
-    const int nh = (int)(rng.draw(4) & 1u);
     if (reset) {
-      x = nx;
-      y = ny;
-      h = nh;
+      elapsed = 0;
+      // spawn: x ~ U(-1, 1), y ~ U(0, 1) (block 0), a fair heaven coin
+      // (block 1, computed only here)
+      x = __fsub_rn(__fmul_rn(gpt::runiform(rng.draw(2, b0)), 2.0f), 1.0f);
+      y = gpt::runiform(rng.draw(3, b0));
+      h = (int)(rng.draw(4, rng.block(1)) & 1u);
     }
     if (P.h.episode_stats) stats.add(rew, reset, length);
     racc = __fadd_rn(racc, rew);
@@ -241,7 +245,7 @@ extern "C" int fused_tag_launch(const TagParams* P, const void* const* in,
 extern "C" int fused_heavenhell_launch(const TagParams* P, const void* const* in,
                                        void* const* out, const void* const* /*tab*/,
                                        const void* tape, void* stream) {
-  if (P->h.n_sites != 5) return (int)cudaErrorInvalidValue;  // KernelRNG<2>
+  if (P->h.n_sites != 5) return (int)cudaErrorInvalidValue;  // sites 0-4
   const int threads = gpt::kRolloutThreads;
   const int blocks = (P->h.num_envs + threads - 1) / threads;
   fused_heavenhell_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

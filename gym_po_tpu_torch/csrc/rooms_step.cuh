@@ -63,9 +63,14 @@ __device__ __forceinline__ RoomsMove rooms_move(const RoomsMap& M,
   return out;
 }
 
-// a uniform walkable cell from one draw
+// a uniform walkable cell from one draw: u % n_valid by a runtime division
+// (the trainers), or by the invariant divisor of n_valid (the rollout)
 __device__ __forceinline__ int rooms_spawn(const int32_t* valid, int n_valid,
                                            uint32_t u) {
+  return valid[rbits(u, n_valid)];
+}
+__device__ __forceinline__ int rooms_spawn(const int32_t* valid,
+                                           const UDiv& n_valid, uint32_t u) {
   return valid[rbits(u, n_valid)];
 }
 

@@ -7,7 +7,11 @@ goal respawns from the walkable cells, and optional per-env episode
 statistics.  The kernel (``csrc/fused_rooms.cu``) runs one thread per env
 over the flat ``[B]`` layout and keeps a whole rollout in registers, with
 the step's tables in shared memory; its source note says what bounds it on
-the card.  ``run.twin`` is the plain PyTorch version of the same function.
+the card.  It reduces every draw by invariant divisors whose constants the
+host hands in (``run.divisors``: the actions, the actions less one, the
+walkable cells), and draws a respawn only where an episode ends; the twin
+draws every site every step.  ``run.twin`` is the plain PyTorch version of
+the same function.
 
 ``run(seed, agent, goal, *tape)`` keeps the JAX package's contract:
 ``agent`` and ``goal`` are flat cells (``y * W + x``) laid out int32
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from ._build import count_launch
-from .kernel_rng import MASK32, KernelRNG, W, check_batch
+from .kernel_rng import MASK32, KernelRNG, UDiv, W, check_batch
 from .rooms_dynamics import RoomsDynamics
 
 __all__ = ["make_fused_rooms_rollout", "rooms_family_rollout"]
@@ -48,6 +52,7 @@ class _RoomsParams(ctypes.Structure):
     _fields_ += [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)]
     _fields_ += [(n, ctypes.c_float) for n in (
         "p_fail", "r_step", "r_wall", "r_goal")]
+    _fields_ += [(n, UDiv) for n in ("act_div", "alt_div", "valid_div")]
 
 
 @functools.cache
@@ -74,10 +79,17 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
     of shape ``run.tape_shape`` in place of Philox.
     """
     dyn = RoomsDynamics(env)
-    return rooms_family_rollout(
-        dyn, "fused_rooms", _RoomsParams, dict(n_valid=dyn.n_valid),
+    divisors = {"n_act": dyn.n_act, "n_act - 1": dyn.n_act - 1,
+                "n_valid": dyn.n_valid}
+    run = rooms_family_rollout(
+        dyn, "fused_rooms", _RoomsParams,
+        dict(n_valid=dyn.n_valid,
+             **dict(zip(("act_div", "alt_div", "valid_div"),
+                        map(UDiv.of, divisors.values())))),
         ("wall", "valid", "disp"), num_envs, num_steps, rows_per_tile,
         episode_stats, rng_tape)
+    run.divisors = divisors
+    return run
 
 
 def rooms_family_rollout(dyn, kernel: str, params_cls, params: dict,

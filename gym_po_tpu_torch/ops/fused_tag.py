@@ -13,7 +13,10 @@ the ±1 terminals, and the respawn with a fair heaven coin; 5 sites.  Both
 take optional per-env episode statistics.  The kernels
 (``csrc/fused_tag.cu``) run one thread per env over the flat ``[B]``
 layout and keep a whole rollout in registers; the source note says what
-bounds them on the card.  ``run.twin`` is the plain PyTorch version.
+bounds them on the card.  Each draws its respawn only where an env resets
+(Tag's candidate blocks as its search reaches them, HeavenHell's coin
+block); the twins draw every site every step and discard what a step does
+not use.  ``run.twin`` is the plain PyTorch version.
 
 ``run(seed, a0, a1, t0, t1, *tape)`` (Tag: agent and target xy, f32 tiles)
 and ``run(seed, x, y, heaven, *tape)`` (HeavenHell: f32, f32 and an int32

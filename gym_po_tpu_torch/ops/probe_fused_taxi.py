@@ -1,5 +1,6 @@
 """Measurement probe of the fused rollout kernels (Taxi, RockSample, Tag,
-CRooms) on a CUDA device.
+HeavenHell, CRooms, ROOMS, MultistoryFourRooms) and the CRooms Q trainer
+on a CUDA device.
 
     python -m gym_po_tpu_torch.ops.probe_fused_taxi [section ...] [--parent DIR]
 
@@ -12,8 +13,9 @@ named):
   policy) at B = 2^20, K = 256;
 - ``profile``: ``torch.profiler`` device time of 4 chained headline calls
   against their wall time, and of the ``step_vec`` rollout at B = 65,536;
-- ``variants``: copies of the Taxi, RockSample, Tag and CRooms rollouts'
-  sources with one part taken out (the input range guard, the Philox
+- ``variants``: copies of the Taxi, RockSample, Tag (with HeavenHell),
+  CRooms, ROOMS and MSRooms rollouts' and the CRooms Q trainer's sources
+  with one part taken out (the input range guard, the Philox
   rounds), made a compile-time constant (the 5x5 map), built another way
   (CRooms' ``warp-packed`` wall resample, Tag's respawn not inlined, a
   register cap by ``__launch_bounds__``) or put back as the parent design
@@ -21,10 +23,14 @@ named):
   every draw's ``u % n`` is a hardware division sequence again; with
   ``--parent``, each kernel as the parent built it), built under
   ``build/gym_po_tpu_torch/probe/`` and timed beside the sources as they
-  are (Taxi on ``HansenTaxi-v4``, RockSample at [7,8] and (11,11), Tag and
-  CRooms at the registry's defaults and at time limit 1; ``warp-vote``:
+  are (Taxi on ``HansenTaxi-v4``, RockSample at [7,8] and (11,11), Tag,
+  HeavenHell and CRooms at the registry's defaults and at time limit 1,
+  ROOMS and MSRooms also with both spawns drawn; ``warp-vote``:
   Tag's respawn and CRooms' resample and spawn under an explicit
-  ``__any_sync`` vote, where the sources branch plainly), to attribute the
+  ``__any_sync`` vote, where the sources branch plainly; HeavenHell's
+  ``coin-eager`` and ``coin-at-truncation``: its coin's Philox block
+  computed at the top of every step, or of the steps the time limit ends,
+  where the source computes it only in the reset branch), to attribute the
   kernels' time;
 - ``spread``: ten repeats of ``chip_smoke.py``'s headline timing, for the
   run-to-run spread inside one process;
@@ -35,12 +41,14 @@ named):
   against the current sources in one process, at B = 2^20, K = 256: Taxi on
   ``HansenTaxi-v4`` (random policy and a greedy table) and on
   ``ExtendedHansenTaxi-v4``, RockSample at [7,8] and (11,11), Tag and
-  CRooms at the registry's defaults and at the reset-heavy time limit 1,
-  HeavenHell, the ROOMS and MultistoryFourRooms (grid_z = 3) rollouts, and
-  the CRooms Q trainer at B = 65,536; each the median of 5
+  HeavenHell at the registry's defaults and at the reset-heavy time limit
+  1, the ROOMS and MultistoryFourRooms (grid_z = 3) rollouts there and with
+  both spawns drawn, CRooms, and the CRooms Q trainer (at its defaults and
+  time limit 1) and the MSRooms Q trainer at B = 65,536; each the median of 5
   CUDA-event windows of 4 calls per source, the two sources' windows
   alternating;
-- ``sass``: for the Taxi, RockSample, Tag and CRooms rollouts (and, with
+- ``sass``: for the Taxi, RockSample, Tag, CRooms, ROOMS and MSRooms
+  rollouts (and, with
   ``--parent``, the parent's), each kernel's registers, stack frame and
   spills (ptxas) and its ``MUFU.RCP`` and ``I2F.U32.RP`` (the runtime
   integer division's float reciprocal), in all and inside loops
@@ -61,10 +69,11 @@ named):
   eight independent chains per thread, 2,048 threads per SM, timed by each
   SM's own ``clock64`` (the SASS of each loop printed beside it): the pipe
   rates behind the bounds;
-- ``shares``: counter copies of the Tag and CRooms rollouts (each held to
-  its twin first), at the cells of ``variants``: resets and wall hits per
-  env-step and per warp-step, Tag's candidates per respawn and corner
-  fallbacks, warps with more than 16 hits.
+- ``shares``: counter copies of the Tag, HeavenHell, CRooms, ROOMS and
+  MSRooms rollouts and the CRooms Q trainer (each held to its twin first),
+  at the cells of ``variants``: resets and wall hits per env-step and per
+  warp-step, Tag's candidates per respawn and corner fallbacks, warps with
+  more than 16 hits, and the CRooms Q trainer's bound at its shares.
 
 Every line it prints is a measurement of this run; the first line is the
 card's name and power limit as ``nvidia-smi`` gives them.
@@ -175,7 +184,8 @@ def _setup_state(kind, B=B_HEAD, K=K_HEAD, **kw):
 
 def _setup_rooms(kind, B=B_HEAD, K=K_HEAD, twin=False, **kw):
     """One call of the ROOMS (``Rooms-v0``) or MultistoryFourRooms
-    (``grid_z = 3``) rollout at the registry's defaults (``kw`` on top),
+    (``grid_z = 3``) rollout at the registry's defaults (``kw`` on top of
+    either),
     from ``reset_vec`` with seed 0, as chip_smoke.py's heads; with
     ``twin``, ``(call, the twin's call)``."""
     import gym_po_tpu_torch as gp
@@ -183,7 +193,7 @@ def _setup_rooms(kind, B=B_HEAD, K=K_HEAD, twin=False, **kw):
 
     dev = torch.device("cuda")
     if kind == "rooms":
-        env = gp.make("Rooms-v0", device=dev)
+        env = gp.make("Rooms-v0", device=dev, **kw)
         _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(0), B)
         W = env.grid_np.shape[1]
         cells = [(yx[:, 0].int() * W + yx[:, 1].int()) for yx in (st.agent_yx, st.goal_yx)]
@@ -614,6 +624,23 @@ VARIANTS = {
                               "__device__ __noinline__ void tag_respawn(")],
         "min-blocks-6": [min_blocks("fused_tag.cu", 6)],
         "warp-vote": VOTE_TAG,
+        # HeavenHell's coin block (block 1) computed at the top of the step
+        # where the time limit ends the episode, or every step (the spawn
+        # stays under its branch), where the source computes it only in the
+        # reset branch
+        "coin-at-truncation": [
+            ("fused_tag.cu", "    const gpt::U32x4 b0 = rng.block(0);\n    const float px = move(x,",
+             "    const gpt::U32x4 b0 = rng.block(0);\n"
+             "    const bool trunc = elapsed + 1 >= P.h.time_limit;\n"
+             "    gpt::U32x4 b1 = {};\n    if (trunc) b1 = rng.block(1);\n"
+             "    const float px = move(x,"),
+            ("fused_tag.cu", "rng.draw(4, rng.block(1))", "rng.draw(4, trunc ? b1 : rng.block(1))")],
+        "coin-eager": [
+            ("fused_tag.cu", "    const gpt::U32x4 b0 = rng.block(0);\n    const float px = move(x,",
+             "    const gpt::U32x4 b0 = rng.block(0);\n"
+             "    const gpt::U32x4 b1 = rng.block(1);\n"
+             "    const float px = move(x,"),
+            ("fused_tag.cu", "rng.draw(4, rng.block(1))", "rng.draw(4, b1)")],
     },
     "fused_crooms": {
         "as-is": [],  # each hitting lane its own block 2 and two normals
@@ -636,14 +663,23 @@ VARIANTS = {
         "runtime-div": [RUNTIME_DIV],
         "philox-0-rounds": [PHILOX_0],
     },
+    "fused_rooms": {
+        "as-is": [],
+        "runtime-div": [RUNTIME_DIV],
+        "philox-0-rounds": [PHILOX_0],
+    },
 }
 # the continuous kernels' variants are timed on these cells: (label, the
-# env's kwargs)
+# rollout (``_setup_state``'s kind, whose kernel's entry the source holds),
+# the env's kwargs); HeavenHell's kernel is in fused_tag.cu beside Tag's
 VARIANT_CELLS = {
-    "fused_tag": [("TagContinuous-v0", {}),
-                  ("TagContinuous-v0 time_limit=1", {"time_limit": 1})],
-    "fused_crooms": [("CRooms-v0", {}),
-                     ("CRooms-v0 time_limit=1", {"time_limit": 1})],
+    "fused_tag": [("TagContinuous-v0", "tag", {}),
+                  ("TagContinuous-v0 time_limit=1", "tag", {"time_limit": 1}),
+                  ("HeavenHellContinuous-v0", "heavenhell", {}),
+                  ("HeavenHellContinuous-v0 time_limit=1", "heavenhell",
+                   {"time_limit": 1})],
+    "fused_crooms": [("CRooms-v0", "crooms", {}),
+                     ("CRooms-v0 time_limit=1", "crooms", {"time_limit": 1})],
 }
 
 
@@ -673,7 +709,8 @@ def variants(parent=None) -> None:
         state = state if isinstance(state, tuple) else (state,)
         return lambda: run(1, *state)
 
-    # kernel: [(cell, B, one call)]
+    # kernel: [(cell, B, one call[, the launch entry when it is not
+    # <kernel>_launch])]
     setups = {"fused_taxi": [("HansenTaxi-v4", B_HEAD, roll(*_setup()[1:]))],
               "fused_rocksample": [
                   (f"RockSample{ms + (k,)}", B_HEAD, roll(*_setup_rock(ms, k)[1:]))
@@ -685,25 +722,31 @@ def variants(parent=None) -> None:
               "fused_msrooms": [
                   ("MultistoryFourRooms-v0 grid_z=3", B_HEAD, _setup_rooms("msrooms")),
                   ("MultistoryFourRooms-v0 grid_z=3 time_limit=1", B_HEAD,
-                   _setup_rooms("msrooms", time_limit=1))]}
+                   _setup_rooms("msrooms", time_limit=1))],
+              "fused_rooms": [
+                  ("Rooms-v0", B_HEAD, _setup_rooms("rooms")),
+                  ("Rooms-v0 random goal and agent", B_HEAD,
+                   _setup_rooms("rooms", goal_xy=None)),
+                  ("Rooms-v0 time_limit=1", B_HEAD,
+                   _setup_rooms("rooms", time_limit=1))]}
     for kernel, cells in VARIANT_CELLS.items():
-        kind = kernel.split("_")[1]
-        setups[kernel] = [(cell, B_HEAD, roll(*_setup_state(kind, **kw)))
-                          for cell, kw in cells]
+        setups[kernel] = [(cell, B_HEAD, roll(*_setup_state(kind, **kw)),
+                           f"fused_{kind}_launch") for cell, kind, kw in cells]
     modules = {"fused_taxi": fused_taxi, "fused_rocksample": fused_rocksample,
                "fused_tag": state_rollout, "fused_crooms": state_rollout,
-               "fused_q_crooms": fused_q_crooms, "fused_msrooms": fused_rooms}
+               "fused_q_crooms": fused_q_crooms, "fused_msrooms": fused_rooms,
+               "fused_rooms": fused_rooms}
     for (d, kernel, _), (lib, log) in zip(jobs, built):
         regs = ",".join(re.findall(r"Used (\d+) registers", log))
-        for cell, B, call in setups[kernel]:
-            with _launcher_from(modules[kernel], lib, f"{kernel}_launch"):
+        for cell, B, call, *entry in setups[kernel]:
+            with _launcher_from(modules[kernel], lib, (entry or [f"{kernel}_launch"])[0]):
                 ms = event_ms(call)
             _report(f"variant {kernel} {d.name} {cell} (registers {regs})",
                     B, K_HEAD, ms)
 
 
-# ``shares``: counter copies of the Tag and CRooms rollouts, the CRooms Q
-# trainer [14] and the MSRooms rollout [6].  Each lane counts in registers
+# ``shares``: counter copies of the Tag, HeavenHell, CRooms, ROOMS and
+# MSRooms rollouts and the CRooms Q trainer [14].  Each lane counts in registers
 # (the trainer per thread, over its envs) and adds its counts to g_counts
 # once, at the end:
 # [0] env-steps that reset, [1] env-steps whose warp votes to reset (each
@@ -742,6 +785,19 @@ SHARES = {
          "    if (reset) tag_respawn("),
         ("fused_tag.cu", "  if (P.h.episode_stats) stats.store(p, 5, e);\n}\n",
          "  if (P.h.episode_stats) stats.store(p, 5, e);" + COUNTS_FLUSH),
+        # HeavenHell, in the same source (the counts' declaration above
+        # went into both kernels)
+        ("fused_tag.cu", "fused_heavenhell_kernel(TagParams P, HHPtrs p, const int32_t* __restrict__ tape) {\n"
+         "  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;\n"
+         + EARLY_RETURN,
+         "fused_heavenhell_kernel(TagParams P, HHPtrs p, const int32_t* __restrict__ tape) {\n"
+         "  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;\n"
+         + LIVE_BALLOT + EARLY_RETURN),
+        ("fused_tag.cu", "    if (reset) {\n      elapsed = 0;\n",
+         "    n[0] += reset; n[1] += __any_sync(live, reset) != 0; n[7] += 1;\n"
+         "    if (reset) {\n      elapsed = 0;\n"),
+        ("fused_tag.cu", "  if (P.h.episode_stats) stats.store(p, 4, e);\n}\n",
+         "  if (P.h.episode_stats) stats.store(p, 4, e);" + COUNTS_FLUSH),
     ],
     "fused_crooms": [
         ("fused_crooms.cu", '#include "state_rollout.cuh"\n',
@@ -784,9 +840,19 @@ SHARES = {
         ("fused_msrooms.cu", "    ep_cnt_out[e] = ep_cnt;\n  }\n}\n",
          "    ep_cnt_out[e] = ep_cnt;\n  }" + COUNTS_FLUSH),
     ],
+    "fused_rooms": [
+        ("fused_rooms.cu", '#include "rooms_step.cuh"\n',
+         '#include "rooms_step.cuh"\n' + COUNTS_DEF),
+        ("fused_rooms.cu", "  gpt::LazyRNG rng(tape,", COUNTS_DECL + "  gpt::LazyRNG rng(tape,"),
+        ("fused_rooms.cu", "    if (mv.reset) {\n      // goal first",
+         "    n[0] += mv.reset; n[1] += __any_sync(0xffffffffu, mv.reset) != 0; n[7] += 1;\n"
+         "    if (mv.reset) {\n      // goal first"),
+        ("fused_rooms.cu", "    ep_cnt_out[e] = ep_cnt;\n  }\n}\n",
+         "    ep_cnt_out[e] = ep_cnt;\n  }" + COUNTS_FLUSH),
+    ],
 }
-# the counter copies of [14] and [6] are read at these cells: (label, setup
-# kwargs)
+# the counter copies of [14], [6] and [5] are read at these cells: (label,
+# setup kwargs)
 SHARE_CELLS = {
     "fused_q_crooms": [("CRooms-v0 ordinal Q B=65536", {}),
                        ("CRooms-v0 ordinal Q B=65536 time_limit=1",
@@ -796,6 +862,9 @@ SHARE_CELLS = {
                        {"goal_xyz": None}),
                       ("MultistoryFourRooms-v0 grid_z=3 time_limit=1",
                        {"time_limit": 1})],
+    "fused_rooms": [("Rooms-v0", {}),
+                    ("Rooms-v0 random goal and agent", {"goal_xy": None}),
+                    ("Rooms-v0 time_limit=1", {"time_limit": 1})],
 }
 
 
@@ -836,10 +905,10 @@ def _q_crooms_share_bound(n) -> str:
 def shares() -> None:
     """The reset and wall-hit shares of [9] and [8] at B = 2^20, K = 256,
     of [14] at B = 65,536, K = 256 from Q = 0 (chip_smoke.py's timing
-    shape) and the reset shares of [6] at B = 2^20, K = 256, per lane and
-    per warp, from counter copies of the sources (the draws and results are
-    the sources' own: each copy's first call is held to the twin's on a
-    smaller batch)."""
+    shape) and the reset shares of [10], [6] and [5] at B = 2^20, K = 256,
+    per lane and per warp, from counter copies of the sources (the draws
+    and results are the sources' own: each copy's first call of each kernel
+    is held to the twin's on a smaller batch)."""
     from . import fused_q_crooms, fused_rooms, state_rollout
     from ._build import BUILD_DIR, CSRC
 
@@ -852,28 +921,34 @@ def shares() -> None:
         lib = built[kernel][0]
         read = ctypes.CDLL(str(lib)).probe_counts
         read.argtypes = [ctypes.c_void_p]
-        kind = kernel.split("_")[1]
-        with _launcher_from(state_rollout, lib, f"{kernel}_launch"):
-            run, state = _setup_state(kind, B=1 << 14, K=64, time_limit=40)
-            got, want = run(3, *state), run.twin(3, *state)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"counter copy of {kernel} differs from the twin")
-            read(out)
-            for cell, kw in cells:
+        held = set()
+        for cell, kind, kw in cells:
+            with _launcher_from(state_rollout, lib, f"fused_{kind}_launch"):
+                if kind not in held:
+                    run, state = _setup_state(kind, B=1 << 14, K=64, time_limit=40)
+                    got, want = run(3, *state), run.twin(3, *state)
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(f"counter copy of fused_{kind} "
+                                             "differs from the twin")
+                    held.add(kind)
                 run, state = _setup_state(kind, **kw)
                 torch.cuda.synchronize()
                 read(out)  # cleared
                 run(1, *state)
                 torch.cuda.synchronize()
                 read(out)
-                print(_share_line(kernel, cell, B_HEAD, list(out)), flush=True)
-    # [14] and [6]: each copy held to its twin, then read at its cells
+                print(_share_line(f"fused_{kind}", cell, B_HEAD, list(out)),
+                      flush=True)
+    # [14], [6] and [5]: each copy held to its twin, then read at its cells
     held = {"fused_q_crooms": (fused_q_crooms, lambda **kw: _setup_q_crooms(
                 B=8192, K=32, twin=True, **kw), B_TRAIN,
                 lambda **kw: _setup_q_crooms(**kw)),
             "fused_msrooms": (fused_rooms, lambda **kw: _setup_rooms(
                 "msrooms", B=1 << 14, K=64, twin=True, time_limit=40, **kw),
-                B_HEAD, lambda **kw: _setup_rooms("msrooms", **kw))}
+                B_HEAD, lambda **kw: _setup_rooms("msrooms", **kw)),
+            "fused_rooms": (fused_rooms, lambda **kw: _setup_rooms(
+                "rooms", B=1 << 14, K=64, twin=True, time_limit=40, **kw),
+                B_HEAD, lambda **kw: _setup_rooms("rooms", **kw))}
     for kernel, (module, small, B, setup) in held.items():
         lib = built[kernel][0]
         read = ctypes.CDLL(str(lib)).probe_counts
@@ -955,9 +1030,9 @@ def acting() -> None:
 
 
 # ab's cases: (label, source, the wrapper module to patch, its entry, setup
-# returning one call); the redesigned kernels at the registry's defaults and
-# at the reset-heavy time limit 1 (and [6] with both spawns drawn), and the
-# controls [10], [5], [8] and [4]
+# returning one call); the redesigned kernels at the registry's
+# defaults and at the reset-heavy time limit 1 (and [6] and [5] with both
+# spawns drawn), and the controls [8] and [4]
 def _ab_cases():
     import gym_po_tpu_torch as gp
 
@@ -1006,11 +1081,17 @@ def _ab_cases():
                *msrooms, lambda: _setup_rooms("msrooms", goal_xyz=None)),
               ("[6] MultistoryFourRooms-v0 grid_z=3 time_limit=1", *msrooms,
                lambda: _setup_rooms("msrooms", time_limit=1)),
+              ("[10] HeavenHellContinuous-v0", *hh,
+               lambda: roll(*_setup_state("heavenhell"))),
+              ("[10] HeavenHellContinuous-v0 time_limit=1", *hh,
+               lambda: roll(*_setup_state("heavenhell", time_limit=1))),
+              ("[5] Rooms-v0", *rooms, lambda: _setup_rooms("rooms")),
+              ("[5] Rooms-v0 random goal and agent", *rooms,
+               lambda: _setup_rooms("rooms", goal_xy=None)),
+              ("[5] Rooms-v0 time_limit=1", *rooms,
+               lambda: _setup_rooms("rooms", time_limit=1)),
               ("[8] CRooms-v0 (control)", *crooms,
                lambda: roll(*_setup_state("crooms"))),
-              ("[10] HeavenHellContinuous-v0 (control)", *hh,
-               lambda: roll(*_setup_state("heavenhell"))),
-              ("[5] Rooms-v0 (control)", *rooms, lambda: _setup_rooms("rooms")),
               ("[4] MultistoryFourRooms-v0 grid_z=3 Q trainer B=65536 (control)",
                *qms, _setup_q_msrooms)]
     return cases
@@ -1189,7 +1270,8 @@ ALL_SOURCES = ("fused_taxi", "fused_qlearning", "fused_rooms", "fused_ac",
                "fused_q_crooms", "fused_tag")
 
 
-ROLLOUTS = ("fused_taxi", "fused_rocksample", "fused_tag", "fused_crooms")
+ROLLOUTS = ("fused_taxi", "fused_rocksample", "fused_tag", "fused_crooms",
+            "fused_rooms", "fused_msrooms")
 KEYS = ("fma", "fp32", "alu", "xu", "uniform", "other", "issue")
 
 

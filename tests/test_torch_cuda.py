@@ -1210,3 +1210,72 @@ def test_fused_msrooms_kernel_spawns_equal_twin(cuda, mode, time_limit, goal,
     _assert_exact(got, want)
     if time_limit == 1:
         assert (got[5] >= K // 2).all()  # episodes per env
+
+
+# [10] and [5] with their respawns drawn only where an episode ends ([5]
+# also without runtime integer division): held to their twins, which draw
+# every site every step
+HH_RESET_CASES = {"defaults": (500, False), "every-step": (1, False),
+                  "half-warps": (500, True)}
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("case", list(HH_RESET_CASES))
+def test_fused_heavenhell_kernel_resets_equal_twin(cuda, mode, case):
+    """At the registry's defaults (no env can reach a site in 8 steps from
+    the spawn region), at time limit 1 (every env resets every step) and
+    with the even lanes started on the heaven site (a reset at the first
+    step in every warp, the odd lanes walking on)."""
+    limit, half = HH_RESET_CASES[case]
+    B, K = 8192, 8
+    env = gpt_torch.make("HeavenHellContinuous-v0", time_limit=limit)
+    run = make_fused_heavenhell_rollout(env, B, K, rows_per_tile=4,
+                                        episode_stats=True,
+                                        rng_tape=mode == "tape")
+    _, st = env.reset_vec(torch.Generator(device=cuda).manual_seed(33), B)
+    state = [st.agent_xy[:, 0].reshape(-1, 128).contiguous(),
+             st.agent_xy[:, 1].reshape(-1, 128).contiguous(),
+             st.heaven_right.to(torch.int32).reshape(-1, 128).contiguous()]
+    if half:
+        state[0].view(-1)[0::2] = -6.25
+        state[1].view(-1)[0::2] = 6.0
+    ep_cnt = _equal(run, state, _tape(run, 34, cuda) if mode == "tape" else ())[6]
+    ep_cnt = ep_cnt.view(-1)
+    if case == "defaults":
+        assert (ep_cnt == 0).all()
+    elif case == "every-step":
+        assert (ep_cnt == K).all()
+    else:
+        assert (ep_cnt[0::2] >= 1).all() and (ep_cnt[1::2] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["tape", "philox"])
+@pytest.mark.parametrize("time_limit", [500, 1])
+@pytest.mark.parametrize("goal", ["fixed", "random"])
+@pytest.mark.parametrize("agent", ["fixed", "random"])
+def test_fused_rooms_kernel_spawns_equal_twin(cuda, mode, time_limit, goal,
+                                              agent):
+    """All four spawn combinations on layout '4', at the registry's time
+    limit and at 1 (every env resets every second step), a third of the
+    agents next to their goals."""
+    kw = {} if goal == "fixed" else {"goal_xy": None}
+    if agent == "fixed":
+        kw["agent_xy"] = (1, 1)
+    env = gpt_torch.make("Rooms-v0", time_limit=time_limit, **kw)
+    B, K = 8192, 48
+    run = make_fused_rooms_rollout(env, B, K, rows_per_tile=4,
+                                   episode_stats=True, rng_tape=mode == "tape")
+    a0, g0 = _rooms_cells(env, B, 7)
+    near = g0.view(-1)[0::3] - 1  # west of the goal, where that is walkable
+    walk = torch.as_tensor(env.grid_np.reshape(-1) >= 0, device=cuda)
+    a0.view(-1)[0::3] = torch.where(walk[near.long()], near, a0.view(-1)[0::3])
+    tape = _tape(run, 8, cuda) if mode == "tape" else ()
+    got = run(9, a0, g0, *tape)
+    want = run.twin(9, a0, g0, *tape)
+    torch.cuda.synchronize()
+    assert run.launches == 1
+    _assert_exact(got, want)
+    if time_limit == 1:
+        assert (got[5] >= K // 2).all()  # episodes per env
+    else:
+        assert got[5].sum() > 0

@@ -2,9 +2,9 @@
 the host constants of ``ops/kernel_rng.py::UDiv.of`` through the device
 formula, emulated in int64 (``udivmod``), against ``u // n`` and ``u % n``.
 
-The Taxi, RockSample and MultistoryFourRooms rollout kernels reduce their
-draws, the Taxi rollout decodes its state and the MultistoryFourRooms step
-finds a cell's floor by these constants; the kernels against their twins
+The Taxi, RockSample, ROOMS and MultistoryFourRooms rollout kernels
+reduce their draws, the Taxi rollout decodes its state and the
+MultistoryFourRooms step finds a cell's floor by these constants; the kernels against their twins
 on the card are in test_torch_cuda.py, and ``chip_smoke.py``'s
 ``divisors`` phase holds the device helper to the hardware's ``/`` and
 ``%`` over all 2^32 u.  The parameter structs that carry them are held to
@@ -22,13 +22,16 @@ import gym_po_tpu_torch as gpt_torch
 from gym_po_tpu_torch.ops import (
     make_fused_msrooms_rollout,
     make_fused_rocksample_rollout,
+    make_fused_rooms_rollout,
     make_fused_taxi_rollout,
 )
+from gym_po_tpu_torch.maps import LAYOUT_NAMES
 from gym_po_tpu_torch.ops._build import CSRC
 from gym_po_tpu_torch.ops.fused_msrooms import _MSRoomsParams
 from gym_po_tpu_torch.ops.fused_q_crooms import _QCRoomsParams
 from gym_po_tpu_torch.ops.fused_qlearning import MAX_TRACE, _QParams
 from gym_po_tpu_torch.ops.fused_rocksample import _RockSampleParams
+from gym_po_tpu_torch.ops.fused_rooms import _RoomsParams
 from gym_po_tpu_torch.ops.fused_taxi import TAXI_DIVISORS
 from gym_po_tpu_torch.ops.kernel_rng import MASK32, UDiv, udivmod
 
@@ -196,6 +199,23 @@ def test_msrooms_rollout_divisors_are_exact(grid_z, goal, agent):
         assert mismatches(dense_u(n)[None, :], [n]) == 0
 
 
+@pytest.mark.parametrize("layout", LAYOUT_NAMES)
+@pytest.mark.parametrize("goal", ["fixed", "random"])
+def test_rooms_rollout_divisors_are_exact(layout, goal):
+    """The ROOMS rollout's divisors on every layout: the actions, the
+    actions less one and the walkable cells (111 on layout '2' to 852 on
+    '32'), each exact over dense u, whether the goal is fixed or drawn."""
+    kw = {} if goal == "fixed" else {"goal_xy": None}
+    env = gpt_torch.make("Rooms-v0", layout=layout, device="cpu", **kw)
+    run = make_fused_rooms_rollout(env, 256, 2)
+    n_valid = int((env.grid_np >= 0).sum())
+    assert run.n_sites == 4 + (goal == "random")
+    assert tuple(run.divisors.values()) == (8, 7, n_valid)
+    assert n_valid == len(env.valid_states)
+    for n in run.divisors.values():
+        assert mismatches(dense_u(n)[None, :], [n]) == 0
+
+
 C_TYPES = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32,
            "float": ctypes.c_float, "gpt::UDiv": UDiv}
 C_CONSTANTS = {"kMaxTrace": MAX_TRACE}
@@ -223,6 +243,7 @@ def c_struct(source: str, name: str) -> type:
 @pytest.mark.parametrize("mirror,source,name", [
     (_QCRoomsParams, "fused_q_crooms.cu", "QCRoomsParams"),
     (_MSRoomsParams, "fused_msrooms.cu", "MSRoomsParams"),
+    (_RoomsParams, "fused_rooms.cu", "RoomsParams"),
     (_QParams, "fused_qlearning.cu", "QParams"),
 ])
 def test_trainer_and_msrooms_params_mirror_the_sources(mirror, source, name):

@@ -150,3 +150,74 @@ def test_philox_rollout_visits_the_layout():
     r1 = make_fused_rooms_rollout(env, 1024, 64, rows_per_tile=1)(11, start, goal)
     for x, y in zip(r1, (agent, goal2, rew)):
         assert torch.equal(x, y)  # Philox draws do not depend on the tiles
+
+
+def _far_cells(env, B, K, seed):
+    """Flat agent and goal cells, each agent more than K moves from its goal
+    (a move changes each coordinate by at most one): the fixed goal where
+    the env has one, else a walkable cell per env that has such cells."""
+    rng = np.random.default_rng(seed)
+    GW = env.grid_np.shape[1]
+    valid = np.flatnonzero(env.grid_np.reshape(-1) >= 0)
+    vy, vx = np.divmod(valid, GW)
+    far = np.maximum(abs(vy[:, None] - vy), abs(vx[:, None] - vx)) > K
+    if env.fixed_goal_yx is not None:
+        goal = np.full(B, env.fixed_goal_yx[0] * GW + env.fixed_goal_yx[1])
+    else:
+        goal = rng.choice(valid[far.any(1)], B)
+    agent = np.array([rng.choice(valid[far[np.searchsorted(valid, g)]])
+                      for g in goal])
+    return (agent.astype(np.int32).reshape(-1, W),
+            goal.astype(np.int32).reshape(-1, W))
+
+
+@pytest.mark.parametrize("time_limit", [12, 1])
+@pytest.mark.parametrize("kw", [{}, {"goal_xy": None}],
+                         ids=["fixed-goal", "random-goal"])
+def test_spawn_draws_are_discarded_where_no_env_resets(kw, time_limit):
+    """The ROOMS kernel draws the respawns (site 3, and 4 with a random
+    goal) only where an episode ends.  Agents more than K = 8 moves from
+    their goals with a time limit past K cannot end one, so two tapes that
+    differ only at the spawn sites give the JAX kernel (interpreted) and
+    the twin the same outputs, each equal to the other.  At time limit 1
+    every env resets every second step, and the same change moves the
+    outputs (the control)."""
+    B, K, R = 256, 8, 1
+    je = gpt.make("Rooms-v0", time_limit=time_limit, **kw)
+    te = gpt_torch.make("Rooms-v0", time_limit=time_limit, device="cpu", **kw)
+    jrun = jax_rollout(je, B, K, rows_per_tile=R, interpret=True,
+                       episode_stats=True, rng_tape=True)
+    trun = make_fused_rooms_rollout(te, B, K, rows_per_tile=R,
+                                    episode_stats=True, rng_tape=True)
+    n = trun.n_sites
+    assert n == jrun.n_sites == 4 + ("goal_xy" in kw)
+    grid = B // W // R
+    tape = make_tape(np.random.default_rng(43), n, K, R, grid=grid)
+    t5 = tape.copy().reshape(grid, n, K, R, W)
+    rng = np.random.default_rng(44)
+    for j in range(3, n):  # the spawn sites
+        t5[:, j] = rng.integers(-2**31, 2**31, t5[:, j].shape).astype(np.int32)
+    other = t5.reshape(tape.shape)
+    a0, g0 = _far_cells(je, B, K, 45)
+    outs = []
+    for t in (tape, other):
+        jout = [np.asarray(x) for x in
+                jrun(jnp.asarray([3], jnp.int32), jnp.asarray(a0),
+                     jnp.asarray(g0), jnp.asarray(t))]
+        tout = [x.numpy() for x in
+                trun(3, torch.as_tensor(a0), torch.as_tensor(g0),
+                     torch.as_tensor(t))]
+        for j, o in zip(jout, tout):
+            np.testing.assert_array_equal(j, o)
+        outs.append(tout)
+    ep_cnt = outs[0][5]
+    if time_limit == 12:
+        assert (ep_cnt == 0).all()
+        assert (outs[0][0] != a0).mean() > 0.5  # the agents moved
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)
+    else:
+        assert (ep_cnt == K // 2).all()
+        assert not np.array_equal(outs[0][0], outs[1][0])
+        if "goal_xy" in kw:
+            assert not np.array_equal(outs[0][1], outs[1][1])

@@ -162,3 +162,52 @@ def test_philox_rollouts_stay_valid_and_ignore_the_tiling():
     again = make_fused_heavenhell_rollout(he, B, K, rows_per_tile=2,
                                           episode_stats=True)(7, *s3)
     assert all(torch.equal(x, y) for x, y in zip(out, again))
+
+
+@pytest.mark.parametrize("time_limit", [500, 1])
+def test_heavenhell_spawn_draws_are_discarded_where_no_env_resets(time_limit):
+    """The HeavenHell kernel draws the spawn (sites 2-4) only where an env
+    resets.  From the spawn region (y <= 1, |x| <= 1) an agent moving at
+    most 0.25 a step per axis stays more than 2 from both sites at
+    (±6.25, 6) for K = 8 steps, and the default time limit (500) is past K:
+    no env resets, and two tapes that differ only at sites 2-4 give the JAX
+    kernel (interpreted) and the twin the same outputs, each equal to the
+    other.  At time limit 1 every env resets every step, and the same change
+    moves the outputs (the control)."""
+    B, K, R = 256, 8, 1
+    kw = dict(time_limit=time_limit)
+    je = gpt.make("HeavenHellContinuous-v0", **kw)
+    te = gpt_torch.make("HeavenHellContinuous-v0", device="cpu", **kw)
+    jrun = jax_hh(je, B, K, rows_per_tile=R, interpret=True,
+                  episode_stats=True, rng_tape=True)
+    trun = make_fused_heavenhell_rollout(te, B, K, rows_per_tile=R,
+                                         episode_stats=True, rng_tape=True)
+    assert trun.n_sites == jrun.n_sites == 5
+    grid = B // W // R
+    tape = make_tape(np.random.default_rng(41), 5, K, R, grid=grid)
+    t5 = tape.copy().reshape(grid, 5, K, R, W)
+    rng = np.random.default_rng(42)
+    for j in (2, 3, 4):  # the spawn sites, at every step
+        t5[:, j] = rng.integers(-2**31, 2**31, t5[:, j].shape).astype(np.int32)
+    other = t5.reshape(tape.shape)
+    assert (other != tape).mean() > 0.5 * 3 / 5
+    state = _hh_state(je, B)
+    assert (state[1] <= 1).all() and (np.abs(state[0]) <= 1).all()
+    outs = []
+    for t in (tape, other):
+        jout = [np.asarray(x) for x in
+                jrun(SEED0, *map(jnp.asarray, state), jnp.asarray(t))]
+        tout = [x.numpy() for x in
+                trun(3, *map(torch.as_tensor, state), torch.as_tensor(t))]
+        for j, o in zip(jout, tout):
+            np.testing.assert_array_equal(j, o)
+        outs.append(tout)
+    ep_cnt = outs[0][6]
+    if time_limit == 500:
+        assert (ep_cnt == 0).all()
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)
+    else:
+        assert (ep_cnt == K).all()
+        assert not np.array_equal(outs[0][0], outs[1][0])
+        assert not np.array_equal(outs[0][2], outs[1][2])
