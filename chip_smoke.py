@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's five main paths on the card, each through the entry
+Drives the port's six main paths on the card, each through the entry
 points a user calls, with the kernels' launch counts zeroed just before the
 path and read just after:
 
@@ -45,7 +45,17 @@ path and read just after:
    trainer kernel (ordinal actions) at full width (B = 65,536, K = 256),
    then CRooms learning at the JAX package's hardware test's schedule
    through the kernel and the ``fused_q_learning`` entry point (the last
-   chunk's reward/step > 0.02).
+   chunk's reward/step > 0.02);
+6. the PPO update (``gym_po_tpu_torch.agents.ppo``) on
+   ``ExtendedHansenTaxi-v4`` at ``PPOConfig``'s defaults (B = 4,096,
+   T = 128, 4 epochs of 4 minibatches, hidden (64, 64), 'permute', f32):
+   updates through ``init_train_state``, ``make_train_step`` and
+   ``train``, each timed with its collect and learn halves split by CUDA
+   events; the collect half's CUDA graph held against the eager collect
+   bit for bit from one generator state and both timed, at B = 4,096 and
+   B = 65,536; then the JAX package's PPO learning runs (DiscreteCarFlag,
+   the feedforward HeavenHell surrogate).  It reaches no kernel: its
+   launch counts stay 0.
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
@@ -74,7 +84,7 @@ path 1 with the headline timing; path 2 with the trainers' timing and
 learning checks; path 3 with the ROOMS timings and learning checks; path 4
 with the MSRooms and RockSample timings and the MSRooms learning check;
 path 5 with the CRooms, Tag and HeavenHell timings and the CRooms learning
-check.
+check; path 6, PPO.
 The line before the last is the kernels' JSON record; the last line is the
 result.
 """
@@ -2182,6 +2192,224 @@ def crooms_trainer_path(dev, kern_ms, errs) -> None:
         raise AssertionError("fused Q did not learn CRooms-v0")
 
 
+# --------------------------------------------------------- PPO (path 6)
+# the env __graft_entry__.dryrun_multichip trains on; PPOConfig's defaults
+# (B = 4,096, T = 128, E = M = 4, hidden (64, 64), 'permute', f32)
+PPO_ENV = "ExtendedHansenTaxi-v4"
+PPO_UPDATES = 4
+B_PPO_WIDE = 65536  # the size README's step_vec rates are quoted at
+# learning: the JAX package's smoke tests' configs (tests/test_agents.py,
+# tests/test_memory_learning.py).  The CarFlag run goes on to 200 updates,
+# where the mean reward of the last 100 beat the first 20's by 1.5e-3 or
+# more in all eight CPU runs of seeds 0-7 (at 30 updates the test's own
+# criterion failed in 4 of 16)
+PPO_CARFLAG_UPDATES = 200
+PPO_HH_UPDATES = 50
+
+
+def ppo_metrics_line(m: dict) -> str:
+    vals = {k: float(v) for k, v in m.items()}
+    bad = [k for k, v in vals.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"PPO: non-finite metrics {bad}")
+    return ", ".join(f"{k} {v:.6f}" for k, v in vals.items())
+
+
+def device_ops(fn, top: int = 0) -> tuple:
+    """(kernels and other device operations, their summed device ms) of one
+    call of ``fn``, from torch.profiler, and with ``top`` the ``top`` most
+    costly by name as (name, count, ms); zeros if the trace holds no device
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = [getattr(e, "self_device_time_total", 0) for e in events]
+    out = (sum(e.count for e in events), sum(us) / 1e3)
+    if top:
+        ranked = sorted(zip(us, events), key=lambda p: -p[0])[:top]
+        out += ([(e.key[:60], e.count, u / 1e3) for u, e in ranked],)
+    return out
+
+
+def ppo_collect_checks(dev, ppo, env, cfg, model, ts, graph, label) -> None:
+    """The graph's replay against the eager collect from one generator
+    state, bit for bit; then both timed in one process (CUDA events,
+    eager, graph, graph, eager windows) and their device operations
+    counted."""
+    start = ts.generator.get_state()
+    eager_gen = torch.Generator(device=dev)
+    eager_gen.set_state(start)
+    want = ppo.collect(env, model, cfg, ts.env_obs, ts.env_state, eager_gen)
+    got = graph(ts.env_obs, ts.env_state, ts.generator)
+    torch.cuda.synchronize()
+    (gb, gr, gobs, gst), (wb, wr, wobs, wst) = got, want
+    for i, (g, w) in enumerate(zip((*gb, *gr, gobs), (*wb, *wr, wobs))):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{label}: graph replay differs from the eager "
+                                 f"collect at output {i}")
+    for f in wst.__dataclass_fields__:
+        if not torch.equal(getattr(gst, f), getattr(wst, f)):
+            raise AssertionError(f"{label}: graph replay's final {f} differs")
+    del got, want
+
+    def eager(i):
+        ppo.collect(env, model, cfg, ts.env_obs, ts.env_state, eager_gen)
+
+    def replay(i):
+        graph(ts.env_obs, ts.env_state, ts.generator)
+
+    t_eager, t_graph = [], []
+    for fn, out in ((eager, t_eager), (replay, t_graph), (replay, t_graph),
+                    (eager, t_eager)):
+        out.append(event_windows(fn, windows=2, calls=2))
+    n_eager, dev_eager = device_ops(lambda: eager(0))
+    n_graph, dev_graph = device_ops(lambda: replay(0))
+    ts.generator.set_state(start)
+    out = {"eager_ms": statistics.median(t_eager),
+           "graph_ms": statistics.median(t_graph),
+           "ops_eager": n_eager, "ops_graph": n_graph,
+           "dev_eager_ms": dev_eager, "dev_graph_ms": dev_graph}
+    T, B = cfg.rollout_steps, cfg.num_envs
+    ops = (f"{n_eager / T:.2f} device ops per step eager ({n_eager} in all, "
+           f"device busy {dev_eager:.3f} ms = "
+           f"{dev_eager / out['eager_ms']:.4f} of the eager time), "
+           f"{n_graph / T:.2f} replayed (busy {dev_graph:.3f} ms = "
+           f"{dev_graph / out['graph_ms']:.4f})") if n_eager else \
+        "device ops: not measured (the profiler's trace held no device events)"
+    say("ppo-collect", f"{label}: graph replay == eager collect exactly "
+        f"(batch, rollout, final obs and state; T={T} B={B}); eager "
+        f"{out['eager_ms']:.3f} ms, graph {out['graph_ms']:.3f} ms "
+        f"(ratio {out['graph_ms'] / out['eager_ms']:.4f}; windows "
+        f"{', '.join(f'{x:.3f}' for x in t_eager)} / "
+        f"{', '.join(f'{x:.3f}' for x in t_graph)}); "
+        f"{B * T / out['graph_ms'] * 1e3:.6e} env-steps/s replayed; {ops}")
+
+
+def ppo_learning(dev, ppo, gp) -> None:
+    """The JAX package's two PPO learning smoke runs, on the card."""
+    t0 = time.perf_counter()
+    env = gp.make("DiscreteCarFlag-v0", num_actions=3, time_limit=60, device=dev)
+    cfg = ppo.PPOConfig(num_envs=64, rollout_steps=32, epochs=4, minibatches=4,
+                        hidden=(32, 32), learning_rate=1e-3, entropy_coef=0.003)
+    model, ts = ppo.init_train_state(env, cfg,
+                                     torch.Generator(device=dev).manual_seed(1))
+    step = ppo.make_train_step(env, model, cfg)
+    rewards = []
+    for _ in range(PPO_CARFLAG_UPDATES):
+        ts, m = step(ts)
+        rewards.append(m["mean_reward"])
+    r = torch.stack(rewards).cpu().numpy()
+    smoke = r[25:30].mean() > r[:5].mean() - 1e-4
+    say("ppo-learning", f"DiscreteCarFlag-v0 (3 actions, time limit 60), the "
+        f"smoke test's config, {PPO_CARFLAG_UPDATES} updates: mean reward per "
+        f"20 updates {', '.join(f'{x:.6f}' for x in r.reshape(-1, 20).mean(1))}; "
+        f"last 100 {r[-100:].mean():.6f} > first 20 {r[:20].mean():.6f}; the "
+        f"30-update smoke criterion (last 5 > first 5 - 1e-4) {smoke}")
+    if not r[-100:].mean() > r[:20].mean():
+        raise AssertionError("PPO did not learn DiscreteCarFlag-v0")
+
+    env = gp.make("HeavenHellContinuous-v0", agent_speed=0.75, time_limit=150,
+                  device=dev)
+    cfg = ppo.PPOConfig(num_envs=128, rollout_steps=32, epochs=4, minibatches=4,
+                        learning_rate=1e-3, entropy_coef=0.01)
+    model, ts = ppo.init_train_state(env, cfg,
+                                     torch.Generator(device=dev).manual_seed(1))
+    step = ppo.make_train_step(env, model, cfg)
+    pos, neg = [], []
+    for _ in range(PPO_HH_UPDATES):
+        ts, m = step(ts)
+        ppo_metrics_line(m)
+        pos.append(float(m["pos_reward_rate"]))
+        neg.append(float(m["neg_reward_rate"]))
+    p, n = np.mean(pos[-10:]), np.mean(neg[-10:])
+    say("ppo-learning", f"HeavenHellContinuous-v0 surrogate (speed 0.75, time "
+        f"limit 150), feedforward, {PPO_HH_UPDATES} updates: last 10 pos rate "
+        f"{p:.6f}, neg {n:.6f}, heaven share {p / max(p + n, 1e-12):.4f}; "
+        f"peak pos {max(pos):.6f}, neg {max(neg):.6f} (p < 1e-3, the JAX "
+        f"test's, holds by seed in both packages: reported, not required); "
+        f"both runs {time.perf_counter() - t0:.2f} s")
+    if max(pos) + max(neg) <= 0:
+        raise AssertionError("PPO on HeavenHell reached no terminal")
+
+
+def ppo_path(dev, card) -> None:
+    """Path 6: the PPO update on ExtendedHansenTaxi-v4 at PPOConfig's
+    defaults, through init_train_state, make_train_step and train; the
+    collect half's graph held against the eager collect; the collect at
+    B = 65,536; the learning runs."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo
+
+    t_path = time.perf_counter()
+    env = gp.make(PPO_ENV, device=dev)
+    cfg = ppo.PPOConfig()
+    B, T = cfg.num_envs, cfg.rollout_steps
+    model, ts = ppo.init_train_state(env, cfg,
+                                     torch.Generator(device=dev).manual_seed(0))
+    step = ppo.make_train_step(env, model, cfg)
+    t0 = time.perf_counter()
+    ts, m = step(ts)
+    torch.cuda.synchronize()
+    say("ppo", f"{PPO_ENV} B={B} T={T} E={cfg.epochs} M={cfg.minibatches} "
+        f"hidden {cfg.hidden} shuffle {cfg.shuffle}: first update, graph "
+        f"capture included, {time.perf_counter() - t0:.3f} s; "
+        f"{ppo_metrics_line(m)}")
+    n_obs = env.observation_space.n
+    for _ in range(PPO_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = step(ts)
+        collect_ms, learn_ms = ppo.halves_ms(step)
+        wall = time.perf_counter() - t0
+        if not ((ts.env_obs >= 0) & (ts.env_obs < n_obs)).all():
+            raise AssertionError("PPO: obs out of range")
+        say("ppo-update", f"update {ts.update_idx} on {card}: {wall * 1e3:.3f} "
+            f"ms (CUDA events: collect {collect_ms:.3f} ms, learn "
+            f"{learn_ms:.3f} ms), {B * T / wall:.6e} PPO env-steps/s; "
+            f"{ppo_metrics_line(m)}")
+    kept = {}
+
+    def profiled_update():
+        kept["ts"], kept["m"] = step(ts)
+
+    n_ops, busy, top = device_ops(profiled_update, top=6)
+    ts = kept["ts"]
+    collect_ms, learn_ms = ppo.halves_ms(step)
+    say("ppo-profile", f"update {ts.update_idx} under torch.profiler: {n_ops} "
+        f"device ops, device busy {busy:.3f} ms of collect {collect_ms:.3f} + "
+        f"learn {learn_ms:.3f} ms (events); most costly: " + "; ".join(
+            f"{name} x{count} {ms:.3f} ms" for name, count, ms in top)
+        if n_ops else "update under torch.profiler: not measured (no device "
+        "events in the trace)")
+    ppo_collect_checks(dev, ppo, env, cfg, model, ts, step.graph,
+                       f"{PPO_ENV} after {ts.update_idx} updates")
+
+    t0 = time.perf_counter()
+    _, ts_train, history = ppo.train(env, cfg, seed=1, num_updates=3,
+                                     log_every=2)
+    if ts_train.update_idx != 3 or len(history) != 2:
+        raise AssertionError("PPO train: wrong history")
+    say("ppo-train", f"train(seed=1, num_updates=3, log_every=2): 2 history "
+        f"rows, loss {history[-1]['loss']:.6f}, "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    wide = cfg._replace(num_envs=B_PPO_WIDE)
+    model_w, ts_w = ppo.init_train_state(
+        env, wide, torch.Generator(device=dev).manual_seed(2))
+    graph_w = ppo.CollectGraph(env, model_w, wide, ts_w.env_obs, ts_w.env_state,
+                               ts_w.generator)
+    ppo_collect_checks(dev, ppo, env, wide, model_w, ts_w, graph_w,
+                       f"{PPO_ENV} B={B_PPO_WIDE}, for the record")
+    del graph_w, model_w, ts_w
+    ppo_learning(dev, ppo, gp)
+    say("ppo", f"path 6 took {time.perf_counter() - t_path:.2f} s")
+
+
 def block_ops(full: float, part: float = 0) -> dict:
     """Slots by pipe of ``full`` Philox blocks of which three or four words
     are used and ``part`` of which words 0-1 alone are (one product and one
@@ -2448,8 +2676,16 @@ def main() -> int:
         launches[key] = LAUNCHES[key]
         if launches[key] <= 0:
             raise AssertionError(f"path 5 did not go through {key}")
+
+    # path 6, the PPO update: it reaches no kernel (plain PyTorch, the
+    # collect half a CUDA graph), so its launch counts stay 0
+    LAUNCHES.clear()
+    ppo_path(dev, card)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"path 6 launched kernels: {dict(LAUNCHES)}")
     say("launches", "on the main paths: " + ", ".join(
-        f"{k} {v}" for k, v in launches.items()))
+        f"{k} {v}" for k, v in launches.items())
+        + "; path 6 (PPO) none: it reaches no kernel")
 
     # bounds of this run's main-path shapes
     ns_sites_head = make_fused_taxi_rollout(env, B_HEAD, K_HEAD).n_sites

@@ -1,11 +1,14 @@
 from .networks import (
     ActorCritic,
+    AdamState,
+    adam_state_from_optax,
     entropy,
     log_prob,
     make_actor_critic,
     params_from_flax,
     sample_action,
 )
+from .ppo import PPOConfig, TrainState, init_train_state, make_train_step, train
 from .qlearning import (
     QConfig,
     fused_actor_critic,
@@ -19,6 +22,8 @@ __all__ = [
     "ActorCritic",
     "make_actor_critic",
     "params_from_flax",
+    "AdamState",
+    "adam_state_from_optax",
     "sample_action",
     "log_prob",
     "entropy",
@@ -28,4 +33,9 @@ __all__ = [
     "greedy_policy",
     "fused_q_learning",
     "fused_actor_critic",
+    "PPOConfig",
+    "TrainState",
+    "init_train_state",
+    "make_train_step",
+    "train",
 ]

@@ -7,13 +7,16 @@ weight columns by the observation in place of one-hot × matmul: a one-hot
 row sums a single term, so the two are exactly equal.
 
 :func:`params_from_flax` carries the JAX package's flax parameters into a
-``state_dict``, so both packages compute the same function.
+``state_dict``, so both packages compute the same function, and
+:func:`adam_state_from_optax` carries an optax Adam state into the port's
+:class:`AdamState`, so both can start from the same point of a run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +30,10 @@ __all__ = [
     "encode_obs",
     "make_actor_critic",
     "params_from_flax",
+    "parameter_list",
+    "flatten_parameters",
+    "AdamState",
+    "adam_state_from_optax",
     "sample_action",
     "log_prob",
     "entropy",
@@ -51,9 +58,11 @@ def encode_obs(space: Space, obs: torch.Tensor,
     return flat.to(dtype)
 
 
-def _linear(n_in: int, n_out: int, gain: float) -> nn.Linear:
-    layer = nn.Linear(n_in, n_out)
-    nn.init.orthogonal_(layer.weight, gain)
+def _linear(n_in: int, n_out: int, gain: float, generator, device) -> nn.Linear:
+    # skip_init: nn.Linear's own init would draw from torch's global generator
+    layer = nn.utils.skip_init(nn.Linear, n_in, n_out,
+                               device="cpu" if device is None else device)
+    nn.init.orthogonal_(layer.weight, gain, generator=generator)
     nn.init.zeros_(layer.bias)
     return layer
 
@@ -64,25 +73,29 @@ class ActorCritic(nn.Module):
     ``forward(obs)`` returns ``(pi, value)``: ``pi`` is
     ``{"kind": "categorical", "logits": ...}`` or
     ``{"kind": "gaussian", "mean": ..., "log_std": ...}``, as in the JAX
-    package.
+    package.  The weights are made on ``device`` from ``generator`` (torch's
+    global generator when it is ``None``).
     """
 
     def __init__(self, obs_space: Space, action_space: Space,
-                 hidden: Sequence[int] = (64, 64)):
+                 hidden: Sequence[int] = (64, 64),
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.obs_space = obs_space
         self.action_space = action_space
         widths = [obs_features(obs_space), *hidden]
         self.torso = nn.ModuleList(
-            _linear(a, b, math.sqrt(2)) for a, b in zip(widths, widths[1:])
+            _linear(a, b, math.sqrt(2), generator, device)
+            for a, b in zip(widths, widths[1:])
         )
         if isinstance(action_space, Discrete):
-            self.pi_head = _linear(widths[-1], action_space.n, 0.01)
+            self.pi_head = _linear(widths[-1], action_space.n, 0.01, generator,
+                                   device)
         else:
             adim = int(np.prod(action_space.shape)) or 1
-            self.pi_head = _linear(widths[-1], adim, 0.01)
-            self.log_std = nn.Parameter(torch.zeros(adim))
-        self.v_head = _linear(widths[-1], 1, 1.0)
+            self.pi_head = _linear(widths[-1], adim, 0.01, generator, device)
+            self.log_std = nn.Parameter(torch.zeros(adim, device=device))
+        self.v_head = _linear(widths[-1], 1, 1.0, generator, device)
 
     def forward(self, obs: torch.Tensor) -> Tuple[Dict[str, Any], torch.Tensor]:
         if isinstance(self.obs_space, Discrete):
@@ -102,8 +115,11 @@ class ActorCritic(nn.Module):
         return pi, self.v_head(x).squeeze(-1)
 
 
-def make_actor_critic(env, hidden: Sequence[int] = (64, 64)) -> ActorCritic:
-    return ActorCritic(env.observation_space, env.action_space, tuple(hidden))
+def make_actor_critic(env, hidden: Sequence[int] = (64, 64),
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> ActorCritic:
+    return ActorCritic(env.observation_space, env.action_space, tuple(hidden),
+                       generator, device)
 
 
 def params_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -129,6 +145,86 @@ def params_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if "log_std" in p:
         out["log_std"] = torch.from_numpy(np.asarray(p["log_std"], np.float32).copy())
     return out
+
+
+def parameter_list(model: ActorCritic) -> List[nn.Parameter]:
+    """The model's parameters in :func:`params_from_flax`'s name order: the
+    torso layers, the policy head, the value head (weight, then bias), then
+    ``log_std``."""
+    named = dict(model.named_parameters())
+    names = [f"{layer}.{w}" for layer in
+             [f"torso.{i}" for i in range(len(model.torso))] + ["pi_head", "v_head"]
+             for w in ("weight", "bias")]
+    return [named[n] for n in names + (["log_std"] if "log_std" in named else [])]
+
+
+def flatten_parameters(model: ActorCritic) -> torch.Tensor:
+    """Move the model's parameters into one flat buffer, in
+    :func:`parameter_list`'s order, and return it.
+
+    Each parameter becomes a view of the buffer, so an optimizer step over
+    the buffer updates the model in place (``load_state_dict`` keeps the
+    views: it copies into them).
+    """
+    params = parameter_list(model)
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    offset = 0
+    for p in params:
+        p.data = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return flat
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's step count and moments over a flat parameter buffer.
+
+    ``count`` is an int32 scalar, incremented before it is used, as optax's;
+    ``mu`` and ``nu`` are flat, in :func:`parameter_list`'s order.
+    """
+
+    count: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+    @classmethod
+    def zeros_like(cls, flat: torch.Tensor) -> "AdamState":
+        return cls(torch.zeros((), dtype=torch.int32, device=flat.device),
+                   torch.zeros_like(flat), torch.zeros_like(flat))
+
+
+def adam_state_from_optax(opt_state_np) -> AdamState:
+    """Map optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``, as numpy)
+    to an :class:`AdamState` on the CPU.
+
+    Accepts the ``ScaleByAdamState`` itself or any tuple holding it, such as
+    the state of ``optax.chain(clip_by_global_norm(...), adam(...))``.  The
+    moments are flax param trees; they are laid out as
+    :func:`params_from_flax` lays out the params (kernels transposed).
+    """
+
+    def find(x):
+        if hasattr(x, "mu") and hasattr(x, "nu") and hasattr(x, "count"):
+            return x
+        if isinstance(x, (tuple, list)):
+            for item in x:
+                found = find(item)
+                if found is not None:
+                    return found
+        return None
+
+    adam = find(opt_state_np)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) found")
+
+    def flat(tree):
+        return torch.cat([t.reshape(-1) for t in params_from_flax(tree).values()])
+
+    return AdamState(
+        count=torch.tensor(int(adam.count), dtype=torch.int32),
+        mu=flat(adam.mu),
+        nu=flat(adam.nu),
+    )
 
 
 # ---------------------------------------------------------------- policies

@@ -1,0 +1,429 @@
+"""PPO on one device, PyTorch port of :mod:`gym_po_tpu.agents.ppo`.
+
+One update is the JAX package's: a T-step rollout of B envs with the
+current policy, generalised advantage estimation over it, then E epochs of
+M minibatches of clipped-PPO steps, each a global-norm clip and an Adam
+step (eps 1e-5) written in optax's arithmetic order.  It runs in two halves
+that the tests hold apart:
+
+* **collect** (:func:`collect`): per step the policy forward, the sampled
+  action, ``env.step_vec`` and the value of the pre-reset successor
+  (``info["terminal_state"]``), then GAE and the time-major flattening
+  (row = t·B + b).  On a CUDA device the train step captures it once as a
+  CUDA graph and replays it every update: the rollout issues dozens of
+  small launches per env step, and a replay issues them all at once.  On
+  the CPU it runs eagerly.
+* **learn** (:func:`learn`): E epochs over the row orders of
+  :func:`row_orders` ('permute', 'roll' or 'none'), each cut into M
+  contiguous minibatches.
+
+The learn half updates the parameters and Adam's moments in place, over
+one flat buffer that the model's parameters are views of
+(:func:`~gym_po_tpu_torch.agents.networks.flatten_parameters`): the graph
+reads the weights from that fixed storage.  Every draw (the network's
+init, the first reset, actions, env steps, row orders) comes from the
+train state's ``torch.Generator``.
+
+Not ported: the ``mesh`` (ROADMAP Queue 1, "Multi-GPU");
+``make_chunked_train_step``, the JAX package's remedy for a TPU batch
+cliff; ``make_multi_train_step``, which pays a TPU's dispatch cost once
+per run (here the graph replay takes its place).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..utils.numerics import sqrt_rn
+from .networks import (
+    ActorCritic,
+    AdamState,
+    entropy,
+    flatten_parameters,
+    log_prob,
+    make_actor_critic,
+    parameter_list,
+    sample_action,
+)
+
+__all__ = ["PPOConfig", "TrainState", "init_train_state", "make_train_step",
+           "train", "collect", "batch_from_rollout", "row_orders", "learn",
+           "adam_step", "halves_ms", "Batch", "Rollout", "CollectGraph"]
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5  # optax.adam's, eps as PPO's
+
+
+class PPOConfig(NamedTuple):
+    """Hyperparameters (PPO defaults per Schulman et al. 2017)."""
+
+    num_envs: int = 4096
+    rollout_steps: int = 128
+    epochs: int = 4
+    minibatches: int = 4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    entropy_coef: float = 0.01
+    value_coef: float = 0.5
+    max_grad_norm: float = 0.5
+    learning_rate: float = 2.5e-4
+    hidden: Tuple[int, ...] = (64, 64)
+    #: only float32: the port's ActorCritic has no bf16 path
+    compute_dtype: Any = torch.float32
+    #: epoch row order: 'permute' = a fresh permutation, 'roll' = a random
+    #: circular shift, 'none' = the rows in order
+    shuffle: str = "permute"
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its parameters as one flat buffer (the model's parameters
+    are views of it), Adam's state, the envs' observations and state, the
+    generator every draw comes from, and the count of updates made."""
+
+    model: ActorCritic
+    params: torch.Tensor
+    opt_state: AdamState
+    env_obs: torch.Tensor
+    env_state: Any
+    generator: torch.Generator
+    update_idx: int = 0
+
+
+class Batch(NamedTuple):
+    """Flat time-major rollout rows (row = t·B + b)."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    logp: torch.Tensor
+    value: torch.Tensor
+    advantage: torch.Tensor
+    target: torch.Tensor
+
+
+class Rollout(NamedTuple):
+    """A rollout's per-step records, ``[T, B, ...]``."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    logp: torch.Tensor
+    value: torch.Tensor
+    v_term: torch.Tensor  # value of the pre-reset successor
+    done: torch.Tensor
+    reward: torch.Tensor
+    cont: torch.Tensor  # 1 - (done | truncated)
+
+
+def _check(config: PPOConfig) -> None:
+    if config.compute_dtype != torch.float32:
+        raise ValueError(f"compute_dtype {config.compute_dtype} is not supported: "
+                         "the port's ActorCritic computes in float32 only")
+    if config.shuffle not in ("permute", "roll", "none"):
+        raise ValueError(f"unknown shuffle {config.shuffle!r}")
+    if (config.num_envs * config.rollout_steps) % config.minibatches:
+        raise ValueError("num_envs * rollout_steps must be a multiple of "
+                         "minibatches")
+
+
+def _gae(rewards, values, next_values, dones, continues, gamma, lam):
+    """Generalized advantage estimation over the time axis of ``[T, B]``.
+
+    ``next_values[t]`` is the value of the pre-reset successor of step
+    ``t``, so truncation bootstraps through the reset while termination
+    (``dones``) zeroes the bootstrap; ``continues`` only stops the
+    λ-recursion at episode boundaries.  Returns ``(advantages, targets)``.
+    """
+    gae = torch.zeros_like(values[-1])
+    out = []
+    for t in reversed(range(values.shape[0])):
+        delta = rewards[t] + gamma * next_values[t] * (1.0 - dones[t]) - values[t]
+        gae = delta + gamma * lam * continues[t] * gae
+        out.append(gae)
+    adv = torch.stack(out[::-1])
+    return adv, adv + values
+
+
+def init_train_state(env, config: PPOConfig, generator: torch.Generator,
+                     num_devices: int = 1) -> Tuple[ActorCritic, TrainState]:
+    """Make the model (on the generator's device, its weights drawn from
+    ``generator``), its zero Adam state and the first ``reset_vec`` of
+    ``num_envs`` envs (drawn from ``generator`` too)."""
+    _check(config)
+    if num_devices != 1:
+        raise ValueError("multi-device PPO is not ported yet "
+                         "(ROADMAP Queue 1, Multi-GPU)")
+    device = generator.device
+    model = make_actor_critic(env, config.hidden, generator, device)
+    params = flatten_parameters(model)
+    obs0, state0 = env.reset_vec(generator, config.num_envs)
+    return model, TrainState(model=model, params=params,
+                             opt_state=AdamState.zeros_like(params),
+                             env_obs=obs0, env_state=state0,
+                             generator=generator)
+
+
+@torch.no_grad()
+def adam_step(params: torch.Tensor, state: AdamState, grads: torch.Tensor,
+              config: PPOConfig) -> None:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=1e-5))``
+    on flat tensors, in place, in optax's order.
+
+    The clip keeps the gradients where their norm is below the limit and
+    else gives ``(g / norm) * max_norm`` (a select, no epsilon).  Adam
+    updates the moments, increments the count, divides by the bias
+    corrections and steps by ``-lr * m̂ / (sqrt(v̂) + eps)``.  Every
+    division is by a tensor, every square root correctly rounded.
+    """
+    g_norm = sqrt_rn(torch.sum(grads * grads))
+    g = torch.where(g_norm < config.max_grad_norm, grads,
+                    (grads / g_norm) * config.max_grad_norm)
+    state.mu.mul_(ADAM_B1).add_(g * (1 - ADAM_B1))
+    state.nu.mul_(ADAM_B2).add_(g * g * (1 - ADAM_B2))
+    state.count.add_(1)
+    mu_hat = state.mu / (1 - torch.pow(ADAM_B1, state.count))
+    nu_hat = state.nu / (1 - torch.pow(ADAM_B2, state.count))
+    params.add_(mu_hat / (sqrt_rn(nu_hat) + ADAM_EPS) * -config.learning_rate)
+
+
+def _loss_fn(model: ActorCritic, batch: Batch, config: PPOConfig):
+    pi, value = model(batch.obs)
+    logp = log_prob(pi, batch.action)
+    ratio = torch.exp(logp - batch.logp)
+    adv = (batch.advantage - batch.advantage.mean()) / (
+        batch.advantage.std(correction=0) + 1e-8  # jnp.std: population std
+    )
+    pg = -torch.minimum(
+        ratio * adv,
+        torch.clamp(ratio, 1 - config.clip_eps, 1 + config.clip_eps) * adv,
+    ).mean()
+    v_clipped = batch.value + torch.clamp(
+        value - batch.value, -config.clip_eps, config.clip_eps
+    )
+    v_loss = 0.5 * torch.maximum(
+        (value - batch.target) ** 2, (v_clipped - batch.target) ** 2
+    ).mean()
+    ent = entropy(pi).mean()
+    loss = pg + config.value_coef * v_loss - config.entropy_coef * ent
+    return loss, {"pg_loss": pg, "v_loss": v_loss, "entropy": ent}
+
+
+@torch.no_grad()
+def collect(env, model: ActorCritic, config: PPOConfig, obs: torch.Tensor,
+            state, generator: torch.Generator):
+    """The T-step rollout, GAE and the time-major flattening.
+
+    Returns ``(batch, rollout, obs_T, state_T)``.  Runs eagerly; the train
+    step replays it as a CUDA graph on a CUDA device.
+    """
+    steps = []
+    for _ in range(config.rollout_steps):
+        pi, value = model(obs)
+        action, logp = sample_action(pi, generator)
+        nobs, nstate, rew, done, trunc, info = env.step_vec(generator, state, action)
+        # value of the pre-reset successor: bootstraps truncation (_gae)
+        _, v_term = model(env.observe_vec(info["terminal_state"]))
+        fin = (done | trunc).to(torch.float32)
+        steps.append((obs, action, logp, value, v_term, done.to(torch.float32),
+                      rew.to(torch.float32), 1.0 - fin))
+        obs, state = nobs, nstate
+    ro = Rollout(*(torch.stack(column) for column in zip(*steps)))
+    return batch_from_rollout(ro, config), ro, obs, state
+
+
+def batch_from_rollout(ro: Rollout, config: PPOConfig) -> Batch:
+    """GAE over a rollout, then its rows flattened time-major."""
+    adv, target = _gae(ro.reward, ro.value, ro.v_term, ro.done, ro.cont,
+                       config.gamma, config.gae_lambda)
+
+    def flat(x):
+        return x.reshape(-1, *x.shape[2:])
+
+    return Batch(flat(ro.obs), flat(ro.action), flat(ro.logp), flat(ro.value),
+                 flat(adv), flat(target))
+
+
+def row_orders(config: PPOConfig, n: int,
+               generator: torch.Generator) -> List[Optional[torch.Tensor]]:
+    """Each epoch's order of the ``n`` batch rows: a permutation
+    ('permute'), the rows rolled by one shift drawn in ``[0, n)`` as
+    ``torch.roll`` / ``jnp.roll`` roll them ('roll'), or ``None``, the rows
+    in order ('none')."""
+    device = generator.device
+    if config.shuffle == "permute":
+        return [torch.randperm(n, generator=generator, device=device)
+                for _ in range(config.epochs)]
+    if config.shuffle == "roll":
+        rows = torch.arange(n, device=device)
+        return [torch.remainder(rows - torch.randint(0, n, (), generator=generator,
+                                                     device=device), n)
+                for _ in range(config.epochs)]
+    return [None] * config.epochs
+
+
+def learn(model: ActorCritic, params: torch.Tensor, opt_state: AdamState,
+          config: PPOConfig, batch: Batch,
+          orders: Sequence[Optional[torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """E epochs (one per entry of ``orders``) of M minibatch steps, in place
+    on ``params`` (the model's flat buffer) and ``opt_state``.
+
+    Returns the mean over all minibatch steps of ``loss``, ``pg_loss``,
+    ``v_loss`` and ``entropy``, as 0-d tensors.
+    """
+    n = batch.obs.shape[0]
+    mb = n // config.minibatches
+    plist = parameter_list(model)
+    aux: Dict[str, List[torch.Tensor]] = {}
+    for order in orders:
+        rows = batch if order is None else Batch(*(x[order] for x in batch))
+        for m in range(config.minibatches):
+            part = Batch(*(x[m * mb:(m + 1) * mb] for x in rows))
+            loss, terms = _loss_fn(model, part, config)
+            grads = torch.autograd.grad(loss, plist)
+            adam_step(params, opt_state,
+                      torch.cat([g.reshape(-1) for g in grads]), config)
+            for k, v in {**terms, "loss": loss}.items():
+                aux.setdefault(k, []).append(v.detach())
+    return {k: torch.stack(v).mean() for k, v in aux.items()}
+
+
+def _reward_metrics(reward: torch.Tensor) -> Dict[str, torch.Tensor]:
+    # terminal-event rates for sparse ±1 tasks; the 0.5 threshold ignores
+    # potential-shaping increments (envs/shaping.py)
+    return {"mean_reward": reward.mean(),
+            "pos_reward_rate": (reward > 0.5).to(torch.float32).mean(),
+            "neg_reward_rate": (reward < -0.5).to(torch.float32).mean()}
+
+
+def _clone_state(state):
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)})
+
+
+class CollectGraph:
+    """:func:`collect` captured as one CUDA graph, replayed from fixed
+    input buffers.
+
+    The capture is preceded by one eager warm-up on a side stream, and the
+    generator is put back to its state from before both, so the first
+    replay draws what an eager :func:`collect` from that state would.  The
+    generator is registered with the graph: each replay draws fresh
+    numbers from its current state and advances it, as an eager call
+    does.  The graph reads the model's weights where they lie, so they
+    must be updated in place.
+    """
+
+    def __init__(self, env, model: ActorCritic, config: PPOConfig,
+                 obs: torch.Tensor, state, generator: torch.Generator):
+        self.generator = generator
+        self.obs = obs.clone()
+        self.state = _clone_state(state)
+        saved = generator.get_state()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            collect(env, model, config, self.obs, self.state, generator)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        # an unreachable graph that the collector freed during the capture
+        # would invalidate it: collect first, and not during it
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = collect(env, model, config, self.obs, self.state,
+                                   generator)
+        finally:
+            if gc_on:
+                gc.enable()
+        generator.set_state(saved)
+
+    def __call__(self, obs: torch.Tensor, state, generator: torch.Generator):
+        """Replay from ``obs`` and ``state``.  The outputs live in the
+        graph's memory until the next replay."""
+        if generator is not self.generator:
+            raise ValueError("the graph draws from the generator it was "
+                             "captured with")
+        self.obs.copy_(obs)
+        for f in dataclasses.fields(state):
+            getattr(self.state, f.name).copy_(getattr(state, f.name))
+        self.graph.replay()
+        return self.out
+
+
+def make_train_step(env, model: ActorCritic, config: PPOConfig, mesh=None):
+    """One PPO update ``step(ts) -> (ts, metrics)`` of ``model``.
+
+    ``ts`` comes from :func:`init_train_state` for this model.  The update
+    changes the model's parameters and ``ts.opt_state`` in place; the
+    returned state holds the new env observations and state and the
+    incremented ``update_idx``.  On a CUDA device the collect half is a
+    CUDA graph, captured at the first call (``step.graph``), and the step
+    records CUDA events before the collect, between the halves and after
+    the learn (``step.events``; :func:`halves_ms` reads them).
+    """
+    if mesh is not None:
+        raise ValueError("multi-device PPO is not ported yet "
+                         "(ROADMAP Queue 1, Multi-GPU)")
+    _check(config)
+
+    def step(ts: TrainState):
+        if ts.env_obs.is_cuda:
+            if step.graph is None:
+                step.graph = CollectGraph(env, model, config, ts.env_obs,
+                                          ts.env_state, ts.generator)
+            step.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            step.events[0].record()
+            batch, ro, obs_f, state_f = step.graph(ts.env_obs, ts.env_state,
+                                                   ts.generator)
+            obs_f, state_f = obs_f.clone(), _clone_state(state_f)
+            step.events[1].record()
+        else:
+            batch, ro, obs_f, state_f = collect(env, model, config, ts.env_obs,
+                                                ts.env_state, ts.generator)
+        orders = row_orders(config, batch.obs.shape[0], ts.generator)
+        metrics = learn(model, ts.params, ts.opt_state, config, batch, orders)
+        metrics.update(_reward_metrics(ro.reward))
+        if step.events is not None:
+            step.events[2].record()
+        return dataclasses.replace(ts, env_obs=obs_f, env_state=state_f,
+                                   update_idx=ts.update_idx + 1), metrics
+
+    step.graph = None
+    step.events = None
+    return step
+
+
+def halves_ms(step) -> Tuple[float, float]:
+    """The last CUDA update's collect and learn times, in ms, from the
+    events its train step recorded (waits for them)."""
+    start, mid, end = step.events
+    end.synchronize()
+    return start.elapsed_time(mid), mid.elapsed_time(end)
+
+
+def train(env, config: PPOConfig, seed: int = 0, num_updates: int = 100,
+          mesh=None, log_every: int = 0):
+    """Init from ``seed`` on the env's device, then ``num_updates`` updates.
+
+    With ``log_every`` the history holds the last update's metrics of each
+    chunk of ``log_every`` updates (a ragged tail gives one row more), as
+    floats; returns ``(model, ts, history)``.
+    """
+    generator = torch.Generator(device=env.device).manual_seed(seed)
+    model, ts = init_train_state(env, config, generator)
+    step = make_train_step(env, model, config, mesh)
+    history = []
+    for i in range(num_updates):
+        ts, metrics = step(ts)
+        done = i + 1
+        if log_every and (done % log_every == 0 or done == num_updates):
+            m = {k: float(v) for k, v in metrics.items()}
+            history.append(m)
+            print(f"update {done}: {m}")
+    return model, ts, history

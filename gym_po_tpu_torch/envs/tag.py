@@ -278,9 +278,9 @@ class HeavenHellContinuous(Environment[HeavenHellState]):
     def spawn_xy(u: torch.Tensor) -> torch.Tensor:
         """Spawn from uniforms ``u [..., 2]``: x ~ U(-1, 1), y ~ U(0, 1)
         (reference ant_heaven_hell.py:50-75)."""
-        scale = torch.tensor([2.0, 1.0], device=u.device)
-        shift = torch.tensor([-1.0, 0.0], device=u.device)
-        return u * scale + shift
+        # u * (2, 1) + (-1, 0), written without a host tensor so that a
+        # CUDA graph can capture it
+        return torch.stack([u[..., 0] * 2.0 - 1.0, u[..., 1]], -1)
 
     def apply_reset(self, state: HeavenHellState, mask: torch.Tensor,
                     xy_new: torch.Tensor, heaven_new: torch.Tensor) -> HeavenHellState:

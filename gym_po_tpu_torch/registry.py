@@ -1,8 +1,8 @@
 """Environment registry, PyTorch port of :mod:`gym_po_tpu.registry`.
 
 The Taxi family, ``Rooms-v0``, ``CRooms-v0``, ``MultistoryFourRooms-v0``,
-``RockSample-v0``, ``TagContinuous-v0`` and ``HeavenHellContinuous-v0`` are
-ported so far (not yet: ``CarFlag-v0``, ``DiscreteCarFlag-v0`` and the
+``RockSample-v0``, ``TagContinuous-v0``, ``HeavenHellContinuous-v0``,
+``CarFlag-v0`` and ``DiscreteCarFlag-v0`` are ported so far (not yet: the
 articulated ant); ``make`` of any other id raises ``KeyError`` listing what
 is available.  Every constructor takes the JAX package's kwargs plus
 ``device``.
@@ -37,6 +37,7 @@ def registered_envs():
 
 
 def _register_defaults() -> None:
+    from .envs.car_flag import CarFlag, DiscreteCarFlag
     from .envs.crooms import CRooms
     from .envs.msrooms import MultistoryFourRooms
     from .envs.rocksample import RockSample
@@ -57,6 +58,8 @@ def _register_defaults() -> None:
     register("RockSample-v0", lambda **kw: RockSample(**kw))
     register("TagContinuous-v0", lambda **kw: TagContinuous(**kw))
     register("HeavenHellContinuous-v0", lambda **kw: HeavenHellContinuous(**kw))
+    register("CarFlag-v0", lambda **kw: CarFlag(**kw))
+    register("DiscreteCarFlag-v0", lambda **kw: DiscreteCarFlag(**kw))
 
 
 _register_defaults()

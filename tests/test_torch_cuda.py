@@ -1279,3 +1279,103 @@ def test_fused_rooms_kernel_spawns_equal_twin(cuda, mode, time_limit, goal,
         assert (got[5] >= K // 2).all()  # episodes per env
     else:
         assert got[5].sum() > 0
+
+
+# ---------------------------------------------------------------- PPO
+PPO_ENVS = [("ExtendedHansenTaxi-v4", {}), ("DiscreteCarFlag-v0", {}),
+            ("CarFlag-v0", {}), ("HeavenHellContinuous-v0", {"time_limit": 20})]
+
+
+def _ppo(dev, env_id, kw, B=512, T=16, seed=0):
+    from gym_po_tpu_torch.agents import ppo
+
+    env = gpt_torch.make(env_id, device=dev, **kw)
+    cfg = ppo.PPOConfig(num_envs=B, rollout_steps=T, epochs=2, minibatches=2,
+                        hidden=(32, 32))
+    model, ts = ppo.init_train_state(
+        env, cfg, torch.Generator(device=dev).manual_seed(seed))
+    return ppo, env, cfg, model, ts
+
+
+def _generator_at(state, device):
+    gen = torch.Generator(device=device)
+    gen.set_state(state)
+    return gen
+
+
+def _assert_collect_equal(got, want):
+    (gb, gr, gobs, gst), (wb, wr, wobs, wst) = got, want
+    for g, w in zip((*gb, *gr, gobs), (*wb, *wr, wobs)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for f in wst.__dataclass_fields__:
+        assert torch.equal(getattr(gst, f), getattr(wst, f)), f
+
+
+@pytest.mark.parametrize("env_id,kw", PPO_ENVS)
+def test_ppo_collect_graph_replay_equals_eager(cuda, env_id, kw):
+    """The train step's graph replays the eager collect bit for bit from one
+    generator state, at its first replay and after updates have changed
+    the weights in place (the graph reads them where they lie)."""
+    ppo, env, cfg, model, ts = _ppo(cuda, env_id, kw)
+    step = ppo.make_train_step(env, model, cfg)
+    for _ in range(3):
+        start = ts.generator.get_state()
+        eager = ppo.collect(env, model, cfg, ts.env_obs, ts.env_state,
+                            _generator_at(start, cuda))
+        if step.graph is not None:
+            replay = step.graph(ts.env_obs, ts.env_state, ts.generator)
+            _assert_collect_equal(replay, eager)
+            ts.generator.set_state(start)
+        before = ts.params.clone()
+        ts, metrics = step(ts)
+        assert step.graph is not None
+        assert not torch.equal(before, ts.params)
+        assert all(torch.isfinite(v) for v in metrics.values())
+        collect_ms, learn_ms = ppo.halves_ms(step)
+        assert collect_ms > 0 and learn_ms > 0
+        # the update's collect was the replay of the eager one above
+        assert torch.equal(ts.env_obs, eager[2])
+    with pytest.raises(ValueError):
+        step.graph(ts.env_obs, ts.env_state, torch.Generator(device=cuda))
+
+
+def test_ppo_learn_on_card_equals_cpu(cuda):
+    """The learn half on the card from the CPU's batch, weights and row
+    orders equals the CPU's to atol 1e-6: the card's matmuls sum in
+    another order, and the first layer's backward (an indexed scatter-add,
+    atomics) in an order that changes from run to run."""
+    ppo, env, cfg, model, ts = _ppo(torch.device("cpu"), "ExtendedHansenTaxi-v4",
+                                    {}, B=256, T=16)
+    cfg = cfg._replace(epochs=4, minibatches=4)
+    batch, _, _, _ = ppo.collect(env, model, cfg, ts.env_obs, ts.env_state,
+                                 ts.generator)
+    orders = ppo.row_orders(cfg, batch.obs.shape[0], ts.generator)
+    from gym_po_tpu_torch.agents.networks import (AdamState, flatten_parameters,
+                                                  make_actor_critic)
+
+    card = make_actor_critic(env, cfg.hidden, device=cuda)
+    flat = flatten_parameters(card)
+    flat.copy_(ts.params)
+    opt = AdamState.zeros_like(flat)
+    got = ppo.learn(card, flat, opt, cfg, ppo.Batch(*(x.to(cuda) for x in batch)),
+                    [o.to(cuda) for o in orders])
+    want = ppo.learn(model, ts.params, ts.opt_state, cfg, batch, orders)
+    torch.testing.assert_close(flat.cpu(), ts.params, atol=1e-6, rtol=0)
+    torch.testing.assert_close(opt.mu.cpu(), ts.opt_state.mu, atol=1e-6, rtol=1e-4)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5, atol=1e-6)
+    assert int(opt.count) == int(ts.opt_state.count) == 16
+
+
+def test_ppo_train_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the collect half is a CUDA graph")
+    from gym_po_tpu_torch.agents import ppo
+
+    env = gpt_torch.make("Taxi-v4")
+    cfg = ppo.PPOConfig(num_envs=64, rollout_steps=8, epochs=1, minibatches=2,
+                        hidden=(16,))
+    model, ts, history = ppo.train(env, cfg, seed=0, num_updates=3, log_every=2)
+    assert ts.update_idx == 3 and len(history) == 2
+    assert ts.env_obs.is_cuda and next(model.parameters()).is_cuda
+    assert all(np.isfinite(h["loss"]) for h in history)

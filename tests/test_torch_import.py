@@ -45,6 +45,9 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.envs.rocksample
     import gym_po_tpu_torch.envs.crooms
     import gym_po_tpu_torch.envs.tag
+    import gym_po_tpu_torch.envs.car_flag
+    import gym_po_tpu_torch.envs.shaping
+    import gym_po_tpu_torch.agents.ppo
     import gym_po_tpu_torch.ops.crooms_dynamics
     import gym_po_tpu_torch.ops.fused_crooms
     import gym_po_tpu_torch.ops.fused_q_crooms
@@ -62,6 +65,8 @@ _BLOCKED_IMPORT = textwrap.dedent(
     env = gym_po_tpu_torch.make("CRooms-v0", device="cpu")
     env = gym_po_tpu_torch.make("TagContinuous-v0", device="cpu")
     env = gym_po_tpu_torch.make("HeavenHellContinuous-v0", device="cpu")
+    env = gym_po_tpu_torch.make("CarFlag-v0", device="cpu")
+    env = gym_po_tpu_torch.make("DiscreteCarFlag-v0", device="cpu")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """
@@ -81,7 +86,7 @@ def test_port_imports_with_jax_blocked():
     for env_id in ("Taxi-v4", "HansenTaxi-v4", "ExtendedTaxi-v4",
                    "ExtendedHansenTaxi-v4", "Rooms-v0", "MultistoryFourRooms-v0",
                    "RockSample-v0", "CRooms-v0", "TagContinuous-v0",
-                   "HeavenHellContinuous-v0"):
+                   "HeavenHellContinuous-v0", "CarFlag-v0", "DiscreteCarFlag-v0"):
         assert env_id in proc.stdout
 
 
@@ -89,11 +94,12 @@ def test_unported_env_raises_keyerror_listing_available():
     import gym_po_tpu_torch as gpt_torch
 
     with pytest.raises(KeyError, match="Available"):
-        gpt_torch.make("CarFlag-v0")
+        gpt_torch.make("AntTagPhysics-v0")
     assert gpt_torch.registered_envs() == [
-        "CRooms-v0", "ExtendedHansenTaxi-v4", "ExtendedTaxi-v4",
-        "HansenTaxi-v4", "HeavenHellContinuous-v0", "MultistoryFourRooms-v0",
-        "RockSample-v0", "Rooms-v0", "TagContinuous-v0", "Taxi-v4",
+        "CRooms-v0", "CarFlag-v0", "DiscreteCarFlag-v0", "ExtendedHansenTaxi-v4",
+        "ExtendedTaxi-v4", "HansenTaxi-v4", "HeavenHellContinuous-v0",
+        "MultistoryFourRooms-v0", "RockSample-v0", "Rooms-v0", "TagContinuous-v0",
+        "Taxi-v4",
     ]
 
 
