@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's six main paths on the card, each through the entry
+Drives the port's seven main paths on the card, each through the entry
 points a user calls, with the kernels' launch counts zeroed just before the
 path and read just after:
 
@@ -55,7 +55,19 @@ path and read just after:
    bit for bit from one generator state and both timed, at B = 4,096 and
    B = 65,536; then the JAX package's PPO learning runs (DiscreteCarFlag,
    the feedforward HeavenHell surrogate).  It reaches no kernel: its
-   launch counts stay 0.
+   launch counts stay 0;
+7. recurrent PPO (``gym_po_tpu_torch.agents.ppo_rnn``) on the same env at
+   the same defaults with the GRU 128 wide: updates through
+   ``init_rnn_state`` and ``make_rnn_train_step``, each timed with its
+   halves, one under ``torch.profiler`` (the learn half's device busy
+   share), the collect graph held against the eager collect bit for bit
+   and both timed, one update at B = 32,768; the PPO learn half in float32
+   and bfloat16 side by side and one bfloat16 recurrent update; an update
+   resumed from a checkpoint against the same update straight through, bit
+   for bit; the JAX package's recurrent learning runs (the GRU HeavenHell
+   surrogate, the DiscreteCarFlag and TagContinuous smoke runs) over seeds
+   0-7, in eight worker processes (each run launch-bound on its own host
+   core).  No kernel either.
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
@@ -84,7 +96,7 @@ path 1 with the headline timing; path 2 with the trainers' timing and
 learning checks; path 3 with the ROOMS timings and learning checks; path 4
 with the MSRooms and RockSample timings and the MSRooms learning check;
 path 5 with the CRooms, Tag and HeavenHell timings and the CRooms learning
-check; path 6, PPO.
+check; path 6, PPO; path 7, recurrent PPO, bf16 and resume.
 The line before the last is the kernels' JSON record; the last line is the
 result.
 """
@@ -92,7 +104,10 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2236,58 +2251,79 @@ def device_ops(fn, top: int = 0) -> tuple:
     return out
 
 
-def ppo_collect_checks(dev, ppo, env, cfg, model, ts, graph, label) -> None:
-    """The graph's replay against the eager collect from one generator
-    state, bit for bit; then both timed in one process (CUDA events,
+def collect_outputs(out) -> list:
+    """Every tensor of a collect's outputs, in order (tuples, named tuples
+    and env-state dataclasses)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if dataclasses.is_dataclass(out):
+        return [t for f in dataclasses.fields(out)
+                for t in collect_outputs(getattr(out, f.name))]
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in collect_outputs(x)]
+    return []
+
+
+def collect_checks(dev, label, generator, eager, replay, T, B,
+                   phase="ppo-collect") -> dict:
+    """A collect graph's replay against the eager collect from one
+    generator state, bit for bit (every output: batch or sequences,
+    rollout, final obs and state, and the recurrent collect's final hidden
+    state and reset flags); then both timed in one process (CUDA events,
     eager, graph, graph, eager windows) and their device operations
-    counted."""
-    start = ts.generator.get_state()
+    counted.  ``eager(gen)`` collects from ``gen``, ``replay()`` replays
+    the graph, which draws from ``generator``; its state is put back."""
+    start = generator.get_state()
     eager_gen = torch.Generator(device=dev)
     eager_gen.set_state(start)
-    want = ppo.collect(env, model, cfg, ts.env_obs, ts.env_state, eager_gen)
-    got = graph(ts.env_obs, ts.env_state, ts.generator)
+    want = collect_outputs(eager(eager_gen))
+    got = collect_outputs(replay())
     torch.cuda.synchronize()
-    (gb, gr, gobs, gst), (wb, wr, wobs, wst) = got, want
-    for i, (g, w) in enumerate(zip((*gb, *gr, gobs), (*wb, *wr, wobs))):
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: the replay gives {len(got)} outputs, "
+                             f"the eager collect {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
         if g.dtype != w.dtype or not torch.equal(g, w):
             raise AssertionError(f"{label}: graph replay differs from the eager "
                                  f"collect at output {i}")
-    for f in wst.__dataclass_fields__:
-        if not torch.equal(getattr(gst, f), getattr(wst, f)):
-            raise AssertionError(f"{label}: graph replay's final {f} differs")
+    n_out = len(want)
     del got, want
-
-    def eager(i):
-        ppo.collect(env, model, cfg, ts.env_obs, ts.env_state, eager_gen)
-
-    def replay(i):
-        graph(ts.env_obs, ts.env_state, ts.generator)
-
     t_eager, t_graph = [], []
-    for fn, out in ((eager, t_eager), (replay, t_graph), (replay, t_graph),
-                    (eager, t_eager)):
+    for fn, out in (((lambda i: eager(eager_gen)), t_eager),
+                    ((lambda i: replay()), t_graph),
+                    ((lambda i: replay()), t_graph),
+                    ((lambda i: eager(eager_gen)), t_eager)):
         out.append(event_windows(fn, windows=2, calls=2))
-    n_eager, dev_eager = device_ops(lambda: eager(0))
-    n_graph, dev_graph = device_ops(lambda: replay(0))
-    ts.generator.set_state(start)
+    n_eager, dev_eager = device_ops(lambda: eager(eager_gen))
+    n_graph, dev_graph = device_ops(replay)
+    generator.set_state(start)
     out = {"eager_ms": statistics.median(t_eager),
            "graph_ms": statistics.median(t_graph),
            "ops_eager": n_eager, "ops_graph": n_graph,
            "dev_eager_ms": dev_eager, "dev_graph_ms": dev_graph}
-    T, B = cfg.rollout_steps, cfg.num_envs
     ops = (f"{n_eager / T:.2f} device ops per step eager ({n_eager} in all, "
            f"device busy {dev_eager:.3f} ms = "
            f"{dev_eager / out['eager_ms']:.4f} of the eager time), "
            f"{n_graph / T:.2f} replayed (busy {dev_graph:.3f} ms = "
            f"{dev_graph / out['graph_ms']:.4f})") if n_eager else \
         "device ops: not measured (the profiler's trace held no device events)"
-    say("ppo-collect", f"{label}: graph replay == eager collect exactly "
-        f"(batch, rollout, final obs and state; T={T} B={B}); eager "
+    say(phase, f"{label}: graph replay == eager collect exactly "
+        f"({n_out} outputs; T={T} B={B}); eager "
         f"{out['eager_ms']:.3f} ms, graph {out['graph_ms']:.3f} ms "
         f"(ratio {out['graph_ms'] / out['eager_ms']:.4f}; windows "
         f"{', '.join(f'{x:.3f}' for x in t_eager)} / "
         f"{', '.join(f'{x:.3f}' for x in t_graph)}); "
         f"{B * T / out['graph_ms'] * 1e3:.6e} env-steps/s replayed; {ops}")
+    return out
+
+
+def ppo_collect_checks(dev, ppo, env, cfg, model, ts, graph, label) -> None:
+    """:func:`collect_checks` of PPO's collect graph."""
+    collect_checks(
+        dev, label, ts.generator,
+        lambda gen: ppo.collect(env, model, cfg, ts.env_obs, ts.env_state, gen),
+        lambda: graph(ts.env_obs, ts.env_state, ts.generator),
+        cfg.rollout_steps, cfg.num_envs)
 
 
 def ppo_learning(dev, ppo, gp) -> None:
@@ -2408,6 +2444,295 @@ def ppo_path(dev, card) -> None:
     del graph_w, model_w, ts_w
     ppo_learning(dev, ppo, gp)
     say("ppo", f"path 6 took {time.perf_counter() - t_path:.2f} s")
+
+
+# ---------------------------------------------- recurrent PPO (path 7)
+# path 6's env (benchmarks/learner.py's default) at PPOConfig's defaults
+# (B = 4,096, T = 128, E = M = 4, f32), the GRU at init_rnn_state's width
+RNN_UPDATES = 3
+B_RNN_WIDE = 32768  # benchmarks/learner.py's default batch
+# learning at the JAX tests' configs (tests/test_memory_learning.py,
+# tests/test_ppo_rnn.py), each over the seeds both packages were swept on
+# (0-7): on the CPU (tests/_rnn_seed_sweep.py) the GRU HeavenHell
+# criterion (p > 0.02, heaven share > 0.9) held for JAX seeds 1, 3 and no
+# port seed, and every run reached terminals; the DiscreteCarFlag one (last
+# 5 updates' mean reward > the first 5's - 1e-4) for JAX 8 and port 7
+# seeds, the TagContinuous one (> + 0.003) for 6 and 6, the Tag reward
+# rising on every seed of both.  What held on every seed is required, the
+# rates are printed
+RNN_SEEDS = tuple(range(8))
+RNN_HH_UPDATES = 50
+RNN_SMOKES = (
+    ("DiscreteCarFlag-v0", dict(num_actions=3, time_limit=60), 25, -1e-4,
+     "finite metrics"),
+    ("TagContinuous-v0", dict(time_limit=100, agent_speed=0.75), 30, 0.003,
+     "gain > 0"),
+)
+# the learning runs are launch-bound (about 0.4 s an update, one host core
+# each): one worker process per core of the card's host
+RNN_LEARNING_WORKERS = 8
+CHECKPOINT_DIR = "build/chip_smoke_checkpoint"
+
+
+def rnn_update(ppo, step, ts, card, label, B, T) -> tuple:
+    """One timed update; returns the new state and the line's numbers."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, m = step(ts)
+    collect_ms, learn_ms = ppo.halves_ms(step)
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(ts.hidden).all():
+        raise AssertionError(f"{label}: non-finite hidden state")
+    say("rnn-update", f"{label} update {ts.update_idx} on {card}: "
+        f"{wall * 1e3:.3f} ms (CUDA events: collect {collect_ms:.3f} ms, learn "
+        f"{learn_ms:.3f} ms), {B * T / wall:.6e} recurrent PPO env-steps/s; "
+        f"{ppo_metrics_line(m)}")
+    return ts, m, wall, collect_ms, learn_ms
+
+
+def rnn_main(dev, card, gp, ppo, ppo_rnn):
+    """Recurrent PPO at the defaults: updates timed, one profiled, the
+    collect graph held against the eager collect; then B = 32,768."""
+    env = gp.make(PPO_ENV, device=dev)
+    cfg = ppo.PPOConfig()
+    B, T = cfg.num_envs, cfg.rollout_steps
+    model, ts = ppo_rnn.init_rnn_state(env, cfg,
+                                       torch.Generator(device=dev).manual_seed(0))
+    step = ppo_rnn.make_rnn_train_step(env, model, cfg)
+    t0 = time.perf_counter()
+    ts, m = step(ts)
+    torch.cuda.synchronize()
+    say("rnn", f"{PPO_ENV} B={B} T={T} E={cfg.epochs} M={cfg.minibatches} GRU "
+        f"{model.hidden} f32 on {card}: first update, graph capture included, "
+        f"{time.perf_counter() - t0:.3f} s; {ppo_metrics_line(m)}")
+    n_obs = env.observation_space.n
+    for _ in range(RNN_UPDATES):
+        ts, *_ = rnn_update(ppo, step, ts, card, PPO_ENV, B, T)
+        if not ((ts.env_obs >= 0) & (ts.env_obs < n_obs)).all():
+            raise AssertionError("recurrent PPO: obs out of range")
+    kept = {}
+
+    def profiled_update():
+        kept["ts"], kept["m"] = step(ts)
+
+    n_ops, busy, top = device_ops(profiled_update, top=6)
+    ts = kept["ts"]
+    collect_ms, learn_ms = ppo.halves_ms(step)
+    c = collect_checks(
+        dev, f"{PPO_ENV} GRU after {ts.update_idx} updates", ts.generator,
+        lambda gen: ppo_rnn.collect_rnn(env, model, cfg, ts.env_obs, ts.env_state,
+                                        gen, ts.hidden, ts.prev_reset),
+        lambda: step.graph(ts.env_obs, ts.env_state, ts.generator, ts.hidden,
+                           ts.prev_reset),
+        T, B, phase="rnn-collect")
+    if n_ops:
+        learn_busy = busy - c["dev_graph_ms"]
+        say("rnn-profile", f"update {ts.update_idx} under torch.profiler on "
+            f"{card}: {n_ops} device ops, device busy {busy:.3f} ms of collect "
+            f"{collect_ms:.3f} + learn {learn_ms:.3f} ms (events); learn half "
+            f"busy {learn_busy:.3f} ms (the update's less a replay's "
+            f"{c['dev_graph_ms']:.3f}), {learn_busy / learn_ms:.4f} of it: the "
+            f"host's launches bound the rest ({1 - learn_busy / learn_ms:.4f}); "
+            f"{(n_ops - c['ops_graph']) / (cfg.epochs * cfg.minibatches * T):.1f}"
+            " device ops per "
+            "replayed cell step of the learn half; most costly: " + "; ".join(
+                f"{name} x{count} {ms:.3f} ms" for name, count, ms in top))
+    else:
+        say("rnn-profile", "update under torch.profiler: not measured (no "
+            "device events in the trace)")
+
+    wide = cfg._replace(num_envs=B_RNN_WIDE)
+    model_w, ts_w = ppo_rnn.init_rnn_state(
+        env, wide, torch.Generator(device=dev).manual_seed(2))
+    step_w = ppo_rnn.make_rnn_train_step(env, model_w, wide)
+    t0 = time.perf_counter()
+    ts_w, _ = step_w(ts_w)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ts_w, *_ = rnn_update(ppo, step_w, ts_w, card,
+                          f"B={B_RNN_WIDE}, for the record (first update with "
+                          f"the capture {first:.3f} s)", B_RNN_WIDE, T)
+    say("rnn-wide", f"B={B_RNN_WIDE}: peak device memory of the update "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
+    del step_w, model_w, ts_w
+    return env, cfg
+
+
+def bf16_checks(dev, card, gp, ppo, ppo_rnn, env, cfg) -> None:
+    """Path 6's ActorCritic in float32 and bfloat16 in one process (learn
+    halves side by side, windows f32, bf16, bf16, f32), then one bfloat16
+    recurrent update."""
+    halves = {}
+    runs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        c = cfg._replace(compute_dtype=dt)
+        model, ts = ppo.init_train_state(env, c,
+                                         torch.Generator(device=dev).manual_seed(0))
+        step = ppo.make_train_step(env, model, c)
+        ts, _ = step(ts)  # the capture
+        runs[dt] = [step, ts]
+        halves[dt] = []
+    for dt in (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32):
+        step, ts = runs[dt]
+        for _ in range(2):
+            ts, m = step(ts)
+            ppo_metrics_line(m)
+            halves[dt].append(ppo.halves_ms(step))
+        runs[dt][1] = ts
+    learn = {dt: statistics.median(l for _, l in v) for dt, v in halves.items()}
+    coll = {dt: statistics.median(c for c, _ in v) for dt, v in halves.items()}
+    say("bf16", f"PPO ActorCritic {cfg.hidden} on {PPO_ENV} B={cfg.num_envs} "
+        f"T={cfg.rollout_steps} on {card}: learn half f32 {learn[torch.float32]:.3f} "
+        f"ms, bf16 {learn[torch.bfloat16]:.3f} ms (ratio "
+        f"{learn[torch.bfloat16] / learn[torch.float32]:.4f}; medians of 4 "
+        f"updates each: f32 {', '.join(f'{l:.3f}' for _, l in halves[torch.float32])}"
+        f"; bf16 {', '.join(f'{l:.3f}' for _, l in halves[torch.bfloat16])}); "
+        f"collect f32 {coll[torch.float32]:.3f} ms, bf16 "
+        f"{coll[torch.bfloat16]:.3f} ms")
+    del runs
+    c = cfg._replace(compute_dtype=torch.bfloat16)
+    model, ts = ppo_rnn.init_rnn_state(env, c,
+                                       torch.Generator(device=dev).manual_seed(3))
+    step = ppo_rnn.make_rnn_train_step(env, model, c)
+    ts, _ = step(ts)
+    if ts.hidden.dtype != torch.bfloat16:
+        raise AssertionError("bf16 recurrent PPO: the hidden state is not bf16")
+    rnn_update(ppo, step, ts, card, f"{PPO_ENV} GRU bf16", c.num_envs,
+               c.rollout_steps)
+
+
+def rnn_resume_check(dev, card, ppo, ppo_rnn, env, cfg) -> None:
+    """Save after one update; the next update straight through, and again
+    from the checkpoint restored into a fresh state (its own step and
+    graph): equal bit for bit."""
+    from gym_po_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             CHECKPOINT_DIR)
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    model, ts = ppo_rnn.init_rnn_state(env, cfg,
+                                       torch.Generator(device=dev).manual_seed(4))
+    step = ppo_rnn.make_rnn_train_step(env, model, cfg)
+    ts, _ = step(ts)
+    save_checkpoint(directory, 1, ts)
+    ts_a, m_a = step(ts)
+    model_b, ts_b = ppo_rnn.init_rnn_state(
+        env, cfg, torch.Generator(device=dev).manual_seed(5))
+    ts_b = restore_checkpoint(directory, ts_b)
+    ts_b, m_b = ppo_rnn.make_rnn_train_step(env, model_b, cfg)(ts_b)
+    got = collect_outputs((ts_b.params, ts_b.opt_state, ts_b.env_obs,
+                           ts_b.env_state, ts_b.hidden, ts_b.prev_reset,
+                           ts_b.generator.get_state(), *m_b.values()))
+    want = collect_outputs((ts_a.params, ts_a.opt_state, ts_a.env_obs,
+                            ts_a.env_state, ts_a.hidden, ts_a.prev_reset,
+                            ts_a.generator.get_state(), *m_a.values()))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"resume: tensor {i} of the resumed update "
+                                 f"differs (max {(g.double() - w.double()).abs().max()})")
+    shutil.rmtree(directory)
+    say("rnn-resume", f"{PPO_ENV} GRU B={cfg.num_envs} on {card}: an update from "
+        f"the checkpoint restored into a fresh state == the update straight "
+        f"through, bit for bit ({len(got)} tensors: params, Adam, envs, hidden, "
+        f"resets, generator, metrics); {time.perf_counter() - t0:.2f} s")
+
+
+def rnn_learning_run(job: tuple) -> dict:
+    """One recurrent learning run (a worker process's job): ``job`` is
+    (device, env id, env kwargs, PPOConfig kwargs, updates, seed); returns
+    each update's mean reward and terminal rates.  GRU 32 wide."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo, ppo_rnn
+
+    device, env_id, kw, cfg_kw, updates, seed = job
+    dev = torch.device(device)
+    env = gp.make(env_id, device=dev, **kw)
+    cfg = ppo.PPOConfig(**cfg_kw)
+    model, ts = ppo_rnn.init_rnn_state(
+        env, cfg, torch.Generator(device=dev).manual_seed(seed), hidden=32)
+    step = ppo_rnn.make_rnn_train_step(env, model, cfg)
+    metrics = []
+    for _ in range(updates):
+        ts, m = step(ts)
+        metrics.append(m)
+    ppo_metrics_line(metrics[-1])  # raises on a non-finite metric
+    return {k: torch.stack([m[k] for m in metrics]).cpu().numpy()
+            for k in ("mean_reward", "pos_reward_rate", "neg_reward_rate")}
+
+
+def rnn_learning(dev, card) -> None:
+    """The JAX package's recurrent learning runs on the card, each over
+    seeds 0-7.  The runs are launch-bound, so they go to
+    ``RNN_LEARNING_WORKERS`` processes, each launching its own; every run
+    draws from its own generator, as alone."""
+    import multiprocessing
+
+    hh = ("HeavenHellContinuous-v0", dict(agent_speed=0.75, time_limit=150),
+          dict(num_envs=128, rollout_steps=32, epochs=4, minibatches=4,
+               learning_rate=1e-3, entropy_coef=0.01, shuffle="none"),
+          RNN_HH_UPDATES)
+    smoke = dict(num_envs=64, rollout_steps=32, epochs=4, minibatches=4,
+                 learning_rate=1e-3, entropy_coef=0.003)
+    runs = [hh] + [(env_id, kw, smoke, updates)
+                   for env_id, kw, updates, _, _ in RNN_SMOKES]
+    jobs = [(dev.type, *run, seed) for run in runs for seed in RNN_SEEDS]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(RNN_LEARNING_WORKERS) as pool:
+        results = pool.map(rnn_learning_run, jobs, chunksize=1)
+    say("rnn-learning", f"{len(jobs)} runs ({sum(j[-2] for j in jobs)} updates) "
+        f"in {RNN_LEARNING_WORKERS} processes on {card}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    results = iter(results)
+
+    held = []
+    for seed in RNN_SEEDS:
+        r = next(results)
+        p, n = r["pos_reward_rate"][-10:].mean(), r["neg_reward_rate"][-10:].mean()
+        share = p / max(p + n, 1e-12)
+        held.append(bool(p > 0.02 and share > 0.9))
+        peak_p, peak_n = r["pos_reward_rate"].max(), r["neg_reward_rate"].max()
+        say("rnn-learning", f"HeavenHellContinuous-v0 surrogate (speed 0.75, "
+            f"time limit 150), GRU 32, seed {seed}, {RNN_HH_UPDATES} updates on "
+            f"{card}: last 10 pos rate {p:.6f}, neg {n:.6f}, heaven share "
+            f"{share:.4f}; peak pos {peak_p:.6f}, neg {peak_n:.6f}; criterion "
+            f"(p > 0.02, share > 0.9) {held[-1]}")
+        if peak_p + peak_n <= 0:
+            raise AssertionError(f"GRU HeavenHell seed {seed}: no terminal reached")
+    say("rnn-learning", f"GRU HeavenHell criterion held for {sum(held)} of "
+        f"{len(held)} seeds (seeds {[s for s, h in zip(RNN_SEEDS, held) if h]}); "
+        "every seed reached terminals")
+    for env_id, kw, updates, margin, required in RNN_SMOKES:
+        gains = []
+        for seed in RNN_SEEDS:
+            r = next(results)["mean_reward"]
+            gains.append(r[-5:].mean() - r[:5].mean())
+        held = [g > margin for g in gains]
+        say("rnn-learning", f"{env_id} smoke, GRU 32, {updates} updates, seeds "
+            f"{RNN_SEEDS[0]}-{RNN_SEEDS[-1]} on {card}: mean reward "
+            f"last 5 - first 5 {', '.join(f'{g:.6f}' for g in gains)}; the "
+            f"test's criterion (> {margin:g}) held for {sum(held)} of "
+            f"{len(held)}; required on every seed: {required}")
+        if required == "gain > 0" and min(gains) <= 0:
+            raise AssertionError(f"recurrent PPO on {env_id}: a seed's reward "
+                                 "did not rise")
+
+
+def rnn_path(dev, card) -> None:
+    """Path 7: recurrent PPO on ExtendedHansenTaxi-v4 at PPOConfig's
+    defaults through init_rnn_state and make_rnn_train_step; its collect
+    graph held against the eager collect; B = 32,768; the bf16 learn
+    halves; resume from a checkpoint; the learning runs."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo, ppo_rnn
+
+    t_path = time.perf_counter()
+    env, cfg = rnn_main(dev, card, gp, ppo, ppo_rnn)
+    bf16_checks(dev, card, gp, ppo, ppo_rnn, env, cfg)
+    rnn_resume_check(dev, card, ppo, ppo_rnn, env, cfg)
+    rnn_learning(dev, card)
+    say("rnn", f"path 7 took {time.perf_counter() - t_path:.2f} s")
 
 
 def block_ops(full: float, part: float = 0) -> dict:
@@ -2683,9 +3008,14 @@ def main() -> int:
     ppo_path(dev, card)
     if any(LAUNCHES.values()):
         raise AssertionError(f"path 6 launched kernels: {dict(LAUNCHES)}")
+    # path 7, recurrent PPO: no kernel either
+    LAUNCHES.clear()
+    rnn_path(dev, card)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"path 7 launched kernels: {dict(LAUNCHES)}")
     say("launches", "on the main paths: " + ", ".join(
         f"{k} {v}" for k, v in launches.items())
-        + "; path 6 (PPO) none: it reaches no kernel")
+        + "; paths 6 (PPO) and 7 (recurrent PPO) none: they reach no kernel")
 
     # bounds of this run's main-path shapes
     ns_sites_head = make_fused_taxi_rollout(env, B_HEAD, K_HEAD).n_sites

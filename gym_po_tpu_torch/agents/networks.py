@@ -6,6 +6,13 @@ initialisation.  For a ``Discrete`` observation the first layer indexes its
 weight columns by the observation in place of one-hot × matmul: a one-hot
 row sums a single term, so the two are exactly equal.
 
+``compute_dtype`` is the JAX package's: the torso computes in it (input,
+weight and bias cast to it, each product and bias add rounded to it, as
+flax's ``Dense(dtype=...)``), the heads compute in float32 on the torso's
+output promoted to float32, and the parameters stay float32.  The casts
+are explicit, at flax's rounding points (no ``torch.autocast``); in
+float32 they are no-ops.
+
 :func:`params_from_flax` carries the JAX package's flax parameters into a
 ``state_dict``, so both packages compute the same function, and
 :func:`adam_state_from_optax` carries an optax Adam state into the port's
@@ -26,6 +33,10 @@ from ..core import Box, Discrete, Space
 
 __all__ = [
     "ActorCritic",
+    "COMPUTE_DTYPES",
+    "check_compute_dtype",
+    "dense",
+    "embed_discrete",
     "obs_features",
     "encode_obs",
     "make_actor_critic",
@@ -58,6 +69,40 @@ def encode_obs(space: Space, obs: torch.Tensor,
     return flat.to(dtype)
 
 
+#: the compute dtypes the networks take (the JAX package's two)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_compute_dtype(dtype) -> None:
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {dtype} is not supported: the port's "
+                         "networks compute in float32 or bfloat16")
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """A linear layer computed as flax's ``Dense(dtype=dtype)``.
+
+    In float32 it is ``F.linear`` (what ``nn.Linear`` computes).  Otherwise
+    input, weight and bias are cast to ``dtype`` and the product is rounded
+    to it before the bias is added, as XLA computes flax's layer
+    (``F.linear``'s fused bias add rounds once, and differs in the last bit
+    of ``dtype``).
+    """
+    if dtype == torch.float32:
+        return nn.functional.linear(x, weight, bias)
+    y = x.to(dtype) @ weight.to(dtype).t()
+    return y if bias is None else y + bias.to(dtype)
+
+
+def embed_discrete(layer: nn.Linear, obs: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """A first layer over a one-hot observation, as an index into its weight
+    columns: one-hot x matmul sums a single term, so in either dtype the two
+    are equal."""
+    return layer.weight.to(dtype).t()[obs.long()] + layer.bias.to(dtype)
+
+
 def _linear(n_in: int, n_out: int, gain: float, generator, device) -> nn.Linear:
     # skip_init: nn.Linear's own init would draw from torch's global generator
     layer = nn.utils.skip_init(nn.Linear, n_in, n_out,
@@ -74,15 +119,19 @@ class ActorCritic(nn.Module):
     ``{"kind": "categorical", "logits": ...}`` or
     ``{"kind": "gaussian", "mean": ..., "log_std": ...}``, as in the JAX
     package.  The weights are made on ``device`` from ``generator`` (torch's
-    global generator when it is ``None``).
+    global generator when it is ``None``).  The torso computes in
+    ``compute_dtype`` (float32 or bfloat16), the heads in float32.
     """
 
     def __init__(self, obs_space: Space, action_space: Space,
                  hidden: Sequence[int] = (64, 64),
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_compute_dtype(compute_dtype)
         self.obs_space = obs_space
         self.action_space = action_space
+        self.compute_dtype = compute_dtype
         widths = [obs_features(obs_space), *hidden]
         self.torso = nn.ModuleList(
             _linear(a, b, math.sqrt(2), generator, device)
@@ -98,15 +147,16 @@ class ActorCritic(nn.Module):
         self.v_head = _linear(widths[-1], 1, 1.0, generator, device)
 
     def forward(self, obs: torch.Tensor) -> Tuple[Dict[str, Any], torch.Tensor]:
+        dt = self.compute_dtype
         if isinstance(self.obs_space, Discrete):
-            first = self.torso[0]
-            x = torch.tanh(first.weight.t()[obs.long()] + first.bias)
+            x = torch.tanh(embed_discrete(self.torso[0], obs, dt))
             layers = self.torso[1:]
         else:
-            x = encode_obs(self.obs_space, obs)
+            x = encode_obs(self.obs_space, obs, dt)
             layers = self.torso
         for layer in layers:
-            x = torch.tanh(layer(x))
+            x = torch.tanh(dense(x, layer.weight, layer.bias, dt))
+        x = x.float()
         if isinstance(self.action_space, Discrete):
             pi = {"kind": "categorical", "logits": self.pi_head(x)}
         else:
@@ -117,9 +167,10 @@ class ActorCritic(nn.Module):
 
 def make_actor_critic(env, hidden: Sequence[int] = (64, 64),
                       generator: Optional[torch.Generator] = None,
-                      device=None) -> ActorCritic:
+                      device=None,
+                      compute_dtype: torch.dtype = torch.float32) -> ActorCritic:
     return ActorCritic(env.observation_space, env.action_space, tuple(hidden),
-                       generator, device)
+                       generator, device, compute_dtype)
 
 
 def params_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -158,15 +209,17 @@ def parameter_list(model: ActorCritic) -> List[nn.Parameter]:
     return [named[n] for n in names + (["log_std"] if "log_std" in named else [])]
 
 
-def flatten_parameters(model: ActorCritic) -> torch.Tensor:
-    """Move the model's parameters into one flat buffer, in
-    :func:`parameter_list`'s order, and return it.
+def flatten_parameters(model: nn.Module,
+                       params: Optional[List[nn.Parameter]] = None) -> torch.Tensor:
+    """Move the model's parameters into one flat buffer, in the order of
+    ``params`` (default :func:`parameter_list`'s), and return it.
 
     Each parameter becomes a view of the buffer, so an optimizer step over
     the buffer updates the model in place (``load_state_dict`` keeps the
     views: it copies into them).
     """
-    params = parameter_list(model)
+    if params is None:
+        params = parameter_list(model)
     flat = torch.cat([p.detach().reshape(-1) for p in params])
     offset = 0
     for p in params:
@@ -193,14 +246,15 @@ class AdamState:
                    torch.zeros_like(flat), torch.zeros_like(flat))
 
 
-def adam_state_from_optax(opt_state_np) -> AdamState:
+def adam_state_from_optax(opt_state_np, layout=params_from_flax) -> AdamState:
     """Map optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``, as numpy)
     to an :class:`AdamState` on the CPU.
 
     Accepts the ``ScaleByAdamState`` itself or any tuple holding it, such as
     the state of ``optax.chain(clip_by_global_norm(...), adam(...))``.  The
-    moments are flax param trees; they are laid out as
-    :func:`params_from_flax` lays out the params (kernels transposed).
+    moments are flax param trees; they are laid out as ``layout`` lays out
+    the params (:func:`params_from_flax` for ``ActorCritic``, kernels
+    transposed).
     """
 
     def find(x):
@@ -218,7 +272,7 @@ def adam_state_from_optax(opt_state_np) -> AdamState:
         raise ValueError("no optax ScaleByAdamState (count, mu, nu) found")
 
     def flat(tree):
-        return torch.cat([t.reshape(-1) for t in params_from_flax(tree).values()])
+        return torch.cat([t.reshape(-1) for t in layout(tree).values()])
 
     return AdamState(
         count=torch.tensor(int(adam.count), dtype=torch.int32),

@@ -42,6 +42,7 @@ from ..utils.numerics import sqrt_rn
 from .networks import (
     ActorCritic,
     AdamState,
+    check_compute_dtype,
     entropy,
     flatten_parameters,
     log_prob,
@@ -52,7 +53,8 @@ from .networks import (
 
 __all__ = ["PPOConfig", "TrainState", "init_train_state", "make_train_step",
            "train", "collect", "batch_from_rollout", "row_orders", "learn",
-           "adam_step", "halves_ms", "Batch", "Rollout", "CollectGraph"]
+           "adam_step", "minibatch_step", "ppo_loss", "halves_ms", "Batch", "Rollout",
+           "CollectGraph"]
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5  # optax.adam's, eps as PPO's
 
@@ -72,7 +74,7 @@ class PPOConfig(NamedTuple):
     max_grad_norm: float = 0.5
     learning_rate: float = 2.5e-4
     hidden: Tuple[int, ...] = (64, 64)
-    #: only float32: the port's ActorCritic has no bf16 path
+    #: the torso's dtype, float32 or bfloat16 (the heads compute in float32)
     compute_dtype: Any = torch.float32
     #: epoch row order: 'permute' = a fresh permutation, 'roll' = a random
     #: circular shift, 'none' = the rows in order
@@ -119,9 +121,7 @@ class Rollout(NamedTuple):
 
 
 def _check(config: PPOConfig) -> None:
-    if config.compute_dtype != torch.float32:
-        raise ValueError(f"compute_dtype {config.compute_dtype} is not supported: "
-                         "the port's ActorCritic computes in float32 only")
+    check_compute_dtype(config.compute_dtype)
     if config.shuffle not in ("permute", "roll", "none"):
         raise ValueError(f"unknown shuffle {config.shuffle!r}")
     if (config.num_envs * config.rollout_steps) % config.minibatches:
@@ -157,7 +157,8 @@ def init_train_state(env, config: PPOConfig, generator: torch.Generator,
         raise ValueError("multi-device PPO is not ported yet "
                          "(ROADMAP Queue 1, Multi-GPU)")
     device = generator.device
-    model = make_actor_critic(env, config.hidden, generator, device)
+    model = make_actor_critic(env, config.hidden, generator, device,
+                              config.compute_dtype)
     params = flatten_parameters(model)
     obs0, state0 = env.reset_vec(generator, config.num_envs)
     return model, TrainState(model=model, params=params,
@@ -191,6 +192,14 @@ def adam_step(params: torch.Tensor, state: AdamState, grads: torch.Tensor,
 
 def _loss_fn(model: ActorCritic, batch: Batch, config: PPOConfig):
     pi, value = model(batch.obs)
+    return ppo_loss(pi, value, batch, config)
+
+
+def ppo_loss(pi, value: torch.Tensor, batch, config: PPOConfig):
+    """The clipped surrogate, the clipped value loss and the entropy bonus
+    of the policy ``pi`` and ``value`` on ``batch`` (its ``action``,
+    ``logp``, ``value``, ``advantage`` and ``target``, of any shape), the
+    advantage normalised over all of it.  Returns ``(loss, terms)``."""
     logp = log_prob(pi, batch.action)
     ratio = torch.exp(logp - batch.logp)
     adv = (batch.advantage - batch.advantage.mean()) / (
@@ -281,13 +290,23 @@ def learn(model: ActorCritic, params: torch.Tensor, opt_state: AdamState,
         rows = batch if order is None else Batch(*(x[order] for x in batch))
         for m in range(config.minibatches):
             part = Batch(*(x[m * mb:(m + 1) * mb] for x in rows))
-            loss, terms = _loss_fn(model, part, config)
-            grads = torch.autograd.grad(loss, plist)
-            adam_step(params, opt_state,
-                      torch.cat([g.reshape(-1) for g in grads]), config)
-            for k, v in {**terms, "loss": loss}.items():
-                aux.setdefault(k, []).append(v.detach())
+            minibatch_step(*_loss_fn(model, part, config), plist, params,
+                           opt_state, config, aux)
     return {k: torch.stack(v).mean() for k, v in aux.items()}
+
+
+def minibatch_step(loss: torch.Tensor, terms: Dict[str, torch.Tensor],
+                   plist: Sequence[torch.Tensor], params: torch.Tensor,
+                   opt_state: AdamState, config: PPOConfig,
+                   aux: Dict[str, List[torch.Tensor]]) -> None:
+    """One clip-and-Adam step on the gradients of ``loss`` with respect to
+    ``plist`` (the views of ``params``, in its order); ``loss`` and its
+    ``terms`` are appended to ``aux``."""
+    grads = torch.autograd.grad(loss, plist)
+    adam_step(params, opt_state, torch.cat([g.reshape(-1) for g in grads]),
+              config)
+    for k, v in {**terms, "loss": loss}.items():
+        aux.setdefault(k, []).append(v.detach())
 
 
 def _reward_metrics(reward: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -303,29 +322,48 @@ def _clone_state(state):
         f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)})
 
 
-class CollectGraph:
-    """:func:`collect` captured as one CUDA graph, replayed from fixed
-    input buffers.
+def _copy_into(dst, src) -> None:
+    """Copy a tensor, or each field of a dataclass of tensors, in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    for f in dataclasses.fields(dst):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
 
-    The capture is preceded by one eager warm-up on a side stream, and the
-    generator is put back to its state from before both, so the first
-    replay draws what an eager :func:`collect` from that state would.  The
-    generator is registered with the graph: each replay draws fresh
-    numbers from its current state and advances it, as an eager call
-    does.  The graph reads the model's weights where they lie, so they
-    must be updated in place.
+
+class CollectGraph:
+    """A collect captured as one CUDA graph, replayed from fixed input
+    buffers.
+
+    ``collect_fn(env, model, config, obs, state, generator, *carry)`` is
+    :func:`collect` by default; ``carry`` are further tensors it reads (the
+    recurrent collect's hidden state and reset flags), held in input
+    buffers as ``obs`` and ``state`` are.  The capture is preceded by one
+    eager warm-up on a side stream, and the generator is put back to its
+    state from before both, so the first replay draws what an eager call
+    from that state would.  The generator is registered with the graph:
+    each replay draws fresh numbers from its current state and advances
+    it, as an eager call does.  The graph reads the model's weights where
+    they lie, so they must be updated in place.
     """
 
-    def __init__(self, env, model: ActorCritic, config: PPOConfig,
-                 obs: torch.Tensor, state, generator: torch.Generator):
+    def __init__(self, env, model, config, obs: torch.Tensor, state,
+                 generator: torch.Generator, *carry: torch.Tensor,
+                 collect_fn=collect):
         self.generator = generator
-        self.obs = obs.clone()
-        self.state = _clone_state(state)
+        self.inputs = [obs.clone(), _clone_state(state),
+                       *(c.clone() for c in carry)]
+        obs_in, state_in, *carry_in = self.inputs
+
+        def run():
+            return collect_fn(env, model, config, obs_in, state_in, generator,
+                              *carry_in)
+
         saved = generator.get_state()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            collect(env, model, config, self.obs, self.state, generator)
+            run()
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
@@ -336,22 +374,24 @@ class CollectGraph:
         gc.disable()
         try:
             with torch.cuda.graph(self.graph):
-                self.out = collect(env, model, config, self.obs, self.state,
-                                   generator)
+                self.out = run()
         finally:
             if gc_on:
                 gc.enable()
         generator.set_state(saved)
 
-    def __call__(self, obs: torch.Tensor, state, generator: torch.Generator):
-        """Replay from ``obs`` and ``state``.  The outputs live in the
-        graph's memory until the next replay."""
+    def __call__(self, obs: torch.Tensor, state, generator: torch.Generator,
+                 *carry: torch.Tensor):
+        """Replay from ``obs``, ``state`` and ``carry``.  The outputs live in
+        the graph's memory until the next replay."""
         if generator is not self.generator:
             raise ValueError("the graph draws from the generator it was "
                              "captured with")
-        self.obs.copy_(obs)
-        for f in dataclasses.fields(state):
-            getattr(self.state, f.name).copy_(getattr(state, f.name))
+        if len(carry) != len(self.inputs) - 2:
+            raise ValueError(f"the graph takes {len(self.inputs) - 2} carry "
+                             f"tensors, not {len(carry)}")
+        for dst, src in zip(self.inputs, (obs, state, *carry)):
+            _copy_into(dst, src)
         self.graph.replay()
         return self.out
 

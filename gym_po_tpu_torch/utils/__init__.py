@@ -6,6 +6,7 @@ from .actions import (
     failure_matrix,
     make_exec_action,
 )
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 
 __all__ = [
     "ACTIONS_ORDINAL",
@@ -14,4 +15,7 @@ __all__ = [
     "failure_cumsum",
     "exec_action_np",
     "make_exec_action",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "latest_step",
 ]

@@ -1379,3 +1379,93 @@ def test_ppo_train_on_card():
     assert ts.update_idx == 3 and len(history) == 2
     assert ts.env_obs.is_cuda and next(model.parameters()).is_cuda
     assert all(np.isfinite(h["loss"]) for h in history)
+
+
+# ---------------------------------------------------------- recurrent PPO
+RNN_CASES = [("ExtendedHansenTaxi-v4", {}, torch.float32),
+             ("HeavenHellContinuous-v0", {"time_limit": 20}, torch.float32),
+             ("DiscreteCarFlag-v0", {}, torch.bfloat16)]
+
+
+def _rnn(dev, env_id, kw, dtype=torch.float32, B=512, T=16, seed=0):
+    from gym_po_tpu_torch.agents import ppo, ppo_rnn
+
+    env = gpt_torch.make(env_id, device=dev, **kw)
+    cfg = ppo.PPOConfig(num_envs=B, rollout_steps=T, epochs=2, minibatches=2,
+                        compute_dtype=dtype)
+    model, ts = ppo_rnn.init_rnn_state(
+        env, cfg, torch.Generator(device=dev).manual_seed(seed), hidden=32)
+    return ppo_rnn, env, cfg, model, ts
+
+
+def _assert_rnn_collect_equal(got, want):
+    (gseq, gro, *gfinal), (wseq, wro, *wfinal) = got, want
+    for g, w in zip((*gseq, *gro), (*wseq, *wro)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    gobs, gst, gh, gr = gfinal
+    wobs, wst, wh, wr = wfinal
+    for g, w in ((gobs, wobs), (gh, wh), (gr, wr)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for f in wst.__dataclass_fields__:
+        assert torch.equal(getattr(gst, f), getattr(wst, f)), f
+
+
+@pytest.mark.parametrize("env_id,kw,dtype", RNN_CASES)
+def test_rnn_collect_graph_replay_equals_eager(cuda, env_id, kw, dtype):
+    """The recurrent train step's graph replays the eager ``collect_rnn``
+    bit for bit from one generator state, hidden state and reset flags, at
+    its first replay and after updates."""
+    from gym_po_tpu_torch.agents.ppo import halves_ms
+
+    ppo_rnn, env, cfg, model, ts = _rnn(cuda, env_id, kw, dtype)
+    step = ppo_rnn.make_rnn_train_step(env, model, cfg)
+    for _ in range(3):
+        start = ts.generator.get_state()
+        eager = ppo_rnn.collect_rnn(env, model, cfg, ts.env_obs, ts.env_state,
+                                    _generator_at(start, cuda), ts.hidden,
+                                    ts.prev_reset)
+        if step.graph is not None:
+            replay = step.graph(ts.env_obs, ts.env_state, ts.generator,
+                                ts.hidden, ts.prev_reset)
+            _assert_rnn_collect_equal(replay, eager)
+            ts.generator.set_state(start)
+        before = ts.params.clone()
+        ts, metrics = step(ts)
+        assert not torch.equal(before, ts.params)
+        assert all(torch.isfinite(v) for v in metrics.values())
+        assert ts.hidden.dtype == dtype and torch.isfinite(ts.hidden).all()
+        assert min(halves_ms(step)) > 0
+        assert torch.equal(ts.env_obs, eager[2]) and torch.equal(ts.hidden, eager[4])
+    with pytest.raises(ValueError):
+        step.graph(ts.env_obs, ts.env_state, ts.generator)  # no carry
+
+
+@pytest.mark.parametrize("recurrent", [False, True], ids=["ppo", "recurrent"])
+def test_resume_on_card_is_exact(cuda, tmp_path, recurrent):
+    """save -> the next update straight through; restore into a fresh state
+    (its own step, its own graph) -> the same update, bit for bit."""
+    from gym_po_tpu_torch.agents import ppo
+    from gym_po_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    def fresh(seed):
+        if recurrent:
+            ppo_rnn, env, cfg, model, ts = _rnn(cuda, "ExtendedHansenTaxi-v4", {},
+                                                seed=seed)
+            return model, ts, ppo_rnn.make_rnn_train_step(env, model, cfg)
+        ppo_, env, cfg, model, ts = _ppo(cuda, "ExtendedHansenTaxi-v4", {},
+                                         seed=seed)
+        return model, ts, ppo.make_train_step(env, model, cfg)
+
+    model, ts, step = fresh(0)
+    ts, _ = step(ts)
+    save_checkpoint(str(tmp_path), 1, ts)
+    ts_a, m_a = step(ts)
+    _, ts_b, step_b = fresh(7)
+    ts_b, m_b = step_b(restore_checkpoint(str(tmp_path), ts_b))
+    assert torch.equal(ts_a.params, ts_b.params)
+    assert torch.equal(ts_a.opt_state.nu, ts_b.opt_state.nu)
+    assert torch.equal(ts_a.env_obs, ts_b.env_obs)
+    assert torch.equal(ts_a.generator.get_state(), ts_b.generator.get_state())
+    if recurrent:
+        assert torch.equal(ts_a.hidden, ts_b.hidden)
+    assert all(torch.equal(m_a[k], m_b[k]) for k in m_a)

@@ -48,6 +48,8 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.envs.car_flag
     import gym_po_tpu_torch.envs.shaping
     import gym_po_tpu_torch.agents.ppo
+    import gym_po_tpu_torch.agents.ppo_rnn
+    import gym_po_tpu_torch.utils.checkpoint
     import gym_po_tpu_torch.ops.crooms_dynamics
     import gym_po_tpu_torch.ops.fused_crooms
     import gym_po_tpu_torch.ops.fused_q_crooms
@@ -67,6 +69,11 @@ _BLOCKED_IMPORT = textwrap.dedent(
     env = gym_po_tpu_torch.make("HeavenHellContinuous-v0", device="cpu")
     env = gym_po_tpu_torch.make("CarFlag-v0", device="cpu")
     env = gym_po_tpu_torch.make("DiscreteCarFlag-v0", device="cpu")
+    import torch
+    from gym_po_tpu_torch.agents import PPOConfig, init_rnn_state
+    init_rnn_state(env, PPOConfig(num_envs=4, minibatches=2,
+                                  compute_dtype=torch.bfloat16),
+                   torch.Generator().manual_seed(0), hidden=8)
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """

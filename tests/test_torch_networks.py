@@ -108,3 +108,64 @@ def test_sample_action_and_init():
     freq = torch.bincount(a, minlength=5).double() / a.numel()
     torch.testing.assert_close(freq, torch.softmax(logits[0].double(), -1),
                                atol=0.01, rtol=0)
+
+
+BF16_TOL = dict(atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("discrete", [True, False], ids=["discrete", "gaussian"])
+def test_bf16_actor_critic_matches_flax(discrete):
+    """``compute_dtype=bfloat16`` against flax's: the torso rounds to
+    bfloat16 where XLA rounds flax's ``Dense(dtype=bfloat16)`` (the product,
+    then the bias add, then ``tanh``), so the float32 heads see the same
+    torso output and agree to atol 1e-6 (measured 2.4e-7); both are 2e-3 or
+    more away from the float32 network on the same weights."""
+    if discrete:
+        je = gpt.make("ExtendedHansenTaxi-v4")
+        te = gpt_torch.make("ExtendedHansenTaxi-v4", device="cpu")
+        spaces = (je.observation_space, je.action_space, te.observation_space,
+                  te.action_space)
+        obs = np.random.default_rng(1).integers(0, je.observation_space.n,
+                                                512).astype(np.int32)
+    else:
+        spaces = (JBox(-1.0, 1.0, (6,)), JBox(-1.0, 1.0, (2,)),
+                  TBox(-1.0, 1.0, (6,)), TBox(-1.0, 1.0, (2,)))
+        obs = np.random.default_rng(3).uniform(-1, 1, (512, 6)).astype(np.float32)
+    net = jnet.ActorCritic(obs_space=spaces[0], action_space=spaces[1],
+                           hidden=(64, 64), compute_dtype=jnp.bfloat16)
+    params = _perturbed(net.init(jax.random.PRNGKey(0), jnp.asarray(obs[:1])), 0)
+    model = tnet.make_actor_critic(
+        type("E", (), {"observation_space": spaces[2], "action_space": spaces[3]}),
+        (64, 64), compute_dtype=torch.bfloat16)
+    model.load_state_dict(tnet.params_from_flax(params))
+    pi_j, v_j = net.apply(params, jnp.asarray(obs))
+    pi_t, v_t = model(torch.as_tensor(obs))
+    key = "logits" if discrete else "mean"
+    assert pi_t[key].dtype == v_t.dtype == torch.float32
+    np.testing.assert_allclose(pi_t[key].detach().numpy(), np.asarray(pi_j[key]),
+                               **BF16_TOL)
+    np.testing.assert_allclose(v_t.detach().numpy(), np.asarray(v_j), **BF16_TOL)
+    for p in model.parameters():
+        assert p.dtype == torch.float32
+    model32 = tnet.ActorCritic(spaces[2], spaces[3], (64, 64))
+    model32.load_state_dict(tnet.params_from_flax(params))
+    _, v32 = model32(torch.as_tensor(obs))
+    assert float((v32 - v_t).abs().max()) > 2e-3
+
+
+def test_f32_forward_is_the_plain_layers():
+    """The float32 path is ``Linear`` + ``tanh`` with the first layer an
+    index, bit for bit: the dtype casts are no-ops there."""
+    te = gpt_torch.make("ExtendedHansenTaxi-v4", device="cpu")
+    model = tnet.make_actor_critic(te, (32, 32),
+                                   torch.Generator().manual_seed(0))
+    obs = torch.arange(300) % te.observation_space.n
+    first = model.torso[0]
+    x = torch.tanh(first.weight.t()[obs] + first.bias)
+    x = torch.tanh(model.torso[1](x))
+    pi, v = model(obs)
+    assert torch.equal(pi["logits"], model.pi_head(x))
+    assert torch.equal(v, model.v_head(x).squeeze(-1))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tnet.ActorCritic(te.observation_space, te.action_space,
+                         compute_dtype=torch.float16)

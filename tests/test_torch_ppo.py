@@ -87,8 +87,13 @@ def test_config_defaults_match_jax():
 def test_config_and_mesh_guards():
     te = gpt_torch.make("Taxi-v4", device="cpu")
     gen = torch.Generator().manual_seed(0)
+    # bfloat16 is accepted (the torso computes in it); float16 is refused
+    model, _ = tppo.init_train_state(
+        te, PPOConfig(num_envs=8, rollout_steps=4, compute_dtype=torch.bfloat16),
+        gen)
+    assert model.compute_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="float32"):
-        tppo.init_train_state(te, PPOConfig(compute_dtype=torch.bfloat16), gen)
+        tppo.init_train_state(te, PPOConfig(compute_dtype=torch.float16), gen)
     with pytest.raises(ValueError, match="multiple of"):
         tppo.make_train_step(te, None, PPOConfig(num_envs=5, rollout_steps=3))
     with pytest.raises(ValueError, match="Multi-GPU"):
