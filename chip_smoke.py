@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's seven main paths on the card, each through the entry
+Drives the port's eight main paths on the card, each through the entry
 points a user calls, with the kernels' launch counts zeroed just before the
 path and read just after:
 
@@ -67,7 +67,22 @@ path and read just after:
    for bit; the JAX package's recurrent learning runs (the GRU HeavenHell
    surrogate, the DiscreteCarFlag and TagContinuous smoke runs) over seeds
    0-7, in eight worker processes (each run launch-bound on its own host
-   core).  No kernel either.
+   core).  No kernel either;
+8. data parallelism through ``torch.distributed``
+   (``gym_po_tpu_torch.parallel``): over a one-rank NCCL group, the fused
+   Taxi Q trainer and the actor-critic (``fused_q_learning`` and
+   ``fused_actor_critic`` with a ``mesh``, B = 65,536, K = 256) and the PPO
+   update at ``PPOConfig``'s defaults each equal the same without the mesh,
+   bit for bit, the PPO update timed both ways (the host time inside the
+   mesh's all-reduces counted, one update each under ``torch.profiler``)
+   and the all-reduce of a Q table and of PPO's gradient timed; over two
+   ranks sharing the card (gloo: NCCL takes one card per rank), the same
+   trainers and a PPO update equal both shards run in one process and
+   averaged, bit for bit, and a learn half is broken down (over gloo, each
+   all-reduce's wait for the device and its call timed; without the mesh,
+   both ranks at once and rank 0 alone; each profiled);
+   ``dryrun_multichip(1)``; a Taxi frame from a card state; the gymnasium
+   adapter where gymnasium is installed.
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
@@ -96,13 +111,15 @@ path 1 with the headline timing; path 2 with the trainers' timing and
 learning checks; path 3 with the ROOMS timings and learning checks; path 4
 with the MSRooms and RockSample timings and the MSRooms learning check;
 path 5 with the CRooms, Tag and HeavenHell timings and the CRooms learning
-check; path 6, PPO; path 7, recurrent PPO, bf16 and resume.
+check; path 6, PPO; path 7, recurrent PPO, bf16 and resume; path 8, data
+parallelism.
 The line before the last is the kernels' JSON record; the last line is the
 result.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -2735,6 +2752,460 @@ def rnn_path(dev, card) -> None:
     say("rnn", f"path 7 took {time.perf_counter() - t_path:.2f} s")
 
 
+# ---------------------------------------------- data parallel (path 8)
+# the trainers at their full width (B_TRAIN, K_TRAIN) over four chunks;
+# the PPO update at PPOConfig's defaults (path 6's)
+SCHED_MESH_Q = [(LR_TRAIN, EPS_TRAIN, 4 * K_TRAIN)]
+SCHED_MESH_AC = [(ALPHA_PI, ALPHA_V, 4 * K_TRAIN)]
+MESH_ROUNDS = 10  # PPO updates with and without the mesh, in turns
+ALLREDUCE_ITERS = 50
+
+
+def allreduce_ms(mesh, numel: int) -> float:
+    """Host ms per ``all_mean_`` of a ``numel``-word f32 tensor on the
+    mesh's device (every rank calls it), after 5 warm-up calls."""
+    x = torch.ones(numel, device=mesh.device)
+    for _ in range(5):
+        mesh.all_mean_(x)
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_ITERS):
+        mesh.all_mean_(x)
+    torch.cuda.synchronize(mesh.device)
+    return (time.perf_counter() - t0) / ALLREDUCE_ITERS * 1e3
+
+
+MESH_TIMES: collections.Counter = collections.Counter()
+
+
+def timed_mesh(mesh, drain: bool):
+    """``mesh`` with each ``all_mean_`` timed on the host clock into
+    ``MESH_TIMES``: the all-reduce and its division ("reduce"), with
+    ``drain`` after a wait for the device's queued work ("drain"), which a
+    gloo all-reduce of a CUDA tensor makes anyway."""
+    base = type(mesh)
+
+    class TimedMesh(base):
+        def all_mean_(self, x):
+            t0 = time.perf_counter()
+            if drain:
+                torch.cuda.synchronize(x.device)
+            t1 = time.perf_counter()
+            base.all_mean_(self, x)
+            MESH_TIMES["reduce"] += time.perf_counter() - t1
+            MESH_TIMES["drain"] += t1 - t0
+            MESH_TIMES["calls"] += 1
+            return x
+
+    return TimedMesh(*(getattr(mesh, f.name) for f in dataclasses.fields(mesh)))
+
+
+def comm_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler, host and device: its device
+    ops and busy ms, the device ms of kernels named ``nccl``, and the host
+    ms of each collective's op (count, inclusive ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = {e.key: getattr(e, "self_device_time_total", 0) for e in dev}
+    return {"ops": sum(e.count for e in dev), "busy_ms": sum(us.values()) / 1e3,
+            "nccl_ms": sum(u for k, u in us.items() if "nccl" in k.lower()) / 1e3,
+            "host": {e.key: (e.count, e.cpu_time_total / 1e3) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and ("allreduce" in e.key.lower() or "all_reduce" in e.key.lower())}}
+
+
+def comm_line(p: dict) -> str:
+    host = ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in p["host"].items())
+    return (f"{p['ops']} device ops, busy {p['busy_ms']:.3f} ms (nccl kernels "
+            f"{p['nccl_ms']:.3f}); host in the collectives' ops: {host or 'none'}")
+
+
+def q_banks_words(env) -> int:
+    from gym_po_tpu_torch.ops import bank_geometry
+
+    return bank_geometry(int(env.observation_space.n), int(env.action_space.n))[1] * 128
+
+
+def mesh_rank_trainers(devices, seed: int) -> dict:
+    """A rank of path 8's gloo group: Taxi Q and the actor-critic through
+    the mesh, then the all-reduce of a Q table and of PPO's gradient timed;
+    returns the tables, histories and the rank's kernel launches."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import PPOConfig, fused_actor_critic, fused_q_learning
+    from gym_po_tpu_torch.agents.networks import flatten_parameters, make_actor_critic
+    from gym_po_tpu_torch.ops._build import LAUNCHES
+    from gym_po_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=devices)
+    taxi = gp.make("Taxi-v4", device=mesh.device)
+    LAUNCHES.clear()
+    q, q_hist = fused_q_learning(taxi, seed, SCHED_MESH_Q, num_envs=B_TRAIN,
+                                 chunk_steps=K_TRAIN, mesh=mesh)
+    th, v, ac_hist = fused_actor_critic(gp.make("Rooms-v0", device=mesh.device),
+                                        seed, SCHED_MESH_AC, num_envs=B_TRAIN,
+                                        chunk_steps=K_TRAIN, mesh=mesh)
+    torch.cuda.synchronize(mesh.device)
+    launches = dict(LAUNCHES)
+    env = gp.make(PPO_ENV, device=mesh.device)
+    n_grad = flatten_parameters(make_actor_critic(env, PPOConfig().hidden)).numel()
+    return {"q": q, "q_hist": q_hist, "th": th, "v": v, "ac_hist": ac_hist,
+            "launches": launches,
+            "q_ms": allreduce_ms(mesh, q_banks_words(taxi)),
+            "grad_ms": allreduce_ms(mesh, n_grad)}
+
+
+def mesh_rank_ppo(devices, seed: int) -> dict:
+    """A rank of path 8's gloo group: one data-parallel PPO update at
+    PPOConfig's defaults from the global state of ``seed``."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo
+    from gym_po_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=devices)
+    env = gp.make(PPO_ENV, device=mesh.device)
+    cfg = ppo.PPOConfig()
+    model, ts = ppo.init_train_state(env, cfg,
+                                     torch.Generator(device=mesh.device).manual_seed(seed))
+    ts = ppo.shard_train_state(ts, mesh)
+    step = ppo.make_train_step(env, model, cfg, mesh)
+    ts, m = step(ts)
+    collect_ms, learn_ms = ppo.halves_ms(step)
+    out = {"params": ts.params.cpu(), "metrics": {k: float(x) for k, x in m.items()},
+           "collect_ms": collect_ms, "learn_ms": learn_ms}
+    out["learn"] = learn_breakdown(env, model, cfg, ts, mesh)
+    return out
+
+
+def learn_breakdown(env, model, cfg, ts, mesh) -> dict:
+    """Where a learn half's time goes on ranks that share a card: one batch
+    of this rank's, learned from the same parameters (a) over the mesh,
+    each all-reduce timed on the host after draining the device, (b)
+    without the mesh, every rank at once, (c) without the mesh, rank 0
+    alone; each timed on the host clock, then once more under
+    torch.profiler (device busy).  Returns ``{case: {"ms", "ops",
+    "busy_ms", ...}}`` (rank 0 alone holds (c))."""
+    import torch.distributed as dist
+
+    from gym_po_tpu_torch.agents import ppo
+
+    batch, _, _, _ = ppo.collect(env, model, cfg, ts.env_obs, ts.env_state,
+                                 ts.generator)
+    orders = ppo.row_orders(cfg, batch.obs.shape[0], ts.generator)
+    state = (ts.params, ts.opt_state.count, ts.opt_state.mu, ts.opt_state.nu)
+    saved = [t.clone() for t in state]
+    out = {}
+    for case, m in (("mesh", timed_mesh(mesh, drain=True)), ("apart", None),
+                    ("alone", None)):
+        for profiled in (False, True):
+            for t, v in zip(state, saved):
+                t.copy_(v)
+            torch.cuda.synchronize()
+            dist.barrier(group=mesh.group)
+            if case != "alone" or mesh.rank == 0:
+                MESH_TIMES.clear()
+
+                def learn():
+                    ppo.learn(model, ts.params, ts.opt_state, cfg, batch, orders, m)
+
+                if profiled:
+                    out[case]["ops"], out[case]["busy_ms"] = device_ops(learn)
+                else:
+                    t0 = time.perf_counter()
+                    learn()
+                    torch.cuda.synchronize()
+                    out[case] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                 **{k: v * 1e3 if k != "calls" else v
+                                    for k, v in MESH_TIMES.items()}}
+            dist.barrier(group=mesh.group)
+    for t, v in zip(state, saved):
+        t.copy_(v)
+    return out
+
+
+def emulated_q(gp, dev, env_id, seed, sched, B, K, n, trainer):
+    """What an n-rank mesh gives, in one process: the global reset from
+    ``seed``, each shard's chunk through the kernel with its chunk seed,
+    the tables averaged after each chunk as (a + b) / 2 (n = 2).  Returns
+    the final banks (one tuple per averaged output) and the histories."""
+    from gym_po_tpu_torch.agents.qlearning import _flat_agents
+    from gym_po_tpu_torch.ops import make_fused_ac_trainer_rooms, make_fused_q_trainer, q_to_banks
+    from gym_po_tpu_torch.parallel import chunk_seeds, shard_rows
+
+    env = gp.make(env_id, device=dev)
+    _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed), B)
+    if trainer == "q":
+        run = make_fused_q_trainer(env, B // n, K, 0.99, average_duplicates=True)
+        s = [shard_rows(st.s.reshape(-1, 128), r, n) for r in range(n)]
+        tables = [torch.as_tensor(q_to_banks(np.zeros((512, 5), np.float32)), device=dev)]
+    else:
+        run = make_fused_ac_trainer_rooms(env, B // n, K, 0.99)
+        s = [shard_rows(_flat_agents(env, st), r, n) for r in range(n)]
+        A = int(env.num_actions)
+        tables = [torch.as_tensor(q_to_banks(np.zeros((512, k), np.float32)), device=dev)
+                  for k in (A, 1)]
+    hist = []
+    for i in range(int(sched[0][2]) // K):
+        seeds = chunk_seeds(seed, i + 1, n)
+        outs = []
+        for r in range(n):
+            if trainer == "q":
+                s_r, q_r, rew = run(int(seeds[r]), sched[0][0], sched[0][1], s[r], tables[0])
+                outs.append(((q_r,), s_r, rew))
+            else:
+                th, v, s_r, rew = run(int(seeds[r]), sched[0][0], sched[0][1],
+                                      tables[0], tables[1], s[r])
+                outs.append(((th, v), s_r, rew))
+        s = [o[1] for o in outs]
+        tables = [(outs[0][0][j] + outs[1][0][j]) / 2 for j in range(len(tables))]
+        hist.append((outs[0][2].mean() + outs[1][2].mean()) / 2)
+    return tables, [h / K for h in torch.stack(hist).tolist()]
+
+
+def emulated_ppo(dev, seed: int, n: int):
+    """What an n-rank PPO update gives, in one process: the global state
+    of ``seed``, each shard's eager collect from its generator, then the
+    learn half with each minibatch's gradients averaged as (a + b) / 2.
+    Returns the parameters and the learn half's ms (both shards' work, one
+    after the other, in one process)."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo
+    from gym_po_tpu_torch.agents.networks import parameter_list
+    from gym_po_tpu_torch.parallel import shard_rows, split_generator
+
+    env = gp.make(PPO_ENV, device=dev)
+    cfg = ppo.PPOConfig()
+    model, ts = ppo.init_train_state(env, cfg,
+                                     torch.Generator(device=dev).manual_seed(seed))
+    gens = split_generator(ts.generator, n, dev)
+    batches, orders = [], []
+    for r in range(n):
+        obs, st = shard_rows((ts.env_obs, ts.env_state), r, n)
+        batch, _, _, _ = ppo.collect(env, model, cfg, obs, st, gens[r])
+        batches.append(batch)
+        orders.append(ppo.row_orders(cfg, batch.obs.shape[0], gens[r]))
+    plist = parameter_list(model)
+    mb = batches[0].obs.shape[0] // cfg.minibatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in range(cfg.epochs):
+        rows = [ppo.Batch(*(x[orders[r][e]] for x in batches[r])) for r in range(n)]
+        for m in range(cfg.minibatches):
+            flats = []
+            for r in range(n):
+                part = ppo.Batch(*(x[m * mb:(m + 1) * mb] for x in rows[r]))
+                loss, _ = ppo._loss_fn(model, part, cfg)
+                grads = torch.autograd.grad(loss, plist)
+                flats.append(torch.cat([g.reshape(-1) for g in grads]))
+            ppo.adam_step(ts.params, ts.opt_state, (flats[0] + flats[1]) / 2, cfg)
+    torch.cuda.synchronize()
+    return ts.params.cpu(), (time.perf_counter() - t0) * 1e3
+
+
+def mesh_path(dev, card) -> dict:
+    """Path 8, data parallelism through torch.distributed: a one-rank NCCL
+    mesh against no mesh (Taxi Q [2], the actor-critic [13], the PPO update
+    at PPOConfig's defaults, bit for bit; the PPO update timed both ways,
+    with the host time in the mesh's all-reduces and a profile of each;
+    the all-reduce of a Q table and of PPO's gradient timed), two ranks on
+    the card over gloo against both shards run in one process and averaged
+    (Taxi Q, the actor-critic, the PPO update; a learn half broken down,
+    :func:`learn_breakdown`), ``dryrun_multichip(1)``, a
+    Taxi frame from a card state, the gymnasium adapter where gymnasium is
+    installed.  Returns the kernels' launches in the ranks' processes."""
+    import importlib.util
+    import tempfile
+
+    import torch.distributed as dist
+
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import fused_actor_critic, fused_q_learning, ppo
+    from gym_po_tpu_torch.entry import dryrun_multichip
+    from gym_po_tpu_torch.ops import banks_to_q
+    from gym_po_tpu_torch.parallel import Ranks, make_mesh
+
+    t_path = time.perf_counter()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("gymnasium", "pygame", "mujoco")}
+    say("mesh", "on this machine: " + ", ".join(
+        f"{m} {'found' if ok else 'not found'}" for m, ok in found.items()))
+    taxi, rooms = gp.make("Taxi-v4", device=dev), gp.make("Rooms-v0", device=dev)
+    seed = 7
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(devices=[dev])
+            kw = dict(num_envs=B_TRAIN, chunk_steps=K_TRAIN)
+            for name, fn, env, sched in (
+                    ("Taxi Q [2]", fused_q_learning, taxi, SCHED_MESH_Q),
+                    ("actor-critic [13]", fused_actor_critic, rooms, SCHED_MESH_AC)):
+                plain = fn(env, seed, sched, **kw)
+                meshed = fn(env, seed, sched, mesh=mesh, **kw)
+                for a, b in zip(plain, meshed):
+                    if not np.array_equal(np.asarray(a), np.asarray(b)):
+                        raise AssertionError(f"{name}: a one-rank NCCL mesh "
+                                             "differs from no mesh")
+                say("mesh", f"{name} on {env.name} B={B_TRAIN} K={K_TRAIN}, "
+                    f"{len(plain[-1])} chunks: one-rank NCCL mesh == no mesh "
+                    f"bit for bit (last chunk's reward/step {plain[-1][-1]:.6f})")
+            # the PPO update: one state each from one seed, updates in
+            # turns (no mesh first in even rounds); round 0 captures the
+            # collect graphs and is not timed
+            cfg = ppo.PPOConfig()
+            env = gp.make(PPO_ENV, device=dev)
+            runs = []
+            for m in (None, timed_mesh(mesh, drain=False)):
+                model, ts = ppo.init_train_state(
+                    env, cfg, torch.Generator(device=dev).manual_seed(seed))
+                runs.append([ts, ppo.make_train_step(env, model, cfg, m), []])
+            for i in range(MESH_ROUNDS + 1):
+                for run in (runs if i % 2 == 0 else runs[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run[0], _ = run[1](run[0])
+                    torch.cuda.synchronize()
+                    if i:
+                        run[2].append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    MESH_TIMES.clear()
+            host_ar = dict(MESH_TIMES)
+            prof = []
+            for run in runs:
+                def one(run=run):
+                    run[0], _ = run[1](run[0])
+                prof.append(comm_profile(one))
+            if not torch.equal(runs[0][0].params, runs[1][0].params):
+                raise AssertionError("PPO: a one-rank NCCL mesh differs from no mesh")
+            plain_ms = statistics.median(runs[0][2])
+            mesh_ms = statistics.median(runs[1][2])
+            say("mesh-ppo", f"{PPO_ENV} at PPOConfig's defaults, "
+                f"{runs[0][0].update_idx} updates each: one-rank NCCL mesh == "
+                f"no mesh bit for bit; update {plain_ms:.3f} ms without the "
+                f"mesh, {mesh_ms:.3f} ms with it (medians of "
+                f"{len(runs[0][2])}, in turns, on {card}): ratio "
+                f"{mesh_ms / plain_ms:.4f}")
+            say("mesh-ppo", f"where the mesh's time goes: {host_ar['calls']} "
+                f"all_mean_ calls in {MESH_ROUNDS} updates, "
+                f"{host_ar['reduce'] * 1e3 / MESH_ROUNDS:.4f} ms of host time an "
+                f"update inside them ({host_ar['reduce'] * 1e3 / host_ar['calls']:.4f}"
+                f" a call); one more update each under torch.profiler: no mesh "
+                f"{comm_line(prof[0])}; mesh {comm_line(prof[1])}")
+            n_grad = runs[0][0].params.numel()
+            nccl_q = allreduce_ms(mesh, q_banks_words(taxi))
+            nccl_grad = allreduce_ms(mesh, n_grad)
+            say("mesh-allreduce", f"NCCL, one rank: Q banks ({q_banks_words(taxi)} "
+                f"f32) {nccl_q:.4f} ms per chunk, PPO gradient ({n_grad} f32) "
+                f"{nccl_grad:.4f} ms per minibatch (host clock, mean of "
+                f"{ALLREDUCE_ITERS})")
+            del runs
+        finally:
+            dist.destroy_process_group()
+
+    # two ranks on the one card, over gloo
+    t0 = time.perf_counter()
+    with Ranks(2, "gloo", timeout=300) as ranks:
+        tr = ranks.run(mesh_rank_trainers, [str(dev)] * 2, seed)
+        pp = ranks.run(mesh_rank_ppo, [str(dev)] * 2, seed)
+    say("mesh-gloo", f"two ranks on {card} over gloo: started, ran and "
+        f"stopped in {time.perf_counter() - t0:.2f} s")
+    with uncounted():
+        (eq,), eq_hist = emulated_q(gp, dev, "Taxi-v4", seed, SCHED_MESH_Q,
+                                    B_TRAIN, K_TRAIN, 2, "q")
+        (eth, ev), eac_hist = emulated_q(gp, dev, "Rooms-v0", seed, SCHED_MESH_AC,
+                                         B_TRAIN, K_TRAIN, 2, "ac")
+    n_obs, A = int(rooms.observation_space.n), int(rooms.num_actions)
+    want_q = banks_to_q(eq.cpu().numpy(), 512, 5)[:500]
+    want_th = banks_to_q(eth.cpu().numpy(), 512, na=A)[:n_obs]
+    want_v = banks_to_q(ev.cpu().numpy(), 512, na=1)[:n_obs, 0]
+    for r, out in enumerate(tr):
+        for name, got, want in (("Taxi Q", out["q"], want_q),
+                                ("actor-critic logits", out["th"], want_th),
+                                ("actor-critic values", out["v"], want_v)):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name}, rank {r}: two gloo ranks differ "
+                                     "from the two shards averaged in one process")
+        if not (np.allclose(out["q_hist"], eq_hist, rtol=1e-6)
+                and np.allclose(out["ac_hist"], eac_hist, rtol=1e-6)):
+            raise AssertionError(f"rank {r}: histories differ from the emulation")
+    say("mesh-gloo", f"Taxi Q [2] and the actor-critic [13], B={B_TRAIN} "
+        f"(two shards of {B_TRAIN // 2}) K={K_TRAIN}: both ranks == both shards "
+        "run in one process, tables averaged as (a + b) / 2, bit for bit")
+    want_p, emulated_ms = emulated_ppo(dev, seed, 2)
+    for r, out in enumerate(pp):
+        if not torch.equal(out["params"], want_p):
+            raise AssertionError(f"PPO, rank {r}: two gloo ranks differ from the "
+                                 "two shards' gradients averaged in one process")
+    if pp[0]["metrics"] != pp[1]["metrics"]:
+        raise AssertionError("PPO: the two ranks' metrics differ")
+    say("mesh-gloo", f"PPO update at PPOConfig's defaults (two shards of "
+        f"{ppo.PPOConfig().num_envs // 2} envs): both ranks == the two shards' "
+        f"gradients averaged in one process, bit for bit; the ranks' halves of "
+        f"this first update in a fresh process (one-time start-up included): "
+        + ", ".join(f"collect {p['collect_ms']:.3f} ms, learn {p['learn_ms']:.3f} "
+                    "ms" for p in pp)
+        + f" (CUDA events; both processes on the one card, the gloo all-reduce "
+        f"through the host); the emulation's learn half, both shards in one "
+        f"process, {emulated_ms:.3f} ms (host clock); "
+        f"{ppo_metrics_line(pp[0]['metrics'])}")
+    for r, out in enumerate(pp):
+        lb = out["learn"]
+        cfg = ppo.PPOConfig()
+        say("mesh-gloo-learn", f"rank {r}: one batch's learn half ({cfg.num_envs // 2} "
+            f"envs, {cfg.epochs * cfg.minibatches} minibatch steps) over gloo {lb['mesh']['ms']:.3f} ms (host "
+            f"clock), of it {lb['mesh']['drain']:.3f} ms draining the device "
+            f"before the {lb['mesh']['calls']} all-reduces and "
+            f"{lb['mesh']['reduce']:.3f} ms in them, busy {lb['mesh']['busy_ms']:.3f} "
+            f"ms ({lb['mesh']['ops']} device ops); without the mesh, both ranks "
+            f"at once {lb['apart']['ms']:.3f} ms, busy {lb['apart']['busy_ms']:.3f}"
+            + (f"; rank 0 alone {lb['alone']['ms']:.3f} ms, busy "
+               f"{lb['alone']['busy_ms']:.3f}" if r == 0 else ""))
+    say("mesh-allreduce", f"gloo, two ranks on one card: Q banks "
+        f"{tr[0]['q_ms']:.4f} ms per chunk, PPO gradient {tr[0]['grad_ms']:.4f} "
+        f"ms per minibatch (rank 0, host clock, mean of {ALLREDUCE_ITERS})")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1)
+    say("mesh-dryrun", f"dryrun_multichip(1) on {card}: Taxi Q and one PPO "
+        f"update over a one-rank NCCL group, loss {dry[0]['loss']:.6f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    from gym_po_tpu_torch.render import render
+
+    _, st = taxi.reset_vec(torch.Generator(device=dev).manual_seed(1), 16)
+    frame = render(taxi, st, range(16))
+    cpu_st = gp.core.map_tensors(lambda t: t.cpu(), st)
+    if not np.array_equal(frame, render(gp.make("Taxi-v4", device="cpu"), cpu_st,
+                                        range(16))):
+        raise AssertionError("render: a card state's frame differs from its CPU copy's")
+    say("render", f"Taxi-v4 frame of 16 envs {frame.shape} from a card state "
+        "== from its copy on the CPU")
+    if found["gymnasium"]:
+        from gym_po_tpu_torch.compat import TaxiVecEnv
+
+        venv = TaxiVecEnv(num_envs=8, hansen_obs=True, device=dev)
+        obs, _ = venv.reset(seed=0)
+        for _ in range(4):
+            obs, rew, done, trunc, _ = venv.step(np.zeros(8, np.int64))
+        if not venv.single_observation_space.contains(int(obs[0])):
+            raise AssertionError("gymnasium adapter: obs outside its space")
+        say("adapter", "TaxiVecEnv(hansen_obs=True) on the card: reset and 4 "
+            f"steps, NumPy out {obs.dtype} {obs.shape}")
+    else:
+        say("adapter", "gymnasium is not installed here: the adapter "
+            "(gym_po_tpu_torch.compat, not on the main path) was not driven")
+    launches = collections.Counter()
+    for out in tr + dry:
+        launches.update(out["launches"])
+    say("mesh", f"path 8 took {time.perf_counter() - t_path:.2f} s")
+    return launches
+
+
 def block_ops(full: float, part: float = 0) -> dict:
     """Slots by pipe of ``full`` Philox blocks of which three or four words
     are used and ``part`` of which words 0-1 alone are (one product and one
@@ -3013,9 +3484,22 @@ def main() -> int:
     rnn_path(dev, card)
     if any(LAUNCHES.values()):
         raise AssertionError(f"path 7 launched kernels: {dict(LAUNCHES)}")
+    # path 8, data parallelism: the fused Taxi Q trainer [2] and the
+    # actor-critic [13] under a mesh, counted here and in the ranks'
+    # processes
+    LAUNCHES.clear()
+    path8 = mesh_path(dev, card) + LAUNCHES
+    if set(path8) - {"fused_qlearning", "fused_ac"}:
+        raise AssertionError(f"path 8 launched other kernels: {dict(path8)}")
+    for key in ("fused_qlearning", "fused_ac"):
+        if path8[key] <= 0:
+            raise AssertionError(f"path 8 did not go through {key}")
+        launches[key] += path8[key]
     say("launches", "on the main paths: " + ", ".join(
         f"{k} {v}" for k, v in launches.items())
-        + "; paths 6 (PPO) and 7 (recurrent PPO) none: they reach no kernel")
+        + "; paths 6 (PPO) and 7 (recurrent PPO) none: they reach no kernel; "
+        f"path 8's share: fused_qlearning {path8['fused_qlearning']}, "
+        f"fused_ac {path8['fused_ac']}")
 
     # bounds of this run's main-path shapes
     ns_sites_head = make_fused_taxi_rollout(env, B_HEAD, K_HEAD).n_sites

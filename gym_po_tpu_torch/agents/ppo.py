@@ -24,10 +24,17 @@ reads the weights from that fixed storage.  Every draw (the network's
 init, the first reset, actions, env steps, row orders) comes from the
 train state's ``torch.Generator``.
 
-Not ported: the ``mesh`` (ROADMAP Queue 1, "Multi-GPU");
-``make_chunked_train_step``, the JAX package's remedy for a TPU batch
-cliff; ``make_multi_train_step``, which pays a TPU's dispatch cost once
-per run (here the graph replay takes its place).
+Data parallel over a ``mesh`` (:mod:`gym_po_tpu_torch.parallel`), as the
+JAX package's Anakin update: each rank holds its rows of the envs
+(:func:`shard_train_state`) and replicated parameters; each minibatch
+step averages the flat gradient over the ranks (one ``all_reduce``) before
+the clip and the Adam step, and the update's metrics are averaged once at
+its end.  The collect half holds no collective, so its CUDA graph is the
+same.
+
+Not ported: ``make_chunked_train_step``, the JAX package's remedy for a
+TPU batch cliff; ``make_multi_train_step``, which pays a TPU's dispatch
+cost once per run (here the graph replay takes its place).
 """
 
 from __future__ import annotations
@@ -52,9 +59,9 @@ from .networks import (
 )
 
 __all__ = ["PPOConfig", "TrainState", "init_train_state", "make_train_step",
-           "train", "collect", "batch_from_rollout", "row_orders", "learn",
-           "adam_step", "minibatch_step", "ppo_loss", "halves_ms", "Batch", "Rollout",
-           "CollectGraph"]
+           "shard_train_state", "train", "collect", "batch_from_rollout",
+           "row_orders", "learn", "adam_step", "minibatch_step", "mean_metrics",
+           "ppo_loss", "halves_ms", "Batch", "Rollout", "CollectGraph"]
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5  # optax.adam's, eps as PPO's
 
@@ -120,13 +127,24 @@ class Rollout(NamedTuple):
     cont: torch.Tensor  # 1 - (done | truncated)
 
 
-def _check(config: PPOConfig) -> None:
+def _local_envs(config: PPOConfig, num_devices: int) -> int:
+    """The envs of one of ``num_devices`` ranks (``num_envs`` is global)."""
     check_compute_dtype(config.compute_dtype)
+    if config.num_envs % num_devices:
+        raise ValueError(f"num_envs={config.num_envs} not divisible by "
+                         f"{num_devices} devices")
+    return config.num_envs // num_devices
+
+
+def _check(config: PPOConfig, num_devices: int = 1) -> int:
+    """Checks ``config`` for ``num_devices`` ranks; returns the envs of one."""
     if config.shuffle not in ("permute", "roll", "none"):
         raise ValueError(f"unknown shuffle {config.shuffle!r}")
-    if (config.num_envs * config.rollout_steps) % config.minibatches:
-        raise ValueError("num_envs * rollout_steps must be a multiple of "
-                         "minibatches")
+    b_local = _local_envs(config, num_devices)
+    if (b_local * config.rollout_steps) % config.minibatches:
+        raise ValueError("num_envs * rollout_steps (per device) must be a "
+                         "multiple of minibatches")
+    return b_local
 
 
 def _gae(rewards, values, next_values, dones, continues, gamma, lam):
@@ -151,16 +169,14 @@ def init_train_state(env, config: PPOConfig, generator: torch.Generator,
                      num_devices: int = 1) -> Tuple[ActorCritic, TrainState]:
     """Make the model (on the generator's device, its weights drawn from
     ``generator``), its zero Adam state and the first ``reset_vec`` of
-    ``num_envs`` envs (drawn from ``generator`` too)."""
-    _check(config)
-    if num_devices != 1:
-        raise ValueError("multi-device PPO is not ported yet "
-                         "(ROADMAP Queue 1, Multi-GPU)")
+    ``num_envs / num_devices`` envs, one device's share (drawn from
+    ``generator`` too)."""
+    b_local = _check(config, num_devices)
     device = generator.device
     model = make_actor_critic(env, config.hidden, generator, device,
                               config.compute_dtype)
     params = flatten_parameters(model)
-    obs0, state0 = env.reset_vec(generator, config.num_envs)
+    obs0, state0 = env.reset_vec(generator, b_local)
     return model, TrainState(model=model, params=params,
                              opt_state=AdamState.zeros_like(params),
                              env_obs=obs0, env_state=state0,
@@ -275,12 +291,14 @@ def row_orders(config: PPOConfig, n: int,
 
 def learn(model: ActorCritic, params: torch.Tensor, opt_state: AdamState,
           config: PPOConfig, batch: Batch,
-          orders: Sequence[Optional[torch.Tensor]]) -> Dict[str, torch.Tensor]:
+          orders: Sequence[Optional[torch.Tensor]],
+          mesh=None) -> Dict[str, torch.Tensor]:
     """E epochs (one per entry of ``orders``) of M minibatch steps, in place
-    on ``params`` (the model's flat buffer) and ``opt_state``.
+    on ``params`` (the model's flat buffer) and ``opt_state``; with a
+    ``mesh``, each step's gradient averaged over its ranks.
 
     Returns the mean over all minibatch steps of ``loss``, ``pg_loss``,
-    ``v_loss`` and ``entropy``, as 0-d tensors.
+    ``v_loss`` and ``entropy`` (the rank's own), as 0-d tensors.
     """
     n = batch.obs.shape[0]
     mb = n // config.minibatches
@@ -291,22 +309,36 @@ def learn(model: ActorCritic, params: torch.Tensor, opt_state: AdamState,
         for m in range(config.minibatches):
             part = Batch(*(x[m * mb:(m + 1) * mb] for x in rows))
             minibatch_step(*_loss_fn(model, part, config), plist, params,
-                           opt_state, config, aux)
+                           opt_state, config, aux, mesh)
     return {k: torch.stack(v).mean() for k, v in aux.items()}
 
 
 def minibatch_step(loss: torch.Tensor, terms: Dict[str, torch.Tensor],
                    plist: Sequence[torch.Tensor], params: torch.Tensor,
                    opt_state: AdamState, config: PPOConfig,
-                   aux: Dict[str, List[torch.Tensor]]) -> None:
+                   aux: Dict[str, List[torch.Tensor]], mesh=None) -> None:
     """One clip-and-Adam step on the gradients of ``loss`` with respect to
     ``plist`` (the views of ``params``, in its order); ``loss`` and its
-    ``terms`` are appended to ``aux``."""
+    ``terms`` are appended to ``aux``.  With a ``mesh`` the flat gradient
+    is averaged over its ranks first (JAX's ``pmean(grads)`` before
+    ``tx.update``, which clips)."""
     grads = torch.autograd.grad(loss, plist)
-    adam_step(params, opt_state, torch.cat([g.reshape(-1) for g in grads]),
-              config)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    if mesh is not None:
+        mesh.all_mean_(flat)
+    adam_step(params, opt_state, flat, config)
     for k, v in {**terms, "loss": loss}.items():
         aux.setdefault(k, []).append(v.detach())
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The metrics averaged over the mesh's ranks, as one stacked
+    ``all_reduce`` (JAX's ``pmean`` of the metrics); as they are without a
+    mesh."""
+    if mesh is None:
+        return metrics
+    vals = mesh.all_mean_(torch.stack(list(metrics.values())))
+    return dict(zip(metrics, vals.unbind()))
 
 
 def _reward_metrics(reward: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -406,11 +438,14 @@ def make_train_step(env, model: ActorCritic, config: PPOConfig, mesh=None):
     CUDA graph, captured at the first call (``step.graph``), and the step
     records CUDA events before the collect, between the halves and after
     the learn (``step.events``; :func:`halves_ms` reads them).
+
+    With a ``mesh`` (:func:`~gym_po_tpu_torch.parallel.make_mesh`) each rank
+    steps its own ``ts`` (:func:`shard_train_state`): ``num_envs`` is the
+    global batch, each minibatch step averages the gradient over the ranks
+    and the metrics are averaged at the end, so every rank holds the same
+    parameters and metrics.
     """
-    if mesh is not None:
-        raise ValueError("multi-device PPO is not ported yet "
-                         "(ROADMAP Queue 1, Multi-GPU)")
-    _check(config)
+    _check(config, 1 if mesh is None else mesh.size)
 
     def step(ts: TrainState):
         if ts.env_obs.is_cuda:
@@ -427,8 +462,9 @@ def make_train_step(env, model: ActorCritic, config: PPOConfig, mesh=None):
             batch, ro, obs_f, state_f = collect(env, model, config, ts.env_obs,
                                                 ts.env_state, ts.generator)
         orders = row_orders(config, batch.obs.shape[0], ts.generator)
-        metrics = learn(model, ts.params, ts.opt_state, config, batch, orders)
-        metrics.update(_reward_metrics(ro.reward))
+        metrics = learn(model, ts.params, ts.opt_state, config, batch, orders,
+                        mesh)
+        metrics = mean_metrics({**metrics, **_reward_metrics(ro.reward)}, mesh)
         if step.events is not None:
             step.events[2].record()
         return dataclasses.replace(ts, env_obs=obs_f, env_state=state_f,
@@ -437,6 +473,38 @@ def make_train_step(env, model: ActorCritic, config: PPOConfig, mesh=None):
     step.graph = None
     step.events = None
     return step
+
+
+def shard_train_state(ts: TrainState, mesh) -> TrainState:
+    """Lay out a global train state over ``mesh`` as the JAX package's
+    Anakin update does: this rank keeps its rows of the env observations
+    and state and a generator of its own
+    (:func:`~gym_po_tpu_torch.parallel.split_generator` of ``ts``'s, which
+    it advances); the parameters and Adam's state are rank 0's on every
+    rank (a broadcast, in place on the model's flat buffer).
+
+    ``ts`` is the whole batch, the same on every rank (made from one seed
+    by :func:`init_train_state` with ``num_devices=1``), on the mesh's
+    device.
+    """
+    return _shard_state(ts, mesh, ("env_obs", "env_state"))
+
+
+def _shard_state(ts, mesh, per_env: Sequence[str]):
+    """``ts`` with the rank's rows of the ``per_env`` fields, its own
+    generator and rank 0's parameters and Adam state."""
+    from ..parallel import replicate, shard_batch, split_generator
+
+    # "cuda" names the current card: compare indexed devices
+    device = torch.empty(0, device=mesh.device).device
+    if ts.params.device != device:
+        # the broadcast is in place only on the mesh's device
+        raise ValueError(f"the train state lies on {ts.params.device}, the "
+                         f"mesh's device is {device}")
+    replicate(mesh, (ts.params, ts.opt_state))
+    gen = split_generator(ts.generator, mesh.size, mesh.device)[mesh.rank]
+    return dataclasses.replace(ts, generator=gen, **{
+        name: shard_batch(mesh, getattr(ts, name)) for name in per_env})
 
 
 def halves_ms(step) -> Tuple[float, float]:
@@ -453,10 +521,13 @@ def train(env, config: PPOConfig, seed: int = 0, num_updates: int = 100,
 
     With ``log_every`` the history holds the last update's metrics of each
     chunk of ``log_every`` updates (a ragged tail gives one row more), as
-    floats; returns ``(model, ts, history)``.
+    floats; returns ``(model, ts, history)``.  With a ``mesh`` every rank
+    makes the global state and keeps its share (:func:`shard_train_state`).
     """
     generator = torch.Generator(device=env.device).manual_seed(seed)
     model, ts = init_train_state(env, config, generator)
+    if mesh is not None:
+        ts = shard_train_state(ts, mesh)
     step = make_train_step(env, model, config, mesh)
     history = []
     for i in range(num_updates):

@@ -27,8 +27,10 @@ add and gate op rounds where XLA rounds flax's (its logistic as
 ``1 / (1 + exp(-x))``, each op rounded), and the hidden state is carried in
 bfloat16.
 
-Not ported: ``shard_rnn_state`` and the ``mesh`` (ROADMAP Queue 1,
-"Multi-GPU").
+Over a ``mesh`` the update is data parallel as the feedforward one: each
+rank holds its rows of the envs, hidden state and reset flags
+(:func:`shard_rnn_state`), each minibatch step averages the gradient over
+the ranks, and the metrics are averaged at the end.
 """
 
 from __future__ import annotations
@@ -58,13 +60,17 @@ from .ppo import (
     PPOConfig,
     _clone_state,
     _gae,
+    _local_envs,
     _reward_metrics,
+    _shard_state,
+    mean_metrics,
     minibatch_step,
     ppo_loss,
 )
 
 __all__ = ["RecurrentActorCritic", "RNNTrainState", "init_rnn_state",
-           "make_rnn_train_step", "collect_rnn", "learn_rnn", "env_orders",
+           "shard_rnn_state", "make_rnn_train_step", "collect_rnn", "learn_rnn",
+           "env_orders",
            "rnn_params_from_flax", "rnn_parameter_list",
            "rnn_adam_state_from_optax", "Seq", "RNNRollout"]
 
@@ -313,10 +319,13 @@ class RNNRollout(NamedTuple):
     cont: torch.Tensor  # 1 - (done | truncated)
 
 
-def _check(config: PPOConfig) -> None:
-    check_compute_dtype(config.compute_dtype)
-    if config.num_envs % config.minibatches:
-        raise ValueError("num_envs must be a multiple of minibatches")
+def _check(config: PPOConfig, num_devices: int = 1) -> int:
+    """Checks ``config`` for ``num_devices`` ranks; returns the envs of one."""
+    b_local = _local_envs(config, num_devices)
+    if b_local % config.minibatches:
+        raise ValueError("num_envs (per device) must be a multiple of "
+                         "minibatches")
+    return b_local
 
 
 def init_rnn_state(env, config: PPOConfig, generator: torch.Generator,
@@ -324,27 +333,31 @@ def init_rnn_state(env, config: PPOConfig, generator: torch.Generator,
                    num_devices: int = 1) -> Tuple[RecurrentActorCritic, RNNTrainState]:
     """Make the model (on the generator's device, its weights drawn from
     ``generator``), its zero Adam state, the first ``reset_vec`` of
-    ``num_envs`` envs (drawn from ``generator`` too), a zero hidden state
-    and no reset flags.
+    ``num_envs / num_devices`` envs, one device's share (drawn from
+    ``generator`` too), a zero hidden state and no reset flags.
 
     The GRU's width is ``hidden``; ``config.hidden`` is not read, as in the
     JAX package.
     """
-    _check(config)
-    if num_devices != 1:
-        raise ValueError("multi-device recurrent PPO is not ported yet "
-                         "(ROADMAP Queue 1, Multi-GPU)")
+    b_local = _check(config, num_devices)
     device = generator.device
     model = RecurrentActorCritic(env.observation_space, env.action_space, hidden,
                                  config.compute_dtype, generator, device)
     params = flatten_parameters(model, rnn_parameter_list(model))
-    obs0, state0 = env.reset_vec(generator, config.num_envs)
+    obs0, state0 = env.reset_vec(generator, b_local)
     return model, RNNTrainState(
         model=model, params=params, opt_state=AdamState.zeros_like(params),
         env_obs=obs0, env_state=state0,
-        hidden=model.initial_state(config.num_envs),
-        prev_reset=torch.zeros(config.num_envs, dtype=torch.bool, device=device),
+        hidden=model.initial_state(b_local),
+        prev_reset=torch.zeros(b_local, dtype=torch.bool, device=device),
         generator=generator)
+
+
+def shard_rnn_state(ts: RNNTrainState, mesh) -> RNNTrainState:
+    """:func:`~gym_po_tpu_torch.agents.ppo.shard_train_state` for the
+    recurrent state: the hidden state and the reset flags are sharded with
+    the env fields."""
+    return _shard_state(ts, mesh, ("env_obs", "env_state", "hidden", "prev_reset"))
 
 
 @torch.no_grad()
@@ -423,10 +436,11 @@ def _pick_envs(seq: Seq, index) -> Seq:
 
 def learn_rnn(model: RecurrentActorCritic, params: torch.Tensor,
               opt_state: AdamState, config: PPOConfig, seq: Seq,
-              orders: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+              orders: Sequence[torch.Tensor], mesh=None) -> Dict[str, torch.Tensor]:
     """E epochs (one per env permutation in ``orders``) of M minibatch steps
     over contiguous env slices, each a BPTT replay, a clip and an Adam
-    step, in place on ``params`` and ``opt_state``.
+    step, in place on ``params`` and ``opt_state``; with a ``mesh``, each
+    step's gradient averaged over its ranks.
 
     Returns the mean over all minibatch steps of ``loss``, ``pg_loss``,
     ``v_loss`` and ``entropy``, as 0-d tensors.
@@ -439,7 +453,7 @@ def learn_rnn(model: RecurrentActorCritic, params: torch.Tensor,
         for m in range(config.minibatches):
             part = _pick_envs(shuffled, slice(m * mb, (m + 1) * mb))
             minibatch_step(*_rnn_loss(model, part, config), plist, params,
-                           opt_state, config, aux)
+                           opt_state, config, aux, mesh)
     return {k: torch.stack(v).mean() for k, v in aux.items()}
 
 
@@ -454,11 +468,11 @@ def make_rnn_train_step(env, model: RecurrentActorCritic, config: PPOConfig,
     collect half is a CUDA graph, captured at the first call
     (``step.graph``), and the step records the same three CUDA events as
     PPO's (``step.events``; :func:`~.ppo.halves_ms` reads them).
+
+    With a ``mesh`` each rank steps its own ``ts`` (:func:`shard_rnn_state`),
+    as :func:`~gym_po_tpu_torch.agents.ppo.make_train_step` does.
     """
-    if mesh is not None:
-        raise ValueError("multi-device recurrent PPO is not ported yet "
-                         "(ROADMAP Queue 1, Multi-GPU)")
-    _check(config)
+    _check(config, 1 if mesh is None else mesh.size)
 
     def step(ts: RNNTrainState):
         inputs = (ts.env_obs, ts.env_state, ts.generator, ts.hidden,
@@ -476,9 +490,10 @@ def make_rnn_train_step(env, model: RecurrentActorCritic, config: PPOConfig,
         else:
             seq, ro, obs_f, state_f, h_f, reset_f = collect_rnn(env, model,
                                                                 config, *inputs)
-        orders = env_orders(config, config.num_envs, ts.generator)
-        metrics = learn_rnn(model, ts.params, ts.opt_state, config, seq, orders)
-        metrics.update(_reward_metrics(ro.reward))
+        orders = env_orders(config, seq.h0.shape[0], ts.generator)
+        metrics = learn_rnn(model, ts.params, ts.opt_state, config, seq, orders,
+                            mesh)
+        metrics = mean_metrics({**metrics, **_reward_metrics(ro.reward)}, mesh)
         if step.events is not None:
             step.events[2].record()
         return dataclasses.replace(ts, env_obs=obs_f, env_state=state_f,

@@ -20,11 +20,12 @@ Two learners over the same table:
 :func:`fused_actor_critic` trains a tabular softmax actor-critic on ROOMS
 inside the kernel of :mod:`gym_po_tpu_torch.ops.fused_ac` the same way.
 
-All run on the env's device.  Not ported yet: the ``mesh`` of both fused
-trainers (ROADMAP Queue 1, "Multi-GPU"), and
-``make_xla_q_chunk_trainer`` with ``chunk_trainer="xla"``, the JAX
-package's stand-in for its kernel on its multi-device CPU test mesh (the
-same item).
+All run on the env's device.  Given a ``mesh``
+(:func:`~gym_po_tpu_torch.parallel.make_mesh`), both fused trainers run the
+chunk-synchronous data-parallel scheme of
+:func:`~gym_po_tpu_torch.parallel.shard_fused_trainer` across its ranks.
+Not ported: ``chunk_trainer="xla"`` (``make_xla_q_chunk_trainer``), the JAX
+package's stand-in for its kernel on a CPU mesh: the twins run there.
 """
 
 from __future__ import annotations
@@ -134,17 +135,38 @@ def _flat_agents_zyx(env, st) -> torch.Tensor:
     return (a[:, 0] * H * GW + a[:, 1] * GW + a[:, 2]).reshape(-1, 128).contiguous()
 
 
-def _chunks(seed: int, schedule, chunk_steps: int):
-    """``(chunk seed, step sizes)`` per chunk: each schedule phase runs
-    ``ceil(num_steps / chunk_steps)`` chunks, chunk ``i`` (from 1) seeded
-    ``seed + i``."""
+def _chunks(seed: int, schedule, chunk_steps: int, ndev: int):
+    """``(chunk seeds [ndev], step sizes)`` per chunk: each schedule phase
+    runs ``ceil(num_steps / chunk_steps)`` chunks, chunk ``i`` (from 1)
+    seeded :func:`~gym_po_tpu_torch.parallel.chunk_seeds` ``(seed, i,
+    ndev)`` (``seed + i`` on one device)."""
     from ..parallel import chunk_seeds
 
     i = 0
     for *sizes, steps in schedule:
         for _ in range(-(-int(steps) // chunk_steps)):
             i += 1
-            yield int(chunk_seeds(seed, i, 1)[0]), [float(x) for x in sizes]
+            yield chunk_seeds(seed, i, ndev), [float(x) for x in sizes]
+
+
+def _mesh_of(env, mesh, num_envs: int):
+    """The mesh a fused trainer runs on (one rank with no group when none is
+    given), checked against the global batch."""
+    from ..parallel import local_mesh
+
+    mesh = local_mesh(env.device) if mesh is None else mesh
+    if num_envs % mesh.size:
+        raise ValueError(f"global num_envs={num_envs} not divisible by the "
+                         f"mesh's {mesh.size} ranks")
+    return mesh
+
+
+def _history(history, chunk_steps: int, mesh):
+    """Each chunk's mean reward per step, averaged over the ranks (one
+    collective for the run), as floats."""
+    if not history:
+        return []
+    return [h / chunk_steps for h in mesh.all_mean_(torch.stack(history)).tolist()]
 
 
 def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
@@ -169,6 +191,15 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
     and four float tiles carry the state from chunk to chunk.
     As in the JAX package, ``completed``, ``elapsed`` and the trace restart
     at every chunk.
+
+    With a ``mesh`` of n ranks each rank runs this on its own: ``num_envs``
+    is the global batch, every rank resets all of it from ``seed`` and
+    keeps its rows (its ``num_envs / n`` envs), chunk ``i`` draws with
+    ``chunk_seeds(seed, i, n)[rank]``, and the Q banks are averaged over
+    the ranks after every chunk
+    (:func:`~gym_po_tpu_torch.parallel.shard_fused_trainer`); the history
+    is averaged over the ranks.  Every rank returns the same table.  A
+    one-rank mesh gives what no mesh gives, bit for bit.
     """
     from ..envs.crooms import CRooms
     from ..envs.msrooms import MultistoryFourRooms
@@ -182,10 +213,8 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
         make_fused_qlambda_trainer_rooms,
     )
     from ..ops.fused_qlearning import bank_geometry, banks_to_q, q_to_banks
+    from ..parallel import shard_batch, shard_fused_trainer
 
-    if mesh is not None:
-        raise ValueError("multi-device fused training is not ported yet "
-                         "(ROADMAP Queue 1, Multi-GPU)")
     if not isinstance(env, (Taxi, Rooms, MultistoryFourRooms, CRooms)):
         raise ValueError(
             f"no fused Q trainer for {type(env).__name__}: Taxi, Rooms, "
@@ -194,40 +223,45 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
         raise ValueError("expected_sarsa is Taxi-only")
     if lam > 0.0 and isinstance(env, (MultistoryFourRooms, CRooms)):
         raise ValueError("lam > 0 (Watkins Q(λ)) supports Taxi and Rooms")
+    mesh = _mesh_of(env, mesh, num_envs)
     dev = env.device
+    B = num_envs // mesh.size
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed),
                           num_envs)
     if isinstance(env, CRooms):
         run = make_fused_q_trainer_crooms(
-            env, num_envs, chunk_steps, gamma,
-            average_duplicates=average_duplicates)
+            env, B, chunk_steps, gamma, average_duplicates=average_duplicates)
         z = torch.zeros((num_envs // 128, 128), dtype=torch.float32, device=dev)
-        s = [st.agent_yx[:, 0].reshape(-1, 128).contiguous(),
-             st.agent_yx[:, 1].reshape(-1, 128).contiguous(), z, z.clone()]
+        s = [st.agent_yx[:, 0].reshape(-1, 128), st.agent_yx[:, 1].reshape(-1, 128),
+             z, z.clone()]
     elif isinstance(env, Taxi):
         run = make_fused_q_trainer(
-            env, num_envs, chunk_steps, gamma,
+            env, B, chunk_steps, gamma,
             average_duplicates=average_duplicates,
             expected_sarsa=expected_sarsa, lam=lam, trace_len=trace_len,
             watkins_cut=watkins_cut,
         )
-        s = st.s.reshape(-1, 128).contiguous()
+        s = [st.s.reshape(-1, 128)]
     elif isinstance(env, MultistoryFourRooms):
         run = make_fused_q_trainer_msrooms(
-            env, num_envs, chunk_steps, gamma,
-            average_duplicates=average_duplicates)
-        s = _flat_agents_zyx(env, st)
+            env, B, chunk_steps, gamma, average_duplicates=average_duplicates)
+        s = [_flat_agents_zyx(env, st)]
     else:
         if lam > 0.0:
             run = make_fused_qlambda_trainer_rooms(
-                env, num_envs, chunk_steps, gamma, lam=lam,
+                env, B, chunk_steps, gamma, lam=lam,
                 trace_len=trace_len, watkins_cut=watkins_cut,
                 average_duplicates=average_duplicates)
         else:
             run = make_fused_q_trainer_rooms(
-                env, num_envs, chunk_steps, gamma,
+                env, B, chunk_steps, gamma,
                 average_duplicates=average_duplicates)
-        s = _flat_agents(env, st)
+        s = [_flat_agents(env, st)]
+    # args after the seed: (lr, eps, *state tiles, q); outs: (*tiles, q, rew)
+    n_s = len(s)
+    run = shard_fused_trainer(run, mesh, sharded_args=range(2, 2 + n_s),
+                              averaged_outs=(n_s,), num_outs=n_s + 2)
+    s = shard_batch(mesh, s)
     n_obs = int(env.observation_space.n)
     n_act = int(env.action_space.n)
     nsb, _ = bank_geometry(n_obs, n_act)
@@ -238,15 +272,11 @@ def fused_q_learning(env, seed: int, schedule, num_envs: int = 8192,
         q0[: q_init.shape[0]] = q_init
     qb = torch.as_tensor(q_to_banks(q0, nsb), device=dev)
     history = []
-    for chunk_seed, (lr, eps) in _chunks(seed, schedule, chunk_steps):
-        if isinstance(env, CRooms):
-            *s, qb, rew = run(chunk_seed, lr, eps, *s, qb)
-        else:
-            s, qb, rew = run(chunk_seed, lr, eps, s, qb)
+    for seeds, (lr, eps) in _chunks(seed, schedule, chunk_steps, mesh.size):
+        *s, qb, rew = run(seeds, lr, eps, *s, qb)
         history.append(rew.mean())  # read once at the end
-    history = [h / chunk_steps for h in torch.stack(history).tolist()] \
-        if history else []
-    return banks_to_q(qb.cpu().numpy(), nsp, na=n_act, nsb=nsb)[:n_obs], history
+    return (banks_to_q(qb.cpu().numpy(), nsp, na=n_act, nsb=nsb)[:n_obs],
+            _history(history, chunk_steps, mesh))
 
 
 def fused_actor_critic(env, seed: int, schedule, num_envs: int = 8192,
@@ -259,32 +289,35 @@ def fused_actor_critic(env, seed: int, schedule, num_envs: int = 8192,
     v [n_obs], history)`` as float32 numpy, with one mean reward per step
     for each chunk.  See
     :func:`~gym_po_tpu_torch.ops.fused_ac.make_fused_ac_trainer_rooms`.
+    With a ``mesh``, as :func:`fused_q_learning`: the policy-logit and the
+    value banks are both averaged over the ranks after every chunk.
     """
     from ..envs.rooms import Rooms
     from ..ops import make_fused_ac_trainer_rooms
     from ..ops.fused_qlearning import banks_to_q, q_to_banks
+    from ..parallel import shard_batch, shard_fused_trainer
 
-    if mesh is not None:
-        raise ValueError("multi-device fused training is not ported yet "
-                         "(ROADMAP Queue 1, Multi-GPU)")
     if not isinstance(env, Rooms):
         raise ValueError(f"no fused AC trainer for {type(env).__name__}: "
                          "Rooms only")
+    mesh = _mesh_of(env, mesh, num_envs)
     dev = env.device
     _, st = env.reset_vec(torch.Generator(device=dev).manual_seed(seed),
                           num_envs)
-    agent = _flat_agents(env, st)
+    agent = shard_batch(mesh, _flat_agents(env, st))
     A = int(env.num_actions)
     n_obs = int(env.observation_space.n)
-    run = make_fused_ac_trainer_rooms(env, num_envs, chunk_steps, gamma)
+    run = make_fused_ac_trainer_rooms(env, num_envs // mesh.size, chunk_steps,
+                                      gamma)
+    # args after the seed: (api, apv, th, v, agent); outs: (th, v, agent, rew)
+    run = shard_fused_trainer(run, mesh, sharded_args=(4,), averaged_outs=(0, 1),
+                              num_outs=4)
     th = torch.as_tensor(q_to_banks(np.zeros((512, A), np.float32)), device=dev)
     v = torch.as_tensor(q_to_banks(np.zeros((512, 1), np.float32)), device=dev)
     history = []
-    for chunk_seed, (api, apv) in _chunks(seed, schedule, chunk_steps):
-        th, v, agent, rew = run(chunk_seed, api, apv, th, v, agent)
+    for seeds, (api, apv) in _chunks(seed, schedule, chunk_steps, mesh.size):
+        th, v, agent, rew = run(seeds, api, apv, th, v, agent)
         history.append(rew.mean())
-    history = [h / chunk_steps for h in torch.stack(history).tolist()] \
-        if history else []
     return (banks_to_q(th.cpu().numpy(), 512, na=A)[:n_obs],
             banks_to_q(v.cpu().numpy(), 512, na=1)[:n_obs, 0],
-            history)
+            _history(history, chunk_steps, mesh))

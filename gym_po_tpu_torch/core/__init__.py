@@ -1,10 +1,11 @@
-from .env import Environment, EnvState, StepOut
+from .env import Environment, EnvState, StepOut, map_tensors
 from .spaces import Box, Discrete, Space, batch_space
 
 __all__ = [
     "Environment",
     "EnvState",
     "StepOut",
+    "map_tensors",
     "Space",
     "Discrete",
     "Box",

@@ -19,11 +19,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Generic, List, Tuple, TypeVar
 
+import numpy as np
 import torch
 
 from .spaces import Space
 
-__all__ = ["EnvState", "Environment", "StepOut"]
+__all__ = ["EnvState", "Environment", "StepOut", "map_tensors"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,26 @@ TState = TypeVar("TState", bound=EnvState)
 # (obs, state, reward, done, truncated, info)
 StepOut = Tuple[torch.Tensor, TState, torch.Tensor, torch.Tensor, torch.Tensor,
                 Dict[str, Any]]
+
+
+def map_tensors(fn, tree):
+    """``fn`` on every tensor of a tree of dataclasses (states), tuples,
+    lists and dicts (a numpy array is taken as a tensor first); other
+    leaves as they are."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(torch.as_tensor(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple):
+        items = [map_tensors(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, list):
+        return [map_tensors(fn, x) for x in tree]
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    return tree
 
 
 def _stack(items: List[Any]):

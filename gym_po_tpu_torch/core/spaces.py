@@ -1,7 +1,8 @@
 """Space descriptions, PyTorch port of :mod:`gym_po_tpu.core.spaces`.
 
 Sampling takes an explicit ``torch.Generator`` in place of a ``jax.random``
-key; samples land on the generator's device.
+key; samples land on the generator's device.  ``to_gymnasium()`` gives the
+equal ``gymnasium.spaces`` value (gymnasium is imported only there).
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ class Space:
     def contains(self, x) -> bool:
         raise NotImplementedError
 
+    def to_gymnasium(self):
+        raise NotImplementedError
+
 
 @dataclasses.dataclass(frozen=True)
 class Discrete(Space):
@@ -56,6 +60,11 @@ class Discrete(Space):
     def contains(self, x) -> bool:
         x = np.asarray(x)
         return bool(np.all((x >= 0) & (x < self.n)))
+
+    def to_gymnasium(self):
+        import gymnasium
+
+        return gymnasium.spaces.Discrete(int(self.n))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +110,17 @@ class Box(Space):
             x.shape == self.shape
             and np.all(x >= self.low_arr - 1e-6)
             and np.all(x <= self.high_arr + 1e-6)
+        )
+
+    def to_gymnasium(self):
+        import gymnasium
+
+        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+        return gymnasium.spaces.Box(
+            self.low_arr.astype(np_dtype),
+            self.high_arr.astype(np_dtype),
+            self.shape,
+            dtype=np_dtype,
         )
 
 

@@ -7,6 +7,16 @@ from .actions import (
     make_exec_action,
 )
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .debug import assert_finite, checked
+from .grid import (
+    DIRECTIONS_2D,
+    DIRECTIONS_3D,
+    coord_to_flat,
+    flat_to_coord,
+    hansen_indices,
+    surrounding_indices,
+)
+from .profiling import Timer, annotate, steps_per_second, trace
 
 __all__ = [
     "ACTIONS_ORDINAL",
@@ -18,4 +28,16 @@ __all__ = [
     "save_checkpoint",
     "restore_checkpoint",
     "latest_step",
+    "steps_per_second",
+    "trace",
+    "annotate",
+    "Timer",
+    "checked",
+    "assert_finite",
+    "DIRECTIONS_2D",
+    "DIRECTIONS_3D",
+    "surrounding_indices",
+    "hansen_indices",
+    "flat_to_coord",
+    "coord_to_flat",
 ]

@@ -141,6 +141,10 @@ class RecordEpisodeStatistics(Environment):
     def action_space(self) -> Space:
         return self.env.action_space
 
+    @property
+    def device(self) -> torch.device:
+        return self.env.device
+
     @staticmethod
     def _wrap(inner: EnvState) -> EpisodeStatsState:
         zf = torch.zeros_like(inner.elapsed, dtype=torch.float32)

@@ -1469,3 +1469,60 @@ def test_resume_on_card_is_exact(cuda, tmp_path, recurrent):
     if recurrent:
         assert torch.equal(ts_a.hidden, ts_b.hidden)
     assert all(torch.equal(m_a[k], m_b[k]) for k in m_a)
+
+
+# ------------------------------------------------------------ data parallel
+@pytest.fixture
+def nccl_one_rank(cuda, tmp_path):
+    """An NCCL group of one rank in this process, and its mesh."""
+    import torch.distributed as dist
+
+    from gym_po_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(devices=[cuda])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_mesh_taxi_q_equals_no_mesh(nccl_one_rank):
+    """The fused Taxi Q trainer [2] through ``fused_q_learning``: a one-rank
+    NCCL mesh (its all-reduce the identity) gives what no mesh gives, bit
+    for bit, through the kernel."""
+    from gym_po_tpu_torch.agents import fused_q_learning
+    from gym_po_tpu_torch.ops._build import LAUNCHES
+
+    env = gpt_torch.make("Taxi-v4", device=nccl_one_rank.device)
+    kw = dict(seed=5, schedule=[(0.2, 0.3, 128), (0.05, 0.1, 64)],
+              num_envs=8192, chunk_steps=64)
+    before = LAUNCHES["fused_qlearning"]
+    q_a, h_a = fused_q_learning(env, **kw)
+    q_b, h_b = fused_q_learning(env, mesh=nccl_one_rank, **kw)
+    assert LAUNCHES["fused_qlearning"] - before == 6
+    np.testing.assert_array_equal(q_a, q_b)
+    assert h_a == h_b and np.count_nonzero(q_a) > 0
+
+
+def test_one_rank_nccl_mesh_ppo_update_equals_no_mesh(nccl_one_rank):
+    """Two PPO updates with a one-rank NCCL mesh (the gradient and metric
+    all-reduces) equal the same without it, bit for bit."""
+    from gym_po_tpu_torch.agents import ppo
+
+    dev = nccl_one_rank.device
+    env = gpt_torch.make("ExtendedHansenTaxi-v4", device=dev)
+    cfg = ppo.PPOConfig(num_envs=512, rollout_steps=16, epochs=2, minibatches=4)
+    out = []
+    for mesh in (None, nccl_one_rank):
+        # one state for both: shard_train_state would give the mesh's run a
+        # generator of its own
+        model, ts = ppo.init_train_state(env, cfg,
+                                         torch.Generator(device=dev).manual_seed(3))
+        step = ppo.make_train_step(env, model, cfg, mesh)
+        for _ in range(2):
+            ts, metrics = step(ts)
+        out.append((ts.params.clone(), metrics))
+    (pa, ma), (pb, mb) = out
+    assert torch.equal(pa, pb)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)

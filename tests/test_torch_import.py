@@ -1,4 +1,5 @@
-"""The PyTorch port imports with jax and flax blocked, on CPU-only torch."""
+"""The PyTorch port imports with jax, flax, gymnasium and pygame blocked,
+on CPU-only torch."""
 
 import os
 import subprocess
@@ -13,7 +14,7 @@ _BLOCKED_IMPORT = textwrap.dedent(
     """
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "flax")
+    BLOCKED = ("jax", "jaxlib", "flax", "gymnasium", "pygame")
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -27,6 +28,10 @@ _BLOCKED_IMPORT = textwrap.dedent(
     sys.meta_path.insert(0, BlockJax())
 
     import gym_po_tpu_torch
+    import gym_po_tpu_torch.parallel
+    # the gymnasium adapter and the renderers are not imported by the package
+    assert "gym_po_tpu_torch.compat" not in sys.modules
+    assert "gym_po_tpu_torch.render" not in sys.modules
     import gym_po_tpu_torch.agents
     import gym_po_tpu_torch.entry
     import gym_po_tpu_torch.agents.qlearning
@@ -50,6 +55,10 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.agents.ppo
     import gym_po_tpu_torch.agents.ppo_rnn
     import gym_po_tpu_torch.utils.checkpoint
+    import gym_po_tpu_torch.utils.debug
+    import gym_po_tpu_torch.utils.grid
+    import gym_po_tpu_torch.utils.profiling
+    import gym_po_tpu_torch.render
     import gym_po_tpu_torch.ops.crooms_dynamics
     import gym_po_tpu_torch.ops.fused_crooms
     import gym_po_tpu_torch.ops.fused_q_crooms
@@ -74,6 +83,13 @@ _BLOCKED_IMPORT = textwrap.dedent(
     init_rnn_state(env, PPOConfig(num_envs=4, minibatches=2,
                                   compute_dtype=torch.bfloat16),
                    torch.Generator().manual_seed(0), hidden=8)
+    assert "gym_po_tpu_torch.compat" not in sys.modules
+    try:
+        import gym_po_tpu_torch.compat
+    except ImportError as e:
+        assert "gymnasium" in str(e)
+    else:
+        raise AssertionError("the adapter imported without gymnasium")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """

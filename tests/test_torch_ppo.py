@@ -96,8 +96,12 @@ def test_config_and_mesh_guards():
         tppo.init_train_state(te, PPOConfig(compute_dtype=torch.float16), gen)
     with pytest.raises(ValueError, match="multiple of"):
         tppo.make_train_step(te, None, PPOConfig(num_envs=5, rollout_steps=3))
-    with pytest.raises(ValueError, match="Multi-GPU"):
-        tppo.make_train_step(te, None, PPOConfig(), mesh=object())
+    # a mesh is taken; its ranks must split the batch
+    from gym_po_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="divisible"):
+        tppo.make_train_step(te, None, PPOConfig(),
+                             mesh=Mesh(None, 0, 3, torch.device("cpu"), dims=(3,)))
     with pytest.raises(ValueError, match="shuffle"):
         tppo.make_train_step(te, None, PPOConfig(shuffle="bogus"))
     assert inspect.signature(tppo.train).parameters["mesh"].default is None

@@ -455,11 +455,18 @@ def test_guards():
         trnn.init_rnn_state(te, PPOConfig(num_envs=6, minibatches=4), gen)
     with pytest.raises(ValueError, match="minibatches"):
         trnn.make_rnn_train_step(te, None, PPOConfig(num_envs=6, minibatches=4))
-    with pytest.raises(ValueError, match="Multi-GPU"):
-        trnn.make_rnn_train_step(te, None, PPOConfig(), mesh=object())
-    with pytest.raises(ValueError, match="Multi-GPU"):
+    # a mesh and several devices are taken; their ranks must split the batch
+    from gym_po_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="divisible"):
+        trnn.make_rnn_train_step(te, None, PPOConfig(),
+                                 mesh=Mesh(None, 0, 3, torch.device("cpu"), dims=(3,)))
+    with pytest.raises(ValueError, match="divisible"):
         trnn.init_rnn_state(te, PPOConfig(num_envs=8, minibatches=2), gen,
-                            num_devices=2)
+                            num_devices=3)
+    _, ts = trnn.init_rnn_state(te, PPOConfig(num_envs=8, minibatches=2), gen,
+                                hidden=4, num_devices=2)
+    assert ts.hidden.shape == (4, 4)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         trnn.init_rnn_state(te, PPOConfig(num_envs=8, minibatches=2,
                                           compute_dtype=torch.float16), gen)

@@ -280,8 +280,13 @@ def test_fused_q_learning_shapes_and_history():
 
 def test_fused_q_learning_rejects_what_is_not_ported():
     env = gpt_torch.make("Taxi-v4", device="cpu")
-    with pytest.raises(ValueError, match="Multi-GPU"):
-        fused_q_learning(env, 0, [(0.1, 0.1, 8)], mesh=object())
+    from gym_po_tpu_torch.parallel import Mesh
+
+    # a mesh is taken (test_torch_data_parallel.py); its ranks must split
+    # the batch
+    with pytest.raises(ValueError, match="divisible"):
+        fused_q_learning(env, 0, [(0.1, 0.1, 8)],
+                         mesh=Mesh(None, 0, 3, torch.device("cpu"), dims=(3,)))
     with pytest.raises(ValueError, match="Taxi"):
         fused_q_learning(object(), 0, [(0.1, 0.1, 8)])
 
