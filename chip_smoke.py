@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight main paths on the card, each through the entry
+Drives the port's nine main paths on the card, each through the entry
 points a user calls, with the kernels' launch counts zeroed just before the
 path and read just after:
 
@@ -82,7 +82,18 @@ path and read just after:
    all-reduce's wait for the device and its call timed; without the mesh,
    both ranks at once and rank 0 alone; each profiled);
    ``dryrun_multichip(1)``; a Taxi frame from a card state; the gymnasium
-   adapter where gymnasium is installed.
+   adapter where gymnasium is installed;
+9. the articulated ant (``gym_po_tpu_torch.physics``, ``AntTagPhysics-v0``,
+   ``AntHeavenHellPhysics-v0``): the engine on the card against the CPU at
+   f64 (64 contact states, a forward and an RK4 step), one env step of
+   each env against the CPU stage by stage at f32, ``step_vec`` under the
+   sync debug mode (no host sync), 20 steps of random actions at
+   B = 4,096 (finite, above the floor, inside the walls), env-steps/s at
+   the envs' defaults (B = 4,096, frame_skip 15, 8 Newton iterations, f32;
+   RK4 and Euler) with device ops per env step and the device's busy
+   share (torch.profiler), both routes of the 14x14 solve timed, and one
+   PPO update on the ant at B = 4,096, T = 8.  No kernel either; it prints
+   which of triton, mujoco, gymnasium and pygame the machine has.
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
@@ -112,7 +123,7 @@ learning checks; path 3 with the ROOMS timings and learning checks; path 4
 with the MSRooms and RockSample timings and the MSRooms learning check;
 path 5 with the CRooms, Tag and HeavenHell timings and the CRooms learning
 check; path 6, PPO; path 7, recurrent PPO, bf16 and resume; path 8, data
-parallelism.
+parallelism; path 9, the ant.
 The line before the last is the kernels' JSON record; the last line is the
 result.
 """
@@ -3206,6 +3217,343 @@ def mesh_path(dev, card) -> dict:
     return launches
 
 
+# ------------------------------------------- the articulated ant (path 9)
+# the envs' defaults (frame_skip 15, 8 Newton iterations, 10 line-search
+# bisections, f32) at the batch the JAX package's docs/PHYSICS.md measures
+ANT_IDS = ("AntTagPhysics-v0", "AntHeavenHellPhysics-v0")
+B_ANT = 4096
+# the card's env step against the CPU's, stage by stage, at frame_skip 3
+# (the CPU's RK4 step at the default 15 took 12-19 s of the path)
+B_ANT_STAGES = 64
+ANT_STAGES_FRAME_SKIP = 3
+HH_SITES_XY = ((-6.25, 6.0), (6.25, 6.0), (0.0, 6.0))  # hell/heaven, priest
+ANT_ENGINE_STATES = 64
+ANT_ENGINE_TOL = 1e-9  # f64, card vs CPU: |a - b| <= tol * max(1, |b|)
+ANT_STAGE_ATOL = 1e-6  # f32 task stages fed identical inputs
+# f32 physics stage (3 RK4 substeps of 8 Newton iterations), card vs CPU
+# from one state: qpos and qvel to the CPU test's atol 1e-4 (the card read
+# 2.4e-7 and 2.5e-6 on an NVIDIA H100 80GB HBM3 at 700 W); the warm start,
+# the last Newton iterate of qacc (|qacc| up to about 80), which rounding
+# moves more than the state, to 2e-3 relative to max(1, |x|) (a warm start
+# dropped or misplaced is off by order 1)
+ANT_PHYSICS_TOL = {"qpos": 1e-4, "qvel": 1e-4, "warm": 2e-3}
+ANT_STEPS = 20
+# the walls' inner faces around the torso's xy (envs/mjcf.py's arenas)
+ANT_ARENA = {"AntTagPhysics-v0": ((-5.0, 5.0), (-5.0, 5.0)),
+             "AntHeavenHellPhysics-v0": ((-8.0, 8.0), (-1.5, 8.0))}
+ANT_TIMED = 3
+# the PPO update at T = 8 on Euler and at T = 2 on RK4, the envs' default
+# (the capture of the collect graph grows with T, four forwards an RK4
+# substep against Euler's one: the ant-ppo lines print it)
+ANT_PPO = (("euler", 8), ("rk4", 2))
+
+
+def ant_contact_states(n: int, seed: int, walls: bool):
+    """``n`` standing poses in contact with the floor, perturbed (hinges,
+    height, tilt, velocities, controls, warm starts), the second half pushed
+    against the tag arena's walls (x or y at ±4.4) when ``walls``: numpy
+    f64 (qpos, qvel, ctrl, warm)."""
+    from gym_po_tpu_torch.envs.ant_physics import STAND_POSE
+
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(STAND_POSE.astype(np.float64), (n, 1))
+    qpos[:, :2] = rng.uniform(-3.5, 3.5, (n, 2))
+    qpos[:, 2] += rng.uniform(-0.1, 0.05, n)
+    qpos[:, 3:7] += rng.normal(scale=0.05, size=(n, 4))
+    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    qpos[:, 7:] += rng.uniform(-0.3, 0.3, (n, 8))
+    if walls:
+        h = n // 2
+        ax = rng.integers(0, 2, h)
+        qpos[np.arange(h, n), ax] = rng.choice([-4.4, 4.4], h)
+    return (qpos, 0.5 * rng.normal(size=(n, 14)), rng.uniform(-1, 1, (n, 8)),
+            0.1 * rng.normal(size=(n, 14)))
+
+
+def ant_engine_check(dev) -> None:
+    """The engine on the card against itself on the CPU at f64: one forward
+    and one step (rk4, frame_skip 2, 15 iterations) of 64 contact states."""
+    from gym_po_tpu_torch.physics import TAG_WALLS, make_ant_model
+    from gym_po_tpu_torch.physics.engine import PhysicsState, forward, step
+
+    model = make_ant_model(TAG_WALLS)
+    arrays = ant_contact_states(ANT_ENGINE_STATES, 0, walls=True)
+    on = {d: [torch.as_tensor(x, device=d) for x in arrays]
+          for d in (dev, torch.device("cpu"))}
+    worst = {}
+    for name, fn in (
+            ("forward", lambda q, v, c, w: forward(model, q, v, c, w, iters=15)),
+            ("step", lambda q, v, c, w: tuple(step(
+                model, PhysicsState(q, v, w), c, frame_skip=2, iters=15,
+                integrator="rk4")))):
+        got = [x.cpu() for x in fn(*on[dev])]
+        want = fn(*on[torch.device("cpu")])
+        for g, w in zip(got, want):
+            err = ((g - w).abs() / w.abs().clamp_min(1.0)).max().item()
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not err <= ANT_ENGINE_TOL:
+                raise AssertionError(f"ant engine {name}: card vs CPU {err:.3e}")
+    say("ant-engine", f"f64, {ANT_ENGINE_STATES} contact states (standing "
+        f"poses on the floor, half against the walls), card == CPU: forward (qacc, "
+        f"warm) {worst['forward']:.3e}, step rk4 frame_skip 2 iters 15 (qpos, "
+        f"qvel, warm) {worst['step']:.3e} (relative to max(1, |x|); limit "
+        f"{ANT_ENGINE_TOL:g})")
+
+
+def ant_stage_check(dev, env_id: str) -> None:
+    """One env step of the card against the CPU, stage by stage, at f32:
+    the physics from one state, then each task stage fed the same inputs."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.core import map_tensors
+
+    cpu = torch.device("cpu")
+    env_d, env_c = (gp.make(env_id, frame_skip=ANT_STAGES_FRAME_SKIP, device=d)
+                    for d in (dev, cpu))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B = B_ANT_STAGES
+    _, st = env_d.reset_vec(gen, B)
+    act = torch.rand(B, 8, generator=gen, device=dev) * 2 - 1
+    for _ in range(2):  # into motion first
+        _, st, *_ = env_d.step_vec(gen, st, act)
+
+    def c(x):
+        return map_tensors(lambda t: t.to(cpu), x)
+
+    # some envs one step from the time limit, some tags or arrivals in reach
+    near = (torch.arange(B, device=dev) % 4 == 1)[:, None]
+    if env_id.startswith("AntTag"):
+        st = st.replace(target_xy=torch.where(near, st.qpos[:, :2] + 0.3,
+                                              st.target_xy))
+    else:
+        sites = torch.as_tensor(HH_SITES_XY, device=dev)[torch.arange(B, device=dev) % 3]
+        st = st.replace(qpos=torch.cat([torch.where(near, sites, st.qpos[:, :2]),
+                                        st.qpos[:, 2:]], 1))
+    st = st.replace(elapsed=torch.where(torch.arange(B, device=dev) % 5 == 0,
+                                        env_d.time_limit - 1, st.elapsed))
+    st_c = c(st)
+    phys = env_d.physics(st.qpos, st.qvel, st.warm, act)
+    phys_c = env_c.physics(st_c.qpos, st_c.qvel, st_c.warm, c(act))
+    errs = {k: ((a.cpu() - b).abs() / (b.abs().clamp_min(1.0) if k == "warm"
+                                       else 1.0)).max().item()
+            for k, a, b in zip(("qpos", "qvel", "warm"), phys, phys_c)}
+    for k, lim in ANT_PHYSICS_TOL.items():
+        if not errs[k] <= lim:
+            raise AssertionError(f"{env_id} physics stage: card vs CPU {k} "
+                                 f"{errs[k]:.3e} > {lim}")
+    if env_id.startswith("AntTag"):
+        extra = (torch.randint(0, 4, (B,), generator=gen, device=dev,
+                               dtype=torch.int32),)
+        draws = (torch.rand(B, 2, generator=gen, device=dev),
+                 torch.rand(B, 257, 2, generator=gen, device=dev))
+    else:
+        extra = ()
+        draws = (torch.rand(B, 2, generator=gen, device=dev),
+                 torch.rand(B, generator=gen, device=dev) < 0.5)
+    mask = torch.arange(B, device=dev) % 3 == 0
+
+    def stages(env, s, phys, extra, draws, mask):
+        mid, rew, done, trunc = env.advance(s, *phys, *extra)
+        fresh = env.fresh(*draws)
+        new = env.apply_reset(mid, mask, fresh)
+        return [mid, rew, done, trunc, fresh, new, env.observe(new)]
+
+    got = stages(env_d, st, phys, extra, draws, mask)
+    want = stages(env_c, st_c, c(phys), c(extra), c(draws), c(mask))
+    worst = 0.0
+    for g, w in zip(collect_outputs(got), collect_outputs(want)):
+        g = g.cpu()
+        if g.dtype.is_floating_point:
+            worst = max(worst, (g - w).abs().max().item())
+            ok = (g - w).abs().max().item() <= ANT_STAGE_ATOL
+        else:
+            ok = torch.equal(g, w)
+        if not ok:
+            raise AssertionError(f"{env_id}: a task stage differs, card vs CPU")
+    done, trunc = got[2], got[3]
+    say("ant-stages", f"{env_id} f32 B={B}, card vs CPU: physics (frame_skip "
+        f"{env_d.frame_skip}, {env_d.integrator}, {env_d.solver_iters} "
+        f"iterations) from one state qpos {errs['qpos']:.3e}, qvel "
+        f"{errs['qvel']:.3e}, warm {errs['warm']:.3e} relative to max(1, "
+        f"|x|) (limits {ANT_PHYSICS_TOL}); advance, fresh, apply_reset, observe fed the "
+        f"same inputs: ints and bools exact, floats {worst:.3e} "
+        f"(limit {ANT_STAGE_ATOL:g}); {int(done.sum())} tags or arrivals, "
+        f"{int(trunc.sum())} truncations")
+
+
+def ant_run(dev, card, env_id: str, integrator: str) -> None:
+    """Steps of random actions at the env's defaults (B = 4,096): step 0 a
+    warm-up, steps 1-3 timed (env-steps/s from their median, host clock
+    around a sync), step 4 under torch.profiler (device ops, busy share,
+    peak memory).  Euler runs 20 steps, step 5 under the sync debug mode at
+    'error' (a host sync raises); RK4 runs 5 (the RK4 PPO update's collect
+    graph holds its steps sync-free).  After every step each qpos is
+    finite, each torso above the floor and each ant inside its walls."""
+    import gym_po_tpu_torch as gp
+
+    env = gp.make(env_id, integrator=integrator, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, st = env.reset_vec(gen, B_ANT)
+    (x_lo, x_hi), (y_lo, y_hi) = ANT_ARENA[env_id]
+    n_steps = ANT_STEPS if integrator == "euler" else ANT_TIMED + 2
+    times, resets, z = [], 0, []
+    for i in range(n_steps):
+        act = torch.rand(B_ANT, 8, generator=gen, device=dev) * 2 - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == ANT_TIMED + 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kept = {}
+            n_ops, busy = device_ops(
+                lambda: kept.update(out=env.step_vec(gen, st, act)))
+            out = kept["out"]
+            peak = torch.cuda.max_memory_allocated() - base
+            ops = (f"{n_ops} device ops per env step, device busy {busy:.3f} "
+                   f"ms = {busy / statistics.median(times):.4f} of the step"
+                   if n_ops else "device ops: not measured (no device events "
+                   "in the trace)") + f"; peak memory of a step {peak / 2**20:.1f} MiB"
+        elif i == ANT_TIMED + 2:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = env.step_vec(gen, st, act)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            ops += "; step 5 under set_sync_debug_mode('error'): no host sync"
+        else:
+            out = env.step_vec(gen, st, act)
+        torch.cuda.synchronize()
+        if 1 <= i <= ANT_TIMED:
+            times.append((time.perf_counter() - t0) * 1e3)
+        _, st, rew, done, trunc, info = out
+        q = info["terminal_state"].qpos
+        if not torch.isfinite(q).all():
+            raise AssertionError(f"{env_id}: non-finite qpos")
+        if not (q[:, 2] > 0).all():
+            raise AssertionError(f"{env_id}: a torso under the floor")
+        inside = ((q[:, 0] > x_lo) & (q[:, 0] < x_hi)
+                  & (q[:, 1] > y_lo) & (q[:, 1] < y_hi))
+        if not inside.all():
+            raise AssertionError(f"{env_id}: an ant outside its walls")
+        resets += int(info["reset_mask"].sum())
+        z += [float(q[:, 2].min()), float(q[:, 2].max())]
+    med = statistics.median(times)
+    say("ant-speed", f"{env_id} {integrator} B={B_ANT} frame_skip "
+        f"{env.frame_skip} iters {env.solver_iters} ls {env.ls_iters} f32 on "
+        f"{card}: {B_ANT / med * 1e3:.6e} env-steps/s ({med:.3f} ms/step, "
+        f"median of {', '.join(f'{t:.3f}' for t in times)}); {ops}")
+    say("ant-rollout", f"{env_id} {integrator} B={B_ANT}, {n_steps} steps of "
+        f"random actions: qpos finite, torso z in [{min(z):.4f}, "
+        f"{max(z):.4f}], every ant inside x in ({x_lo}, {x_hi}), "
+        f"y in ({y_lo}, {y_hi}); {resets} resets")
+
+
+def chol_solve_unrolled(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``H x = g`` by a Cholesky factorisation and two substitutions
+    unrolled over the columns, each step one batched torch op (the JAX
+    package's trace-time unrolled form, in array ops): timed beside the
+    engine's solve, and used nowhere in the port."""
+    n = H.shape[-1]
+    L = torch.zeros_like(H)
+    for j in range(n):
+        s = H[..., j:, j]
+        if j:
+            s = s - (L[..., j:, :j] * L[..., j:j + 1, :j]).sum(-1)
+        L[..., j:, j] = s / torch.sqrt(s[..., :1])
+    y = torch.zeros_like(g)
+    for i in range(n):
+        s = g[..., i]
+        if i:
+            s = s - (L[..., i, :i] * y[..., :i]).sum(-1)
+        y[..., i] = s / L[..., i, i]
+    x = torch.zeros_like(g)
+    for i in reversed(range(n)):
+        s = y[..., i]
+        if i < n - 1:
+            s = s - (L[..., i + 1:, i] * x[..., i + 1:]).sum(-1)
+        x[..., i] = s / L[..., i, i]
+    return x
+
+
+def ant_cholesky_routes(dev, card) -> None:
+    """The engine's 14x14 solve (``linalg.chol_solve``) and the unrolled one
+    on the card, on the batch of one M per env at B = 4,096 (CUDA
+    events)."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.physics import dynamics, linalg
+
+    env = gp.make(ANT_IDS[0], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    _, st = env.reset_vec(gen, B_ANT)
+    act = torch.rand(B_ANT, 8, generator=gen, device=dev) * 2 - 1
+    _, M, _, qfrc = dynamics.smooth_forward(env.model, st.qpos, st.qvel, act)
+    routes = {"library": linalg.chol_solve, "unrolled": chol_solve_unrolled}
+    x = {r: fn(M, qfrc) for r, fn in routes.items()}
+    agree = (x["library"] - x["unrolled"]).abs().max().item()
+    solve = {r: event_windows(lambda i, fn=fn: fn(M, qfrc), 3, 20)
+             for r, fn in routes.items()}
+    say("ant-cholesky", f"B={B_ANT} f32 on {card}: one solve, library "
+        f"(cholesky_ex + 2 solve_triangular) {solve['library']:.4f} ms, "
+        f"unrolled {solve['unrolled']:.4f} ms (CUDA events, median of 3 "
+        f"windows of 20); routes agree to {agree:.3e}; the engine takes the "
+        "library's")
+
+
+def ant_ppo(dev, card, integrator: str, T: int) -> None:
+    """One PPO update on AntTagPhysics-v0 (the env's other knobs at their
+    defaults), B = 4,096, E = M = 4, after the first (the collect graph's
+    capture), split into collect and learn by CUDA events."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo
+
+    env = gp.make(ANT_IDS[0], integrator=integrator, device=dev)
+    cfg = ppo.PPOConfig(num_envs=B_ANT, rollout_steps=T)
+    model, ts = ppo.init_train_state(env, cfg,
+                                     torch.Generator(device=dev).manual_seed(0))
+    step = ppo.make_train_step(env, model, cfg)
+    t0 = time.perf_counter()
+    ts, m = step(ts)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts, m = step(ts)
+    collect_ms, learn_ms = ppo.halves_ms(step)
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(ts.env_obs).all():
+        raise AssertionError("ant PPO: non-finite observations")
+    say("ant-ppo", f"{ANT_IDS[0]} ({env.integrator}, frame_skip "
+        f"{env.frame_skip}) B={B_ANT} T={T} E={cfg.epochs} "
+        f"M={cfg.minibatches} hidden {cfg.hidden} on {card}: first update "
+        f"(graph capture) {first:.3f} s; update 2 {wall * 1e3:.3f} ms (CUDA "
+        f"events: collect {collect_ms:.3f} ms, learn {learn_ms:.3f} ms), "
+        f"{B_ANT * T / wall:.6e} PPO env-steps/s; {ppo_metrics_line(m)}")
+
+
+def ant_path(dev, card) -> None:
+    """Path 9: the articulated ant (engine and both task envs, PPO on the
+    ant).  No kernel: the engine is batched PyTorch."""
+    import importlib.util
+
+    t_path = time.perf_counter()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("triton", "mujoco", "gymnasium", "pygame")}
+    say("modules", "this machine has " + ", ".join(
+        f"{m} {'yes' if v else 'no'}" for m, v in found.items()))
+    phases = [("engine", lambda: ant_engine_check(dev))]
+    phases += [(f"stages {e}", lambda e=e: ant_stage_check(dev, e)) for e in ANT_IDS]
+    phases += [(f"{e} {i}", lambda e=e, i=i: ant_run(dev, card, e, i))
+               for e in ANT_IDS for i in ("rk4", "euler")]
+    phases += [("cholesky", lambda: ant_cholesky_routes(dev, card))]
+    phases += [(f"ppo {i}", lambda i=i, T=T: ant_ppo(dev, card, i, T))
+               for i, T in ANT_PPO]
+    spent = []
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        fn()
+        spent.append(f"{name} {time.perf_counter() - t0:.1f}")
+    say("ant", f"path 9 took {time.perf_counter() - t_path:.2f} s ("
+        + ", ".join(spent) + " s)")
+
+
 def block_ops(full: float, part: float = 0) -> dict:
     """Slots by pipe of ``full`` Philox blocks of which three or four words
     are used and ``part`` of which words 0-1 alone are (one product and one
@@ -3495,9 +3843,15 @@ def main() -> int:
         if path8[key] <= 0:
             raise AssertionError(f"path 8 did not go through {key}")
         launches[key] += path8[key]
+    # path 9, the articulated ant: no kernel (the engine is batched PyTorch)
+    LAUNCHES.clear()
+    ant_path(dev, card)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"path 9 launched kernels: {dict(LAUNCHES)}")
     say("launches", "on the main paths: " + ", ".join(
         f"{k} {v}" for k, v in launches.items())
-        + "; paths 6 (PPO) and 7 (recurrent PPO) none: they reach no kernel; "
+        + "; paths 6 (PPO), 7 (recurrent PPO) and 9 (the ant) none: they "
+        "reach no kernel; "
         f"path 8's share: fused_qlearning {path8['fused_qlearning']}, "
         f"fused_ac {path8['fused_ac']}")
 

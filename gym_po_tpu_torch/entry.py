@@ -8,7 +8,8 @@
     nobs, nstate, rew, value, logp = forward(model, gen, obs, state)
 
 ``dryrun_multichip(n)``: both data-parallel learner families, one step each
-on tiny shapes, over n ranks.
+on tiny shapes, over n ranks, and the same sharded PPO step on the
+articulated ant.
 """
 
 from __future__ import annotations
@@ -67,15 +68,18 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None) -> list:
     1,024 envs, as the JAX package's does, whose dryrun runs 128·n through
     its XLA stand-in), then one sharded PPO update on
     ``ExtendedHansenTaxi-v4`` (``num_envs = 4·n``, ``rollout_steps = 8``,
-    two epochs of two minibatches, hidden (32, 32)).  Raises unless every
-    result is finite and every rank reports the same loss; returns each
-    rank's ``{"loss", "metrics", "launches"}``.
+    two epochs of two minibatches, hidden (32, 32)), then one on
+    ``AntTagPhysics-v0`` (frame_skip 1, one Newton iteration, Euler,
+    ``num_envs = 2·n``, ``rollout_steps = 4``, one epoch of two
+    minibatches, hidden (16, 16), the Gaussian head), as the JAX dryrun's
+    third step.  Raises unless every result is finite and every rank
+    reports the same losses; returns each rank's ``{"loss", "metrics",
+    "ant_loss", "ant_metrics", "launches"}``.
 
     ``device`` is ``"cuda"`` (rank r on card r modulo the card count) or
     ``"cpu"``.  The backend defaults to NCCL on CUDA and gloo on the CPU;
     NCCL with more ranks than cards is refused (two ranks on one card go
-    through ``backend="gloo"``).  The JAX dryrun's third step, the
-    articulated ant, waits for the ant's port.
+    through ``backend="gloo"``).
     """
     from .parallel import Ranks
 
@@ -95,9 +99,11 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None) -> list:
         devices = [device] * n
     with Ranks(n, backend, DRYRUN_TIMEOUT) as ranks:
         results = ranks.run(_dryrun_rank, devices)
-    losses = [r["loss"] for r in results]
-    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 1:
-        raise RuntimeError(f"the ranks' PPO losses differ or are not finite: {losses}")
+    for key in ("loss", "ant_loss"):
+        losses = [r[key] for r in results]
+        if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 1:
+            raise RuntimeError(f"the ranks' PPO {key}es differ or are not "
+                               f"finite: {losses}")
     return results
 
 
@@ -128,5 +134,16 @@ def _dryrun_rank(devices) -> dict:
     ts = shard_train_state(ts, mesh)
     ts, metrics = make_train_step(env, model, cfg, mesh)(ts)
     metrics = {k: float(v) for k, v in metrics.items()}
+    # the articulated ant through the same sharded step (Gaussian head)
+    ant = make("AntTagPhysics-v0", frame_skip=1, solver_iters=1,
+               integrator="euler", pipeline="array", device=dev)
+    acfg = PPOConfig(num_envs=2 * n, rollout_steps=4, epochs=1, minibatches=2,
+                     hidden=(16, 16))
+    amodel, ats = init_train_state(ant, acfg,
+                                   torch.Generator(device=dev).manual_seed(1))
+    ats = shard_train_state(ats, mesh)
+    ats, ametrics = make_train_step(ant, amodel, acfg, mesh)(ats)
+    ametrics = {k: float(v) for k, v in ametrics.items()}
     return {"loss": metrics["loss"], "metrics": metrics,
+            "ant_loss": ametrics["loss"], "ant_metrics": ametrics,
             "launches": dict(LAUNCHES)}

@@ -1,3 +1,5 @@
+from .ant_physics import (AntHeavenHellPhysics, AntHeavenHellPhysicsState,
+                          AntTagPhysics, AntTagPhysicsState)
 from .car_flag import CarFlag, CarFlagState, DiscreteCarFlag
 from .crooms import CRooms, CRoomsState
 from .msrooms import MSRoomsState, MultistoryFourRooms
@@ -13,4 +15,6 @@ __all__ = ["Taxi", "TaxiState", "TAXI_MAP", "EXTENDED_TAXI_MAP", "Rooms",
            "RockSampleState", "CRooms", "CRoomsState", "TagContinuous",
            "TagState", "HeavenHellContinuous", "HeavenHellState", "CarFlag",
            "DiscreteCarFlag", "CarFlagState", "PotentialShaped",
-           "heaven_hell_potential", "tag_potential"]
+           "heaven_hell_potential", "tag_potential", "AntTagPhysics",
+           "AntTagPhysicsState", "AntHeavenHellPhysics",
+           "AntHeavenHellPhysicsState"]

@@ -14,7 +14,8 @@ learners' ``pos/neg_reward_rate`` count rewards of magnitude at least 0.5
 only, never the small shaping increments.
 
 The potentials read the point-mass states' ``agent_xy``
-(:mod:`gym_po_tpu_torch.envs.tag`); the articulated ant is not ported yet.
+(:mod:`gym_po_tpu_torch.envs.tag`) or the articulated ant's torso position
+``qpos[..., :2]`` (:mod:`gym_po_tpu_torch.envs.ant_physics`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,12 @@ from ..utils.numerics import sqrt_rn
 __all__ = ["PotentialShaped", "heaven_hell_potential", "tag_potential"]
 
 
+def _agent_xy(state: EnvState) -> torch.Tensor:
+    """The agent's xy: a point mass's ``agent_xy``, the ant's torso
+    ``qpos[..., :2]``."""
+    return state.agent_xy if hasattr(state, "agent_xy") else state.qpos[..., :2]
+
+
 def heaven_hell_potential(coef: float = 0.1) -> Callable[[EnvState], torch.Tensor]:
     """Φ = −coef · (T-maze geodesic distance to the episode's heaven): the
     climb to the bar row (y = 6) plus the walk along the bar to
@@ -36,7 +43,7 @@ def heaven_hell_potential(coef: float = 0.1) -> Callable[[EnvState], torch.Tenso
     """
 
     def phi(state: EnvState) -> torch.Tensor:
-        xy = state.agent_xy
+        xy = _agent_xy(state)
         side = torch.where(state.heaven_right, 1.0, -1.0)
         d = torch.abs(6.0 - xy[..., 1]) + torch.abs(6.25 * side - xy[..., 0])
         return -coef * d
@@ -48,7 +55,7 @@ def tag_potential(coef: float = 0.1) -> Callable[[EnvState], torch.Tensor]:
     """Φ = −coef · (distance to the fleeing target) for the tag task."""
 
     def phi(state: EnvState) -> torch.Tensor:
-        d = sqrt_rn(((state.agent_xy - state.target_xy) ** 2).sum(-1) + 1e-12)
+        d = sqrt_rn(((_agent_xy(state) - state.target_xy) ** 2).sum(-1) + 1e-12)
         return -coef * d
 
     return phi

@@ -1,11 +1,12 @@
 """Environment registry, PyTorch port of :mod:`gym_po_tpu.registry`.
 
-The Taxi family, ``Rooms-v0``, ``CRooms-v0``, ``MultistoryFourRooms-v0``,
-``RockSample-v0``, ``TagContinuous-v0``, ``HeavenHellContinuous-v0``,
-``CarFlag-v0`` and ``DiscreteCarFlag-v0`` are ported so far (not yet: the
-articulated ant); ``make`` of any other id raises ``KeyError`` listing what
-is available.  Every constructor takes the JAX package's kwargs plus
-``device``.
+Every id of the JAX package's registry: the Taxi family, ``Rooms-v0``,
+``CRooms-v0``, ``MultistoryFourRooms-v0``, ``RockSample-v0``,
+``TagContinuous-v0``, ``HeavenHellContinuous-v0``, ``CarFlag-v0``,
+``DiscreteCarFlag-v0`` and the articulated ant's ``AntTagPhysics-v0`` and
+``AntHeavenHellPhysics-v0``; ``make`` of any other id raises ``KeyError``
+listing what is available.  Every constructor takes the JAX package's
+kwargs plus ``device``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ def registered_envs():
 
 
 def _register_defaults() -> None:
+    from .envs.ant_physics import AntHeavenHellPhysics, AntTagPhysics
     from .envs.car_flag import CarFlag, DiscreteCarFlag
     from .envs.crooms import CRooms
     from .envs.msrooms import MultistoryFourRooms
@@ -60,6 +62,8 @@ def _register_defaults() -> None:
     register("HeavenHellContinuous-v0", lambda **kw: HeavenHellContinuous(**kw))
     register("CarFlag-v0", lambda **kw: CarFlag(**kw))
     register("DiscreteCarFlag-v0", lambda **kw: DiscreteCarFlag(**kw))
+    register("AntTagPhysics-v0", lambda **kw: AntTagPhysics(**kw))
+    register("AntHeavenHellPhysics-v0", lambda **kw: AntHeavenHellPhysics(**kw))
 
 
 _register_defaults()

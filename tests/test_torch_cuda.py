@@ -1526,3 +1526,75 @@ def test_one_rank_nccl_mesh_ppo_update_equals_no_mesh(nccl_one_rank):
     (pa, ma), (pb, mb) = out
     assert torch.equal(pa, pb)
     assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+# ------------------------------------------------------- the articulated ant
+ANT_IDS = ["AntTagPhysics-v0", "AntHeavenHellPhysics-v0"]
+
+
+def _ant_states(n, seed):
+    from gym_po_tpu_torch.envs.ant_physics import STAND_POSE
+
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(STAND_POSE.astype(np.float64), (n, 1))
+    qpos[:, :2] = rng.uniform(-3.5, 3.5, (n, 2))
+    qpos[:, 2] += rng.uniform(-0.1, 0.05, n)
+    qpos[:, 7:] += rng.uniform(-0.3, 0.3, (n, 8))
+    qpos[n // 2:, 0] = 4.4  # against the east wall
+    return (qpos, 0.5 * rng.normal(size=(n, 14)), rng.uniform(-1, 1, (n, 8)),
+            0.1 * rng.normal(size=(n, 14)))
+
+
+def test_ant_engine_on_card_equals_cpu(cuda):
+    """The kernel-free engine on the card against itself on the CPU at f64:
+    a forward and an RK4 step (frame_skip 2, 15 iterations), relative to
+    max(1, |x|) within 1e-9."""
+    from gym_po_tpu_torch.physics import TAG_WALLS, make_ant_model
+    from gym_po_tpu_torch.physics.engine import PhysicsState, forward, step
+
+    model = make_ant_model(TAG_WALLS)
+    arrays = _ant_states(32, 0)
+    for fn in (lambda q, v, c, w: forward(model, q, v, c, w, iters=15),
+               lambda q, v, c, w: tuple(step(model, PhysicsState(q, v, w), c,
+                                             frame_skip=2, iters=15))):
+        got = fn(*(torch.as_tensor(x, device=cuda) for x in arrays))
+        want = fn(*(torch.as_tensor(x) for x in arrays))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float64
+            err = ((g.cpu() - w).abs() / w.abs().clamp_min(1.0)).max()
+            assert err <= 1e-9
+
+
+@pytest.mark.parametrize("env_id", ANT_IDS)
+def test_ant_step_vec_waits_on_no_host_sync(cuda, env_id):
+    env = gpt_torch.make(env_id, frame_skip=2, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, st = env.reset_vec(gen, 256)
+    act = torch.rand(256, 8, generator=gen, device=cuda) * 2 - 1
+    env.step_vec(gen, st, act)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        obs, st, *_ = env.step_vec(gen, st, act)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(obs).all() and obs.is_cuda
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "euler"])
+def test_ant_ppo_collect_graph_replay_equals_eager(cuda, integrator):
+    """The ant's env step captured in PPO's collect graph replays the eager
+    collect bit for bit."""
+    ppo, env, cfg, model, ts = _ppo(cuda, "AntTagPhysics-v0",
+                                    {"frame_skip": 2, "integrator": integrator,
+                                     "time_limit": 3}, B=64, T=4)
+    step = ppo.make_train_step(env, model, cfg)
+    ts, _ = step(ts)
+    start = ts.generator.get_state()
+    eager = ppo.collect(env, model, cfg, ts.env_obs, ts.env_state,
+                        _generator_at(start, cuda))
+    replay = step.graph(ts.env_obs, ts.env_state, ts.generator)
+    _assert_collect_equal(replay, eager)
+    ts.generator.set_state(start)
+    ts, metrics = step(ts)
+    assert all(torch.isfinite(v) for v in metrics.values())

@@ -241,6 +241,8 @@ def test_dryrun_multichip_on_two_cpu_ranks():
     out = dryrun_multichip(2, device="cpu")
     assert len(out) == 2 and out[0]["metrics"] == out[1]["metrics"]
     assert np.isfinite(out[0]["loss"])
+    assert out[0]["ant_metrics"] == out[1]["ant_metrics"]
+    assert np.isfinite(out[0]["ant_loss"])
 
 
 def test_dryrun_refuses_nccl_without_a_card_per_rank():

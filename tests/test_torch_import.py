@@ -67,6 +67,15 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.obs
     import gym_po_tpu_torch.utils
     import gym_po_tpu_torch.vector
+    import gym_po_tpu_torch.physics
+    import gym_po_tpu_torch.physics.ant_model
+    import gym_po_tpu_torch.physics.contact
+    import gym_po_tpu_torch.physics.dynamics
+    import gym_po_tpu_torch.physics.engine
+    import gym_po_tpu_torch.physics.linalg
+    import gym_po_tpu_torch.physics.spatial
+    import gym_po_tpu_torch.envs.ant_physics
+    import gym_po_tpu_torch.envs.mjcf
     import chip_smoke
 
     env = gym_po_tpu_torch.make("ExtendedHansenTaxi-v4", device="cpu")
@@ -79,6 +88,13 @@ _BLOCKED_IMPORT = textwrap.dedent(
     env = gym_po_tpu_torch.make("CarFlag-v0", device="cpu")
     env = gym_po_tpu_torch.make("DiscreteCarFlag-v0", device="cpu")
     import torch
+    for ant_id in ("AntTagPhysics-v0", "AntHeavenHellPhysics-v0"):
+        ant = gym_po_tpu_torch.make(ant_id, frame_skip=1, solver_iters=1,
+                                    device="cpu")
+        g = torch.Generator().manual_seed(0)
+        _, st = ant.reset_vec(g, 2)
+        ant.step_vec(g, st, torch.zeros(2, 8))
+    assert "mujoco" not in sys.modules
     from gym_po_tpu_torch.agents import PPOConfig, init_rnn_state
     init_rnn_state(env, PPOConfig(num_envs=4, minibatches=2,
                                   compute_dtype=torch.bfloat16),
@@ -109,7 +125,8 @@ def test_port_imports_with_jax_blocked():
     for env_id in ("Taxi-v4", "HansenTaxi-v4", "ExtendedTaxi-v4",
                    "ExtendedHansenTaxi-v4", "Rooms-v0", "MultistoryFourRooms-v0",
                    "RockSample-v0", "CRooms-v0", "TagContinuous-v0",
-                   "HeavenHellContinuous-v0", "CarFlag-v0", "DiscreteCarFlag-v0"):
+                   "HeavenHellContinuous-v0", "CarFlag-v0", "DiscreteCarFlag-v0",
+                   "AntTagPhysics-v0", "AntHeavenHellPhysics-v0"):
         assert env_id in proc.stdout
 
 
@@ -117,8 +134,9 @@ def test_unported_env_raises_keyerror_listing_available():
     import gym_po_tpu_torch as gpt_torch
 
     with pytest.raises(KeyError, match="Available"):
-        gpt_torch.make("AntTagPhysics-v0")
+        gpt_torch.make("AntTag-v0")  # the host-MuJoCo env: not ported
     assert gpt_torch.registered_envs() == [
+        "AntHeavenHellPhysics-v0", "AntTagPhysics-v0",
         "CRooms-v0", "CarFlag-v0", "DiscreteCarFlag-v0", "ExtendedHansenTaxi-v4",
         "ExtendedTaxi-v4", "HansenTaxi-v4", "HeavenHellContinuous-v0",
         "MultistoryFourRooms-v0", "RockSample-v0", "Rooms-v0", "TagContinuous-v0",
