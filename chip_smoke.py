@@ -91,8 +91,13 @@ path and read just after:
    B = 4,096 (finite, above the floor, inside the walls), env-steps/s at
    the envs' defaults (B = 4,096, frame_skip 15, 8 Newton iterations, f32;
    RK4 and Euler) with device ops per env step and the device's busy
-   share (torch.profiler), both routes of the 14x14 solve timed, and one
-   PPO update on the ant at B = 4,096, T = 8.  No kernel either; it prints
+   share (torch.profiler), both routes of the 14x14 solve timed, PPO
+   updates on the ant at B = 4,096 (Euler at T = 8, RK4 at T = 2),
+   ``render_ant`` of 4 rows of a B = 4,096 card state of each env (equal
+   to its CPU copy's frame, ms per frame), and the batch scan: one Euler
+   ``step_vec`` at B = 16,384 against four at B = 4,096 (env-steps/s of
+   each, their ratio, the peak memory), which decides whether the JAX
+   package's ``vector/chunked.py`` is ported.  No kernel either; it prints
    which of triton, mujoco, gymnasium and pygame the machine has.
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
@@ -3246,6 +3251,16 @@ ANT_TIMED = 3
 # (the capture of the collect graph grows with T, four forwards an RK4
 # substep against Euler's one: the ant-ppo lines print it)
 ANT_PPO = (("euler", 8), ("rk4", 2))
+# the renderer's rows of a B = 4,096 card state; the card's f64 fk against
+# the renderer's NumPy FK (one tree walk, rounding only)
+ANT_RENDER_ROWS = (0, 1, 2047, 4095)
+ANT_RENDER_FK_TOL = 1e-12
+# the batch scan that decides whether vector/chunked.py is ported: one
+# step at B_ANT_SCAN against ANT_SCAN_CHUNKS steps of B_ANT each; the
+# single step reaching ANT_NO_CLIFF of the chunks' rate is no cliff
+B_ANT_SCAN = 16384
+ANT_SCAN_CHUNKS = 4
+ANT_NO_CLIFF = 0.9
 
 
 def ant_contact_states(n: int, seed: int, walls: bool):
@@ -3528,9 +3543,121 @@ def ant_ppo(dev, card, integrator: str, T: int) -> None:
         f"{B_ANT * T / wall:.6e} PPO env-steps/s; {ppo_metrics_line(m)}")
 
 
+def ant_render_check(dev, card, env_id: str) -> None:
+    """``render_ant`` of 4 rows of a B = 4,096 card state after one Euler
+    step: the frame of the state's CPU copy pixel for pixel, through
+    ``render`` too, with the torso, walls and legs drawn; the card's f64
+    ``fk`` of those rows against the renderer's NumPy FK; ms per frame
+    (host clock, median of 3 renders after a warm-up)."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.core import map_tensors
+    from gym_po_tpu_torch.physics.dynamics import fk
+    from gym_po_tpu_torch.render import COLORS, render, render_ant
+    from gym_po_tpu_torch.render.renderers import _np_fk
+
+    env = gp.make(env_id, integrator="euler", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    _, st = env.reset_vec(gen, B_ANT)
+    act = torch.rand(B_ANT, 8, generator=gen, device=dev) * 2 - 1
+    _, st, *_ = env.step_vec(gen, st, act)
+    torch.cuda.synchronize()
+    rows = list(ANT_RENDER_ROWS)
+    render_ant(env, st, rows)
+    times = []
+    for _ in range(ANT_TIMED):
+        t0 = time.perf_counter()
+        img = render_ant(env, st, rows)
+        times.append((time.perf_counter() - t0) * 1e3)
+    host = map_tensors(lambda t: t.cpu(), st)
+    if not (np.array_equal(img, render_ant(env, host, rows))
+            and np.array_equal(img, render(env, st, rows))):
+        raise AssertionError(f"{env_id}: the card state's frame differs "
+                             "from its CPU copy's")
+    drawn = {tuple(c) for c in np.unique(img.reshape(-1, 3), axis=0)}
+    if not {COLORS["agent"], COLORS["wall"], (150, 110, 60)} <= drawn:
+        raise AssertionError(f"{env_id}: no torso, walls or legs in the frame")
+    q = st.qpos[rows].double()
+    xpos, _, xmat = fk(env.model, q)
+    q = q.cpu().numpy()
+    err = 0.0
+    for k in range(len(rows)):
+        p, m = _np_fk(env.model, q[k])
+        err = max(err, float(np.abs(xpos[k].cpu().numpy() - p).max()),
+                  float(np.abs(xmat[k].cpu().numpy() - m).max()))
+    if not err <= ANT_RENDER_FK_TOL:
+        raise AssertionError(f"{env_id}: card fk vs NumPy FK {err:.3e}")
+    med = statistics.median(times)
+    say("ant-render", f"{env_id}: render_ant of {len(rows)} rows of a "
+        f"B={B_ANT} card state after one Euler step, {img.shape} uint8: the "
+        f"CPU copy's frame pixel for pixel (render() too), torso, walls and "
+        f"legs drawn; card f64 fk vs the renderer's NumPy FK {err:.3e} (limit "
+        f"{ANT_RENDER_FK_TOL:g}); {med / len(rows):.3f} ms per frame on the "
+        f"host (median of {', '.join(f'{t:.3f}' for t in times)} ms for "
+        f"{len(rows)}; {card})")
+
+
+def ant_batch_scan(dev, card) -> None:
+    """Whether the card loses env-steps/s above B = 4,096 on the ant
+    (the TPU's reason for ``vector/chunked.py``): on AntTagPhysics-v0,
+    Euler, the env's other knobs at their defaults, one ``step_vec`` at
+    B = 16,384 against four back-to-back ``step_vec`` calls on four
+    independent B = 4,096 states.  A warm-up of each, then 3 timed rounds
+    of both in turn (host clock around a sync); peak memory of the
+    B = 16,384 step."""
+    import gym_po_tpu_torch as gp
+
+    env = gp.make(ANT_IDS[0], integrator="euler", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = ANT_SCAN_CHUNKS
+    st = {"one": env.reset_vec(gen, B_ANT_SCAN)[1],
+          "four": [env.reset_vec(gen, B_ANT)[1] for _ in range(n)]}
+    act = torch.rand(B_ANT_SCAN, 8, generator=gen, device=dev) * 2 - 1
+    acts = act.split(B_ANT)
+
+    def one():
+        st["one"] = env.step_vec(gen, st["one"], act)[1]
+
+    def four():
+        st["four"] = [env.step_vec(gen, s, a)[1] for s, a in zip(st["four"], acts)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed(one)
+    timed(four)
+    times = {"one": [], "four": []}
+    for r in range(ANT_TIMED):
+        if r == 0:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        times["one"].append(timed(one))
+        if r == 0:
+            peak = torch.cuda.max_memory_allocated() - base
+        times["four"].append(timed(four))
+    rate = {"one": B_ANT_SCAN / statistics.median(times["one"]),
+            "four": n * B_ANT / statistics.median(times["four"])}
+    ratio = rate["one"] / rate["four"]
+    verdict = ("no cliff: vector/chunked.py stays unported"
+               if ratio >= ANT_NO_CLIFF else
+               "a cliff: vector/chunked.py is to be ported")
+    say("ant-batch-scan", f"{ANT_IDS[0]} euler frame_skip {env.frame_skip} "
+        f"iters {env.solver_iters} f32 on {card}: one step_vec at "
+        f"B={B_ANT_SCAN} {rate['one']:.6e} env-steps/s (s: "
+        f"{', '.join(f'{t:.4f}' for t in times['one'])}), {n} back-to-back "
+        f"at B={B_ANT} {rate['four']:.6e} env-steps/s (s: "
+        f"{', '.join(f'{t:.4f}' for t in times['four'])}); ratio "
+        f"{ratio:.4f} (no cliff at >= {ANT_NO_CLIFF}): {verdict}; peak "
+        f"memory of the B={B_ANT_SCAN} step {peak / 2**20:.1f} MiB")
+
+
 def ant_path(dev, card) -> None:
     """Path 9: the articulated ant (engine and both task envs, PPO on the
-    ant).  No kernel: the engine is batched PyTorch."""
+    ant, the renderer of a card state, the batch scan).  No kernel: the
+    engine is batched PyTorch, the renderer host NumPy."""
     import importlib.util
 
     t_path = time.perf_counter()
@@ -3543,6 +3670,9 @@ def ant_path(dev, card) -> None:
     phases += [(f"{e} {i}", lambda e=e, i=i: ant_run(dev, card, e, i))
                for e in ANT_IDS for i in ("rk4", "euler")]
     phases += [("cholesky", lambda: ant_cholesky_routes(dev, card))]
+    phases += [(f"render {e}", lambda e=e: ant_render_check(dev, card, e))
+               for e in ANT_IDS]
+    phases += [("batch scan", lambda: ant_batch_scan(dev, card))]
     phases += [(f"ppo {i}", lambda i=i, T=T: ant_ppo(dev, card, i, T))
                for i, T in ANT_PPO]
     spent = []

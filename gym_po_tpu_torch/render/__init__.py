@@ -1,11 +1,13 @@
 """Host-side renderers of the port's env states (NumPy; pygame only in
-``human_view``)."""
+``human_view``, mujoco only in ``render_ant_scene``)."""
 
 from .renderers import (
     CELL_PX,
     COLORS,
     human_view,
     render,
+    render_ant,
+    render_ant_scene,
     render_car,
     render_heavenhell,
     render_tag,
@@ -29,6 +31,8 @@ __all__ = [
     "render_tag",
     "render_heavenhell",
     "render_rocksample",
+    "render_ant",
+    "render_ant_scene",
     "tile_images",
     "human_view",
 ]

@@ -9,8 +9,10 @@ optional pygame window is :func:`human_view` (pygame imported there).
 
 Each ``render_*`` takes the environment (for its tables) and a *batched*
 state, and returns a tiled uint8 RGB montage of the selected instances.
-The articulated ant's renderers (``render_ant``, ``render_ant_scene``) wait
-for the ant's port.
+The articulated ant's top-down view (:func:`render_ant`) runs its forward
+kinematics in f64 NumPy on the model's arrays, so it launches no work on
+the card; :func:`render_ant_scene` draws the MuJoCo scene and needs
+``mujoco`` and a GL backend.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ __all__ = [
     "render_tag",
     "render_heavenhell",
     "render_rocksample",
+    "render_ant",
+    "render_ant_scene",
     "render",
     "human_view",
 ]
@@ -358,8 +362,217 @@ def render_rocksample(env, state, idx=None) -> np.ndarray:
     return tile_images(frames)
 
 
+# ------------------------------------------------------------ ant physics
+def _np_quat_mat(q: np.ndarray) -> np.ndarray:
+    """Rotation matrix of a unit quaternion [w,x,y,z] (NumPy)."""
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def _np_fk(model, qpos: np.ndarray):
+    """NumPy forward kinematics of one ``qpos`` (the engine's
+    ``physics.dynamics.fk``, hinge rotations composed as matrices) so the
+    renderer never launches work on a device."""
+    nb = model.nb
+    xpos = np.zeros((nb, 3))
+    xmat = np.zeros((nb, 3, 3))
+    xpos[0] = qpos[0:3]
+    q0 = qpos[3:7]
+    q0 = q0 / np.linalg.norm(q0)
+    xmat[0] = _np_quat_mat(q0)
+    for b in range(1, nb):
+        p = int(model.parent[b])
+        xpos[b] = xpos[p] + xmat[p] @ model.body_pos[b]
+        j = int(model.body_jnt[b])
+        if j >= 0:
+            ax = model.jnt_axis[j]
+            ang = float(qpos[int(model.jnt_qpos[j])])
+            c, s = math.cos(ang / 2), math.sin(ang / 2)
+            R = _np_quat_mat(np.array([c, s * ax[0], s * ax[1], s * ax[2]]))
+            xmat[b] = xmat[p] @ R
+        else:
+            xmat[b] = xmat[p]
+    return xpos, xmat
+
+
+def _draw_seg(img, p0, p1, color, width=2):
+    """Rasterize a thick 2-D segment (pixel coords) by dense sampling."""
+    n = max(2, int(np.hypot(p1[0] - p0[0], p1[1] - p0[1])) * 2)
+    rows, cols = img.shape[:2]
+    for t in np.linspace(0.0, 1.0, n):
+        r = int(round(p0[0] + t * (p1[0] - p0[0])))
+        c = int(round(p0[1] + t * (p1[1] - p0[1])))
+        r0, r1 = max(r - width, 0), min(r + width, rows)
+        c0, c1 = max(c - width, 0), min(c + width, cols)
+        img[r0:r1, c0:c1] = color
+
+
+def render_ant(env, state, idx: Optional[Sequence[int]] = None) -> np.ndarray:
+    """Top-down view of the articulated ant POMDPs: walls, leg skeleton
+    from forward kinematics, torso, and the task overlay (flee target +
+    visibility ring for AntTag; heaven/hell/priest sites for HeavenHell).
+
+    Capability match for the reference's MuJoCo viewer (mocap indicator
+    spheres, ``ant_tag.py:141-145``) as a pure host function of fetched
+    state."""
+    from ..envs.ant_physics import (
+        HH_SITES,
+        VISIBLE_RADIUS,
+        AntHeavenHellPhysics,
+        AntTagPhysics,
+    )
+
+    idx = _indices(idx)
+    model = env.model
+    walls = np.asarray(model.walls)
+    half_x = float(np.max(np.abs(walls[:, 0]) + walls[:, 3])) + 0.5
+    ylo = float(np.min(walls[:, 1] - walls[:, 4])) - 0.5
+    yhi = float(np.max(walls[:, 1] + walls[:, 4])) + 0.5
+    SCALE = 20
+    wpx = int(2 * half_x * SCALE)
+    hpx = int((yhi - ylo) * SCALE)
+
+    def to_px(x, y):
+        # row = flipped y (image origin top-left), col = x
+        return int((yhi - float(y)) * SCALE), int((float(x) + half_x) * SCALE)
+
+    qpos = _select(state.qpos, idx)
+    is_tag = isinstance(env, AntTagPhysics)
+    targets = _select(state.target_xy, idx) if is_tag else None
+    heaven_right = (
+        _select(state.heaven_right, idx)
+        if isinstance(env, AntHeavenHellPhysics) else None
+    )
+
+    frames = []
+    for k in range(len(idx)):
+        img = _blank(hpx, wpx, (15, 15, 20))
+        for (cx, cy, _cz, hx, hy, _hz) in walls:
+            r0, c0 = to_px(cx - hx, cy + hy)
+            r1, c1 = to_px(cx + hx, cy - hy)
+            img[max(r0, 0):r1, max(c0, 0):c1] = COLORS["wall"]
+        if heaven_right is not None:
+            right = bool(heaven_right[k])
+            for i, site in enumerate(HH_SITES):
+                color = (
+                    COLORS["priest"] if i == 2
+                    else COLORS["heaven"] if (i == 1) == right
+                    else COLORS["hell"]
+                )
+                r, c = to_px(site[0], site[1])
+                img[max(r - 5, 0):r + 5, max(c - 5, 0):c + 5] = color
+        xpos, xmat = _np_fk(model, np.asarray(qpos[k], np.float64))
+        if is_tag:
+            ar, ac = to_px(xpos[0, 0], xpos[0, 1])
+            rad = int(VISIBLE_RADIUS * SCALE)
+            yy, xx = np.ogrid[:hpx, :wpx]
+            ring = np.abs(
+                np.sqrt((yy - ar) ** 2 + (xx - ac) ** 2) - rad
+            ) < 1.0
+            img[ring] = (60, 60, 90)
+            tr, tc = to_px(targets[k, 0], targets[k, 1])
+            img[max(tr - 4, 0):tr + 4, max(tc - 4, 0):tc + 4] = COLORS["goal"]
+        # leg skeleton: each capsule geom as a world-frame segment
+        for g in range(len(model.geom_body)):
+            b = int(model.geom_body[g])
+            h = float(model.geom_h[g])
+            if h == 0.0:
+                continue  # torso sphere drawn below
+            center = xpos[b] + xmat[b] @ model.geom_pos[g]
+            axis_w = xmat[b] @ model.geom_axis[g]
+            p0 = center - h * axis_w
+            p1 = center + h * axis_w
+            _draw_seg(img, to_px(p0[0], p0[1]), to_px(p1[0], p1[1]),
+                      (150, 110, 60), width=2)
+        ar, ac = to_px(xpos[0, 0], xpos[0, 1])
+        tors = int(0.25 * SCALE)
+        img[max(ar - tors, 0):ar + tors, max(ac - tors, 0):ac + tors] = (
+            COLORS["agent"]
+        )
+        frames.append(img)
+    return tile_images(frames)
+
+
+_MJ_SCENE_CACHE: dict = {}
+
+
+def render_ant_scene(env, state, idx=None, width: int = 320,
+                     height: int = 240) -> np.ndarray:
+    """Full MuJoCo-scene rendering of the ant physics envs — the reference's
+    own render path (``gym_po/envs/ant_tag.py:27-75`` renders the MuJoCo
+    scene via gymnasium; the mocap spheres at ``:141-145`` exist to be
+    seen).  Host-side: drives a headless ``mujoco.Renderer`` (EGL) from
+    fetched ``qpos``; the engine simulates the SAME compiled model
+    (``envs/mjcf.py``; the port's engine is held to MuJoCo in
+    ``tests/test_torch_physics.py``), so the scene is the simulator's
+    state, not an approximation.
+
+    Mirrors the reference's scene dressing: AntTag moves mocap slot 0 to
+    the target and slots 1/2 (visibility ring, tag ring) with the ant;
+    AntHeavenHell recolors the left/right area sites by the episode's
+    heaven side (``ant_heaven_hell.py:110-118``).
+
+    Requires ``mujoco`` and a GL backend (sets ``MUJOCO_GL=egl`` if unset);
+    raises on headless machines without EGL, and the caller may then draw
+    :func:`render_ant` (the top-down schematic, always available)."""
+    import os
+
+    os.environ.setdefault("MUJOCO_GL", "egl")
+    import mujoco
+
+    from ..envs.ant_physics import AntTagPhysics
+    from ..envs.mjcf import ant_heaven_hell_xml, ant_tag_xml
+
+    idx = _indices(idx)
+    is_tag = isinstance(env, AntTagPhysics)
+    key = ("tag" if is_tag else "hh", width, height)
+    if key not in _MJ_SCENE_CACHE:
+        xml = ant_tag_xml() if is_tag else ant_heaven_hell_xml()
+        m = mujoco.MjModel.from_xml_string(xml)
+        _MJ_SCENE_CACHE[key] = (m, mujoco.MjData(m),
+                                mujoco.Renderer(m, height, width))
+    m, d, renderer = _MJ_SCENE_CACHE[key]
+
+    qpos = np.atleast_2d(_select(state.qpos, idx))
+    targets = np.atleast_2d(_select(state.target_xy, idx)) if is_tag else None
+    heaven_right = (
+        np.atleast_1d(_select(state.heaven_right, idx))
+        if not is_tag else None
+    )
+    cam = mujoco.MjvCamera()
+    cam.type = mujoco.mjtCamera.mjCAMERA_FREE
+    cam.distance, cam.elevation, cam.azimuth = 9.0, -40.0, 90.0
+
+    frames = []
+    for k in range(len(idx)):
+        d.qpos[:] = np.asarray(qpos[k], np.float64)
+        d.qvel[:] = 0.0
+        if is_tag:
+            d.mocap_pos[0, :2] = np.asarray(targets[k], np.float64)
+            d.mocap_pos[1:3, :2] = d.qpos[:2]  # indicator rings track ant
+        else:
+            right = bool(heaven_right[k])
+            green, red = (0, 1, 0, 0.5), (1, 0, 0, 0.5)
+            m.site_rgba[mujoco.mj_name2id(
+                m, mujoco.mjtObj.mjOBJ_SITE, "left_area")] = (
+                red if right else green)
+            m.site_rgba[mujoco.mj_name2id(
+                m, mujoco.mjtObj.mjOBJ_SITE, "right_area")] = (
+                green if right else red)
+        mujoco.mj_forward(m, d)
+        cam.lookat[:] = (float(d.qpos[0]), float(d.qpos[1]), 0.5)
+        renderer.update_scene(d, camera=cam)
+        frames.append(np.asarray(renderer.render(), np.uint8))
+    return tile_images(frames)
+
+
 def render(env, state, idx: Optional[Sequence[int]] = None) -> np.ndarray:
     """Dispatch on env type."""
+    from ..envs.ant_physics import _AntPhysicsBase
     from ..envs.car_flag import CarFlag
     from ..envs.crooms import CRooms
     from ..envs.msrooms import MultistoryFourRooms
@@ -384,6 +597,8 @@ def render(env, state, idx: Optional[Sequence[int]] = None) -> np.ndarray:
         return render_heavenhell(env, state, idx)
     if isinstance(env, RockSample):
         return render_rocksample(env, state, idx)
+    if isinstance(env, _AntPhysicsBase):
+        return render_ant(env, state, idx)
     raise TypeError(f"No renderer for {type(env).__name__}")
 
 

@@ -1598,3 +1598,30 @@ def test_ant_ppo_collect_graph_replay_equals_eager(cuda, integrator):
     ts.generator.set_state(start)
     ts, metrics = step(ts)
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("env_id", ANT_IDS)
+def test_ant_render_of_a_card_state_equals_its_cpu_copy(cuda, env_id):
+    """render_ant of 4 rows of a B = 4,096 card state after one step equals
+    render_ant of the state's CPU copy; the card's f64 ``fk`` matches the
+    renderer's NumPy FK to 1e-12."""
+    from gym_po_tpu_torch.core import map_tensors
+    from gym_po_tpu_torch.physics.dynamics import fk
+    from gym_po_tpu_torch.render import render_ant
+    from gym_po_tpu_torch.render.renderers import _np_fk
+
+    env = gpt_torch.make(env_id, frame_skip=2, integrator="euler", device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, st = env.reset_vec(gen, 4096)
+    act = torch.rand(4096, 8, generator=gen, device=cuda) * 2 - 1
+    _, st, *_ = env.step_vec(gen, st, act)
+    rows = [0, 1, 2047, 4095]
+    got = render_ant(env, st, rows)
+    want = render_ant(env, map_tensors(lambda t: t.cpu(), st), rows)
+    np.testing.assert_array_equal(got, want)
+    q = st.qpos[rows].double()
+    xpos, _, xmat = fk(env.model, q)
+    for k in range(len(rows)):
+        p, m = _np_fk(env.model, q[k].cpu().numpy())
+        np.testing.assert_allclose(xpos[k].cpu().numpy(), p, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(xmat[k].cpu().numpy(), m, rtol=0, atol=1e-12)

@@ -1,5 +1,5 @@
-"""The PyTorch port imports with jax, flax, gymnasium and pygame blocked,
-on CPU-only torch."""
+"""The PyTorch port imports with jax, flax, gymnasium, pygame and mujoco
+blocked, on CPU-only torch."""
 
 import os
 import subprocess
@@ -14,7 +14,7 @@ _BLOCKED_IMPORT = textwrap.dedent(
     """
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "gymnasium", "pygame")
+    BLOCKED = ("jax", "jaxlib", "flax", "gymnasium", "pygame", "mujoco")
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -29,9 +29,11 @@ _BLOCKED_IMPORT = textwrap.dedent(
 
     import gym_po_tpu_torch
     import gym_po_tpu_torch.parallel
-    # the gymnasium adapter and the renderers are not imported by the package
+    # the gymnasium adapter, the renderers and the host-MuJoCo ant envs are
+    # not imported by the package
     assert "gym_po_tpu_torch.compat" not in sys.modules
     assert "gym_po_tpu_torch.render" not in sys.modules
+    assert "gym_po_tpu_torch.envs.ant" not in sys.modules
     import gym_po_tpu_torch.agents
     import gym_po_tpu_torch.entry
     import gym_po_tpu_torch.agents.qlearning
@@ -106,6 +108,12 @@ _BLOCKED_IMPORT = textwrap.dedent(
         assert "gymnasium" in str(e)
     else:
         raise AssertionError("the adapter imported without gymnasium")
+    try:
+        import gym_po_tpu_torch.envs.ant
+    except ImportError as e:
+        assert "gymnasium" in str(e) or "mujoco" in str(e)
+    else:
+        raise AssertionError("the host ant envs imported without gymnasium")
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("ok", gym_po_tpu_torch.registered_envs())
     """
@@ -134,7 +142,7 @@ def test_unported_env_raises_keyerror_listing_available():
     import gym_po_tpu_torch as gpt_torch
 
     with pytest.raises(KeyError, match="Available"):
-        gpt_torch.make("AntTag-v0")  # the host-MuJoCo env: not ported
+        gpt_torch.make("AntTag-v0")  # an id in neither package's registry
     assert gpt_torch.registered_envs() == [
         "AntHeavenHellPhysics-v0", "AntTagPhysics-v0",
         "CRooms-v0", "CarFlag-v0", "DiscreteCarFlag-v0", "ExtendedHansenTaxi-v4",

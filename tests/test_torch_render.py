@@ -125,3 +125,84 @@ def test_glyphs_equal_jax():
         draw_text_at(a, text, (1, 2), (10, 20, 30), scale)
         jglyphs.draw_text_at(b, text, (1, 2), (10, 20, 30), scale)
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------ the articulated ant
+ANT_CASES = [("AntTagPhysics-v0", ("qpos", "target_xy")),
+             ("AntHeavenHellPhysics-v0", ("qpos", "heaven_right"))]
+ANT_KW = dict(frame_skip=1, solver_iters=2)
+
+
+def _ant_states(env_id, fields, n=4, seed=5):
+    """The port's ant state after a reset and one step of random actions,
+    its leg joints perturbed by numpy-seeded noise, and a JAX state of the
+    same env holding the same rendered fields."""
+    te = gpt_torch.make(env_id, device="cpu", **ANT_KW)
+    gen = torch.Generator().manual_seed(seed)
+    _, st = te.reset_vec(gen, n)
+    _, st, *_ = te.step_vec(gen, st, te.action_space.sample_vec(gen, n))
+    rng = np.random.default_rng(seed)
+    noise = rng.uniform(-0.5, 0.5, (n, 8)).astype(np.float32)
+    st = st.replace(qpos=torch.cat([st.qpos[:, :7],
+                                    st.qpos[:, 7:] + torch.as_tensor(noise)], 1))
+    je = gpt.make(env_id, **ANT_KW)
+    _, jst = je.reset_vec(jax.random.PRNGKey(0), n)
+    jst = jst.replace(**{f: jnp.asarray(getattr(st, f).numpy(),
+                                        dtype=getattr(jst, f).dtype)
+                         for f in fields})
+    return te, st, je, jst
+
+
+@pytest.mark.parametrize("env_id,fields", ANT_CASES, ids=[c[0] for c in ANT_CASES])
+def test_ant_frames_equal_jax_pixel_for_pixel(env_id, fields):
+    te, st, je, jst = _ant_states(env_id, fields)
+    for idx in (None, [2], range(4)):
+        got = trender.render_ant(te, st, idx)
+        want = jrender.render_ant(je, jst, idx)
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(trender.render(te, st, idx), got)
+    colors = {tuple(c) for c in np.unique(got.reshape(-1, 3), axis=0)}
+    assert {trender.COLORS["agent"], trender.COLORS["wall"],
+            (150, 110, 60)} <= colors  # torso, walls, legs
+
+
+def test_ant_np_fk_equals_jax_and_the_engine():
+    """The renderer's f64 NumPy FK is the JAX copy's bit for bit, and the
+    engine's ``physics.dynamics.fk`` at f64 to 1e-12."""
+    from gym_po_tpu.render.renderers import _np_fk as jax_np_fk
+    from gym_po_tpu_torch.envs.ant_physics import STAND_POSE
+    from gym_po_tpu_torch.physics import TAG_WALLS, make_ant_model
+    from gym_po_tpu_torch.physics.dynamics import fk
+    from gym_po_tpu_torch.render.renderers import _np_fk
+
+    model = make_ant_model(TAG_WALLS)
+    rng = np.random.default_rng(0)
+    n = 16
+    qpos = np.tile(STAND_POSE.astype(np.float64), (n, 1))
+    qpos[:, :3] += rng.uniform(-3.0, 3.0, (n, 3))
+    qpos[:, 3:7] += rng.normal(scale=0.5, size=(n, 4))  # unnormalised: fk normalises
+    qpos[:, 7:] += rng.uniform(-1.0, 1.0, (n, 8))
+    xpos, _, xmat = fk(model, torch.as_tensor(qpos))
+    for k in range(n):
+        got = _np_fk(model, qpos[k])
+        for g, w in zip(got, jax_np_fk(model, qpos[k])):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_allclose(got[0], xpos[k].numpy(), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(got[1], xmat[k].numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("env_id,fields", ANT_CASES, ids=[c[0] for c in ANT_CASES])
+def test_ant_scene_frames_equal_jax(env_id, fields):
+    """render_ant_scene draws the MuJoCo scene; skips only where mujoco or
+    a GL backend (EGL) is missing, as tests/test_render.py's does."""
+    pytest.importorskip("mujoco")
+    te, st, je, jst = _ant_states(env_id, fields)
+    try:
+        want = jrender.render_ant_scene(je, jst, idx=[0, 3], width=160, height=120)
+    except Exception as e:  # no EGL on this machine
+        pytest.skip(f"GL unavailable: {e}")
+    got = trender.render_ant_scene(te, st, idx=[0, 3], width=160, height=120)
+    assert got.dtype == np.uint8 and got.shape == (120, 320, 3)
+    assert got.std() > 1.0  # a real scene, not a blank buffer
+    np.testing.assert_array_equal(got, want)
