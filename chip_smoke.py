@@ -84,21 +84,27 @@ path and read just after:
    ``dryrun_multichip(1)``; a Taxi frame from a card state; the gymnasium
    adapter where gymnasium is installed;
 9. the articulated ant (``gym_po_tpu_torch.physics``, ``AntTagPhysics-v0``,
-   ``AntHeavenHellPhysics-v0``): the engine on the card against the CPU at
-   f64 (64 contact states, a forward and an RK4 step), one env step of
-   each env against the CPU stage by stage at f32, ``step_vec`` under the
-   sync debug mode (no host sync), 20 steps of random actions at
-   B = 4,096 (finite, above the floor, inside the walls), env-steps/s at
-   the envs' defaults (B = 4,096, frame_skip 15, 8 Newton iterations, f32;
-   RK4 and Euler) with device ops per env step and the device's busy
-   share (torch.profiler), both routes of the 14x14 solve timed, PPO
-   updates on the ant at B = 4,096 (Euler at T = 8, RK4 at T = 2),
-   ``render_ant`` of 4 rows of a B = 4,096 card state of each env (equal
-   to its CPU copy's frame, ms per frame), and the batch scan: one Euler
-   ``step_vec`` at B = 16,384 against four at B = 4,096 (env-steps/s of
-   each, their ratio, the peak memory), which decides whether the JAX
-   package's ``vector/chunked.py`` is ported.  No kernel either; it prints
-   which of triton, mujoco, gymnasium and pygame the machine has.
+   ``AntHeavenHellPhysics-v0``), whose default ``pipeline="scalar"``
+   forward runs the three per-env kernels of ``csrc/ant_forward.cu``
+   (``ant_smooth``, ``ant_rows``, ``ant_newton``): each kernel against its
+   plain twin on the card (f64 to 1e-9 relative, f32 within the step
+   gates) and timed at B = 4,096; the engine on the card against the CPU
+   at f64 (64 contact states, a forward and an RK4 step), one env step of
+   each env against the CPU stage by stage at f32; then, counted,
+   ``step_vec`` under the sync debug mode (no host sync), 20 steps of
+   random actions at B = 4,096 (finite, above the floor, inside the
+   walls), env-steps/s at the envs' defaults (B = 4,096, frame_skip 15, 8
+   Newton iterations, f32; RK4 and Euler) with device ops per env step
+   and the device's busy share (torch.profiler), PPO updates on the ant at
+   B = 4,096 (Euler at T = 8, RK4 at T = 2); then, for the record, the
+   same rates and PPO updates with ``pipeline="array"`` (the batched
+   engine), both routes of the 14x14 solve timed, ``render_ant`` of 4
+   rows of a B = 4,096 card state of each env (equal to its CPU copy's
+   frame, ms per frame), and the batch scan: one Euler ``step_vec`` at
+   B = 16,384 against four at B = 4,096 (env-steps/s of each, their
+   ratio, the peak memory), which decides whether the JAX package's
+   ``vector/chunked.py`` is ported.  It prints which of triton, mujoco,
+   gymnasium and pygame the machine has.
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
 fallback: without a CUDA device the script fails before printing a result.
@@ -128,7 +134,7 @@ learning checks; path 3 with the ROOMS timings and learning checks; path 4
 with the MSRooms and RockSample timings and the MSRooms learning check;
 path 5 with the CRooms, Tag and HeavenHell timings and the CRooms learning
 check; path 6, PPO; path 7, recurrent PPO, bf16 and resume; path 8, data
-parallelism; path 9, the ant.
+parallelism; path 9, the ant (its kernels' checks first).
 The line before the last is the kernels' JSON record; the last line is the
 result.
 """
@@ -3261,6 +3267,39 @@ ANT_RENDER_FK_TOL = 1e-12
 B_ANT_SCAN = 16384
 ANT_SCAN_CHUNKS = 4
 ANT_NO_CLIFF = 0.9
+# the ant kernels against their twins on the same inputs, relative to
+# max(1, |x|).  f64 (ant_scalar_check, B_ANT contact states per arena): M,
+# qacc_smooth, the kinematics, the densified rows, aref, r, qacc and warm
+# within ANT_KERNEL_TOL, the active flags equal.  f32 at the timed shape
+# (ant_kernel_times: the timed launches' outputs, B_ANT): each kernel
+# within ANT_F32_TOL (about 3x the readings on an NVIDIA H100 80GB HBM3 at
+# 700 W: 3.7e-6, 7.2e-4 (aref: the contact stiffness times f32 distances),
+# 3.6e-5; PERF.md), and the active flags equal but on rows whose candidate
+# lies within ANT_ACTIVE_SLACK (m) of its threshold (f32 positions of
+# about 5 m carry about 5e-7 m of rounding) and on the capsule-box slots
+# whose validity is the 1e-6 coincidence test of two f32 segment
+# parameters (``ant_coincidence_rows``: the kernel's fused multiply-adds
+# and the twin's separate roundings put such a flag on either side); rows
+# whose flags differ are left out of the value comparison
+ANT_KERNEL_TOL = 1e-9
+ANT_F32_TOL = {"ant_smooth": 1e-5, "ant_rows": 2e-3, "ant_newton": 1e-4}
+ANT_ACTIVE_SLACK = 1e-5
+# on random contact states f32 strays from f64 in either engine: after one
+# physics stage (RK4, frame_skip 3) the kernels' f32 qpos lies within
+# ANT_DRIFT_FACTOR times the batched engine's f32 distance from the f64
+# step (or of ANT_PHYSICS_TOL's qpos, were that larger).  Newton's 8th
+# iterate is not converged: where a line search's bracket falls on one
+# rounding, two f64 runs part by up to 1e-8 relative and meet again an
+# iteration later (the twin on the card against the twin on the CPU, at
+# 4,096 states; NVIDIA H100 80GB HBM3, 700 W).  So at 4,096 states the
+# f64 gate holds Newton after ANT_NEWTON_CONVERGED iterations (converged
+# to about 1e-13), and at the envs' 8 on ANT_ENGINE_STATES states
+ANT_DRIFT_FACTOR = 4.0
+ANT_NEWTON_CONVERGED = 16
+ANT_KERNELS = ("ant_smooth", "ant_rows", "ant_newton")
+ANT_KERNEL_REPLACES = {"ant_smooth": "gym_po_tpu/physics/dynamics.py:553",
+                       "ant_rows": "gym_po_tpu/physics/contact.py:568",
+                       "ant_newton": "gym_po_tpu/physics/contact.py:915"}
 
 
 def ant_contact_states(n: int, seed: int, walls: bool):
@@ -3315,6 +3354,21 @@ def ant_engine_check(dev) -> None:
         f"{ANT_ENGINE_TOL:g})")
 
 
+def ant_env_states(dev, env_id: str, seed: int = 11):
+    """``B_ANT_STAGES`` states of ``env_id`` in motion (a reset and two
+    steps of one random action at frame_skip ANT_STAGES_FRAME_SKIP) and
+    that action."""
+    import gym_po_tpu_torch as gp
+
+    env = gp.make(env_id, frame_skip=ANT_STAGES_FRAME_SKIP, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _, st = env.reset_vec(gen, B_ANT_STAGES)
+    act = torch.rand(B_ANT_STAGES, 8, generator=gen, device=dev) * 2 - 1
+    for _ in range(2):
+        _, st, *_ = env.step_vec(gen, st, act)
+    return st, act
+
+
 def ant_stage_check(dev, env_id: str) -> None:
     """One env step of the card against the CPU, stage by stage, at f32:
     the physics from one state, then each task stage fed the same inputs."""
@@ -3324,12 +3378,9 @@ def ant_stage_check(dev, env_id: str) -> None:
     cpu = torch.device("cpu")
     env_d, env_c = (gp.make(env_id, frame_skip=ANT_STAGES_FRAME_SKIP, device=d)
                     for d in (dev, cpu))
-    gen = torch.Generator(device=dev).manual_seed(11)
+    st, act = ant_env_states(dev, env_id)
+    gen = torch.Generator(device=dev).manual_seed(12)
     B = B_ANT_STAGES
-    _, st = env_d.reset_vec(gen, B)
-    act = torch.rand(B, 8, generator=gen, device=dev) * 2 - 1
-    for _ in range(2):  # into motion first
-        _, st, *_ = env_d.step_vec(gen, st, act)
 
     def c(x):
         return map_tensors(lambda t: t.to(cpu), x)
@@ -3395,21 +3446,24 @@ def ant_stage_check(dev, env_id: str) -> None:
         f"{int(trunc.sum())} truncations")
 
 
-def ant_run(dev, card, env_id: str, integrator: str) -> None:
-    """Steps of random actions at the env's defaults (B = 4,096): step 0 a
-    warm-up, steps 1-3 timed (env-steps/s from their median, host clock
-    around a sync), step 4 under torch.profiler (device ops, busy share,
-    peak memory).  Euler runs 20 steps, step 5 under the sync debug mode at
-    'error' (a host sync raises); RK4 runs 5 (the RK4 PPO update's collect
-    graph holds its steps sync-free).  After every step each qpos is
-    finite, each torso above the floor and each ant inside its walls."""
+def ant_run(dev, card, env_id: str, integrator: str,
+            pipeline: str = "scalar") -> None:
+    """Steps of random actions at the env's defaults (B = 4,096) with
+    ``pipeline``: step 0 a warm-up, steps 1-3 timed (env-steps/s from their
+    median, host clock around a sync), step 4 under torch.profiler (device
+    ops, busy share, peak memory).  Euler with "scalar" runs 20 steps, step
+    5 under the sync debug mode at 'error' (a host sync raises); otherwise
+    5 (the RK4 PPO update's collect graph holds its steps sync-free).
+    After every step each qpos is finite, each torso above the floor and
+    each ant inside its walls."""
     import gym_po_tpu_torch as gp
 
-    env = gp.make(env_id, integrator=integrator, device=dev)
+    env = gp.make(env_id, integrator=integrator, pipeline=pipeline, device=dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     _, st = env.reset_vec(gen, B_ANT)
     (x_lo, x_hi), (y_lo, y_hi) = ANT_ARENA[env_id]
-    n_steps = ANT_STEPS if integrator == "euler" else ANT_TIMED + 2
+    n_steps = (ANT_STEPS if integrator == "euler" and pipeline == "scalar"
+               else ANT_TIMED + 2)
     times, resets, z = [], 0, []
     for i in range(n_steps):
         act = torch.rand(B_ANT, 8, generator=gen, device=dev) * 2 - 1
@@ -3452,11 +3506,12 @@ def ant_run(dev, card, env_id: str, integrator: str) -> None:
         resets += int(info["reset_mask"].sum())
         z += [float(q[:, 2].min()), float(q[:, 2].max())]
     med = statistics.median(times)
-    say("ant-speed", f"{env_id} {integrator} B={B_ANT} frame_skip "
-        f"{env.frame_skip} iters {env.solver_iters} ls {env.ls_iters} f32 on "
-        f"{card}: {B_ANT / med * 1e3:.6e} env-steps/s ({med:.3f} ms/step, "
-        f"median of {', '.join(f'{t:.3f}' for t in times)}); {ops}")
-    say("ant-rollout", f"{env_id} {integrator} B={B_ANT}, {n_steps} steps of "
+    say("ant-speed", f"{env_id} {integrator} pipeline {pipeline} B={B_ANT} "
+        f"frame_skip {env.frame_skip} iters {env.solver_iters} ls "
+        f"{env.ls_iters} f32 on {card}: {B_ANT / med * 1e3:.6e} env-steps/s "
+        f"({med:.3f} ms/step, median of {', '.join(f'{t:.3f}' for t in times)}); "
+        f"{ops}")
+    say("ant-rollout", f"{env_id} {integrator} {pipeline} B={B_ANT}, {n_steps} steps of "
         f"random actions: qpos finite, torso z in [{min(z):.4f}, "
         f"{max(z):.4f}], every ant inside x in ({x_lo}, {x_hi}), "
         f"y in ({y_lo}, {y_hi}); {resets} resets")
@@ -3513,14 +3568,16 @@ def ant_cholesky_routes(dev, card) -> None:
         "library's")
 
 
-def ant_ppo(dev, card, integrator: str, T: int) -> None:
-    """One PPO update on AntTagPhysics-v0 (the env's other knobs at their
-    defaults), B = 4,096, E = M = 4, after the first (the collect graph's
-    capture), split into collect and learn by CUDA events."""
+def ant_ppo(dev, card, integrator: str, T: int, pipeline: str = "scalar") -> None:
+    """One PPO update on AntTagPhysics-v0 with ``pipeline`` (the env's
+    other knobs at their defaults), B = 4,096, E = M = 4, after the first
+    (the collect graph's capture), split into collect and learn by CUDA
+    events."""
     import gym_po_tpu_torch as gp
     from gym_po_tpu_torch.agents import ppo
 
-    env = gp.make(ANT_IDS[0], integrator=integrator, device=dev)
+    env = gp.make(ANT_IDS[0], integrator=integrator, pipeline=pipeline,
+                  device=dev)
     cfg = ppo.PPOConfig(num_envs=B_ANT, rollout_steps=T)
     model, ts = ppo.init_train_state(env, cfg,
                                      torch.Generator(device=dev).manual_seed(0))
@@ -3535,7 +3592,7 @@ def ant_ppo(dev, card, integrator: str, T: int) -> None:
     wall = time.perf_counter() - t0
     if not torch.isfinite(ts.env_obs).all():
         raise AssertionError("ant PPO: non-finite observations")
-    say("ant-ppo", f"{ANT_IDS[0]} ({env.integrator}, frame_skip "
+    say("ant-ppo", f"{ANT_IDS[0]} ({env.integrator}, {pipeline}, frame_skip "
         f"{env.frame_skip}) B={B_ANT} T={T} E={cfg.epochs} "
         f"M={cfg.minibatches} hidden {cfg.hidden} on {card}: first update "
         f"(graph capture) {first:.3f} s; update 2 {wall * 1e3:.3f} ms (CUDA "
@@ -3654,34 +3711,355 @@ def ant_batch_scan(dev, card) -> None:
         f"memory of the B={B_ANT_SCAN} step {peak / 2**20:.1f} MiB")
 
 
-def ant_path(dev, card) -> None:
+def _ant_models():
+    from gym_po_tpu_torch.physics import HEAVEN_HELL_WALLS, TAG_WALLS, make_ant_model
+
+    return {ANT_IDS[0]: make_ant_model(TAG_WALLS),
+            ANT_IDS[1]: make_ant_model(HEAVEN_HELL_WALLS)}
+
+
+def _rel_abs(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(largest error relative to max(1, |want|), largest absolute error)."""
+    d = (got - want).abs()
+    return (d / want.abs().clamp_min(1.0)).max().item(), d.max().item()
+
+
+def ant_row_margin(model, skin: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
+    """``[ne, B]``: how far each row lies from its activation threshold
+    (a limit row its hinge's distance to the nearer bound, a contact row
+    its candidate's distance less the pair margin; a row is active below
+    0), from the kinematics in ``skin`` by the plain path."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+    from gym_po_tpu_torch.physics import contact, dynamics
+
+    t = dynamics.model_tensors(model, qpos.dtype, qpos.device)
+    q_j = qpos[:, t.jnt_qpos]
+    lim = torch.minimum(q_j - t.jnt_lo, t.jnt_hi - q_j)
+    dist, _, _ = contact.candidates(model, af._skin_kinematics(model, skin))
+    cont = torch.repeat_interleave(dist - 2.0 * model.margin, 4, dim=1)
+    return torch.cat([lim, cont], 1).T
+
+
+def ant_coincidence_rows(model) -> np.ndarray:
+    """``[ne]`` bool: the rows of each capsule's second and third
+    capsule-box slot, which hold a contact only where the segment's first
+    and last minimizing parameters differ by more than 1e-6 (the second)
+    or do not (the third).  At f32 that test can fall either way for one
+    pose: a kernel and its twin, which round differently, may then
+    disagree on these rows' active flags."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+    from gym_po_tpu_torch.physics import contact
+
+    n_slots = len(contact._wall_slots(model.walls))
+    kind = [(c - af.NFLOOR) % af.NSLOT_CAND
+            for c in range(af.NFLOOR + af.NSLOT_CAND * n_slots)]
+    cand = [c >= af.NFLOOR and k > 0 and (k - 1) % 3 > 0 for c, k in enumerate(kind)]
+    return np.concatenate([np.zeros(af.NJ, bool), np.repeat(cand, 4)])
+
+
+def ant_scalar_check(dev) -> None:
+    """Each ant kernel against its plain twin on the card at f64 on the
+    same inputs (contact states of each arena, ``ant_contact_states``; 10
+    bisections; the launches not counted): ``ant_smooth`` on (qpos,
+    qvel, ctrl), ``ant_rows`` on the kernel's kinematics, ``ant_newton``
+    on the kernel's M, qacc_smooth and rows, from the warm start.  M,
+    qacc_smooth, the kinematics, the rows densified through the support
+    table (against the twin's whole Jacobian), aref, r, qacc and warm
+    within ANT_KERNEL_TOL, the active flags equal: on ANT_ENGINE_STATES
+    states after the envs' 8 Newton iterations, and on B_ANT states after
+    ANT_NEWTON_CONVERGED (the 8th iterate's error at B_ANT printed beside
+    the twin's own, on the card against on the CPU).
+    Then at f32 one physics stage (RK4, frame_skip 3):
+    "scalar" against "array" from the stage check's states of the env in
+    motion (``ant_env_states``) within ANT_PHYSICS_TOL; and on
+    ANT_ENGINE_STATES random contact states each pipeline's f32 qpos
+    against the f64 step, the kernels' distance within ANT_DRIFT_FACTOR
+    of the batched engine's."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+    from gym_po_tpu_torch.physics.engine import PhysicsState, step
+
+    lines = []
+    for env_id, model in _ant_models().items():
+        f64 = []
+        for n, iters in ((ANT_ENGINE_STATES, 8), (B_ANT, ANT_NEWTON_CONVERGED)):
+            q, v, c, w = (torch.as_tensor(x, device=dev)
+                          for x in ant_contact_states(n, 7, walls=True))
+            with uncounted():
+                sm = af.ant_smooth(model, q, v, c)
+                rows = af.ant_rows(model, sm.skin, q, v)
+                got = {k: af.ant_newton(model, sm, rows, w, iters=k, ls_iters=10)
+                       for k in {8, iters}}
+            tw = af.smooth_twin(model, q, v, c)
+            rt = af.rows_twin(model, sm.skin, q, v)
+            full = af._contact.constraint_rows(
+                model, af._skin_kinematics(model, sm.skin), q, v)
+            want = {k: af.newton_twin(model, sm, rows, w, iters=k, ls_iters=10)
+                    for k in got}
+            errs = {"ant_smooth": [_rel_abs(g, t) for g, t in zip(sm, tw)],
+                    "ant_rows": [_rel_abs(af.dense_rows(model, rows).jac, full.jac),
+                                 _rel_abs(rows.aref, rt.aref),
+                                 _rel_abs(rows.r, rt.r)],
+                    "ant_newton": [_rel_abs(g, t)
+                                   for g, t in zip(got[iters], want[iters])]}
+            for k, e in errs.items():
+                r_max = max(x[0] for x in e)
+                if not r_max <= ANT_KERNEL_TOL:
+                    raise AssertionError(f"{k} vs twin, {env_id} f64, {n} "
+                                         f"states: {r_max:.3e}")
+            if not torch.equal(rows.active, rt.active):
+                raise AssertionError(f"ant_rows vs twin, {env_id} f64: "
+                                     f"{int((rows.active != rt.active).sum())} "
+                                     "active flags differ")
+            line = (f"{n} states ({rt.active.sum().item() / n:.2f} active rows "
+                    "a state) " + ", ".join(
+                        f"{k} {max(x[0] for x in e):.3e}" for k, e in errs.items())
+                    + f" ({iters} iterations)")
+            if iters != 8:
+                on_cpu = af.newton_twin(model, af.Smooth(*(x.cpu() for x in sm)),
+                                        af.Rows(*(x.cpu() for x in rows)),
+                                        w.cpu(), iters=8, ls_iters=10)
+                spread = max(_rel_abs(t.cpu(), u)[0] for t, u in zip(want[8], on_cpu))
+                per_env = torch.stack([((g - t).abs() / t.abs().clamp_min(1.0)).amax(1)
+                                       for g, t in zip(got[8], want[8])]).amax(0)
+                line += (f", at 8 iterations ant_newton {per_env.max().item():.3e} "
+                         f"({int((per_env > ANT_KERNEL_TOL).sum())} states beyond "
+                         f"{ANT_KERNEL_TOL:g}), the twin on the card vs on the "
+                         f"CPU {spread:.3e}")
+            f64.append(line)
+        f64 = f"{env_id} f64: " + "; ".join(f64)
+        # f32: scalar vs array on the env in motion
+        st, act = ant_env_states(dev, env_id)
+        out = {p: step(model, PhysicsState(st.qpos, st.qvel, st.warm), act,
+                       frame_skip=ANT_STAGES_FRAME_SKIP, iters=8, pipeline=p)
+               for p in ("scalar", "array")}
+        stage = {}
+        for k, (name, lim) in enumerate(ANT_PHYSICS_TOL.items()):
+            g, t = out["scalar"][k], out["array"][k]
+            stage[name] = ((g - t).abs() / (t.abs().clamp_min(1.0)
+                                            if name == "warm" else 1.0)).max().item()
+            if not (torch.isfinite(g).all() and stage[name] <= lim):
+                raise AssertionError(f"{env_id} f32 physics stage, scalar vs "
+                                     f"array: {name} {stage[name]:.3e} > {lim}")
+        # f32 against f64 on random contact states, either pipeline
+        q, v, c, w = (torch.as_tensor(x, device=dev) for x in
+                      ant_contact_states(ANT_ENGINE_STATES, 7, walls=True))
+
+        def stage_qpos(dtype, p):
+            return step(model, PhysicsState(q.to(dtype), v.to(dtype), w.to(dtype)),
+                        c.to(dtype), frame_skip=ANT_STAGES_FRAME_SKIP, iters=8,
+                        pipeline=p).qpos.double()
+
+        ref = stage_qpos(torch.float64, "array")
+        drift = {p: (stage_qpos(torch.float32, p) - ref).abs().max().item()
+                 for p in ("scalar", "array")}
+        lim = ANT_DRIFT_FACTOR * max(drift["array"], ANT_PHYSICS_TOL["qpos"])
+        if not drift["scalar"] <= lim:
+            raise AssertionError(f"{env_id}: the kernels' f32 qpos lies "
+                                 f"{drift['scalar']:.3e} from f64, the batched "
+                                 f"engine's {drift['array']:.3e} (limit {lim:.3e})")
+        lines.append(f"{f64}; f32 physics stage rk4 frame_skip 3, scalar vs "
+                     "array on the env in motion " + ", ".join(
+                         f"{k} {x:.3e}" for k, x in stage.items())
+                     + f"; f32 vs f64 qpos on {ANT_ENGINE_STATES} random contact "
+                     f"states: scalar {drift['scalar']:.3e}, array "
+                     f"{drift['array']:.3e} (limit {lim:.3e})")
+    say("ant-kernels", f"each kernel vs its twin on the card at f64 on "
+        f"contact states, relative to max(1, |x|) (limit {ANT_KERNEL_TOL:g}); "
+        f"f32 gates {ANT_PHYSICS_TOL}, drift factor {ANT_DRIFT_FACTOR:g}: "
+        + "; ".join(lines))
+
+
+def ant_f32_errs(model, dev, q, v, c, w, sm, rows, got) -> tuple:
+    """The f32 kernels' outputs ``sm``, ``rows``, ``got`` (qacc, warm)
+    against their twins' on the same inputs: ``({kernel: (largest error
+    relative to max(1, |x|), largest absolute error)}, flags that
+    differ)``.  Raises where a flag differs off the slack or a kernel
+    exceeds ANT_F32_TOL (rows whose flags differ left out)."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    p = af._plan(model, torch.float32, dev)
+    tw = af.smooth_twin(model, q, v, c)
+    rt = af.rows_twin(model, sm.skin, q, v)
+    want = af.newton_twin(model, sm, rows, w, iters=8, ls_iters=10)
+    differ = rows.active != rt.active
+    coincide = torch.as_tensor(ant_coincidence_rows(model), device=dev)[:, None]
+    far = (differ & ~coincide
+           & (ant_row_margin(model, sm.skin, q).abs() > ANT_ACTIVE_SLACK))
+    if far.any():
+        raise AssertionError(f"ant_rows vs twin, f32: {int(far.sum())} active "
+                             f"flags differ farther than {ANT_ACTIVE_SLACK} from "
+                             "a threshold, off the coincidence slots")
+
+    def kept(g, t, same):
+        return _rel_abs(torch.where(same, g, t), t)
+
+    parts = {"ant_smooth": [_rel_abs(g, t) for g, t in zip(sm, tw)],
+             "ant_rows": [kept(rows.vals, rt.vals, ~differ[p.row]),
+                          kept(rows.aref, rt.aref, ~differ),
+                          kept(rows.r, rt.r, ~differ)],
+             "ant_newton": [_rel_abs(g, t) for g, t in zip(got, want)]}
+    errs = {k: (max(x[0] for x in e), max(x[1] for x in e))
+            for k, e in parts.items()}
+    for k, (rel, _) in errs.items():
+        if not rel <= ANT_F32_TOL[k]:
+            raise AssertionError(f"{k} vs twin, f32 B={q.shape[0]}: {rel:.3e} "
+                                 f"> {ANT_F32_TOL[k]}")
+    return errs, int(differ.sum())
+
+
+def ant_kernel_bounds(model, p, rows, iters: int, ls_iters: int) -> dict:
+    """Each ant kernel's bound at f32 on this batch (``p`` the kernels'
+    plan, ``rows`` the batch's rows): bytes, each input read once and
+    each output written once (the solve reads the active flags of every
+    row and the support values, aref and R of the active rows only; ``p``
+    the kernels' plan of ``model``), and
+    a lower bound of f32 arithmetic instructions (an FMA one): smooth, 7
+    a mass-matrix dof pair, the factor's NV^3/6 and the solve's NV^2;
+    rows, 40 a candidate, one a support entry and 2 x 10 bisection steps
+    of 9 a capsule and wall slot; Newton, each iteration the mass matrix
+    products, the factor and solve, 2 a support entry of an active row
+    and 3 an active row a bisection step."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    NV, B = af.NV, rows.active.shape[1]
+    dof_mask = np.asarray(model.dof_mask)
+    pairs = int(sum(n * (n + 1) // 2 for n in dof_mask.sum(1).astype(int)))
+    nc = (p.ne - 8) // 4
+    row_ptr = p.tables[:p.ne + 1].long()
+    size = (row_ptr[1:] - row_ptr[:-1]).to(rows.active.dtype)
+    active = rows.active.sum().item()
+    active_entries = (size[:, None] * rows.active).sum().item()
+    m_sup = int(sum(bin(int(x)).count("1") for x in
+                    p.tables[p.ne + 1 + p.nnz:].tolist()))
+    work = {
+        "ant_smooth": (4 * B * (af.NQ + NV + af.NU + NV * NV + NV + af.SKIN),
+                       B * (7 * pairs + NV ** 3 // 6 + NV * NV)),
+        "ant_rows": (4 * B * (af.SKIN + af.NQ + NV + p.nnz + 3 * p.ne),
+                     B * (40 * nc + p.nnz + 180 * af.NCAP * p.n_slots)),
+        "ant_newton": (4 * (B * (NV * NV + NV + NV + p.ne + 2 * NV)
+                            + active_entries + 2 * active),
+                       iters * (B * (2 * m_sup + NV ** 3 // 6 + NV * NV)
+                                + 2 * active_entries + 3 * ls_iters * active)),
+    }
+    return {k: bound(nbytes, {"fp32": ops, "issue": ops})
+            for k, (nbytes, ops) in work.items()}
+
+
+def ant_kernel_times(dev, card) -> tuple:
+    """Each ant kernel and its twin at the main path's shapes: B = 4,096
+    f32, 8 iterations and 10 bisections, on contact states of each arena
+    (``ant_contact_states``; CUDA events, the kernel's median of 3 windows
+    of 20 launches into the same buffers, the twin's of 3 windows of 2;
+    not counted); the timed launches' outputs held against the twins' on
+    the same inputs (``ant_f32_errs``).  Returns the tag arena's {kernel:
+    (ms, plain ms, bound)} and {kernel: (relative, absolute error)}, the
+    record's."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    out, out_errs, lines = {}, {}, []
+    for env_id, model in _ant_models().items():
+        q, v, c, w = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                      for x in ant_contact_states(B_ANT, 21, walls=True))
+        p = af._plan(model, torch.float32, dev)
+        with uncounted():
+            sm = af.ant_smooth(model, q, v, c)
+            rows = af.ant_rows(model, sm.skin, q, v)
+            scratch = p.batch(B_ANT)[2]
+            ms = {"ant_smooth": event_windows(
+                      lambda i: af.ant_smooth(model, q, v, c, out=sm), 3, 20),
+                  "ant_rows": event_windows(
+                      lambda i: af.ant_rows(model, sm.skin, q, v, out=rows), 3, 20),
+                  "ant_newton": event_windows(
+                      lambda i: af.ant_newton(model, sm, rows, w, 8, 10, scratch),
+                      3, 20)}
+            got = af.ant_newton(model, sm, rows, w, 8, 10, scratch)
+        errs, n_differ = ant_f32_errs(model, dev, q, v, c, w, sm, rows, got)
+        plain = {"ant_smooth": event_windows(
+                     lambda i: af.smooth_twin(model, q, v, c), 3, 2),
+                 "ant_rows": event_windows(
+                     lambda i: af.rows_twin(model, sm.skin, q, v), 3, 2),
+                 "ant_newton": event_windows(
+                     lambda i: af.newton_twin(model, sm, rows, w, 8, 10), 3, 2)}
+        bounds = ant_kernel_bounds(model, p, rows, 8, 10)
+        held = sum(t.numel() * t.element_size()
+                   for part in p.batch(B_ANT) for t in part)
+        lines.append(f"{env_id} ({p.ne} rows, {p.nnz} support entries, "
+                     f"{rows.active.sum().item() / B_ANT:.2f} active a state, "
+                     f"buffers {held / 2**20:.1f} MiB): "
+                     + ", ".join(f"{k} {ms[k]:.4f} ms (twin {plain[k]:.3f}, "
+                                 f"bound {bounds[k][0]:.4f} by {bounds[k][1]}; "
+                                 f"vs twin {errs[k][0]:.3e} relative, "
+                                 f"{errs[k][1]:.3e} absolute)"
+                                 for k in ANT_KERNELS)
+                     + f"; {n_differ} active flags differ, within "
+                     f"{ANT_ACTIVE_SLACK:g} of a threshold or on the "
+                     "coincidence slots")
+        if env_id == ANT_IDS[0]:
+            out = {k: (ms[k], plain[k], bounds[k]) for k in ANT_KERNELS}
+            out_errs = errs
+    say("ant-kernel-times", f"B={B_ANT} f32 on {card}, CUDA events; the "
+        f"timed outputs vs the twins' relative to max(1, |x|) (limits "
+        f"{ANT_F32_TOL}): " + "; ".join(lines))
+    return out, out_errs
+
+
+def ant_path(dev, card, record: bool = False) -> tuple:
     """Path 9: the articulated ant (engine and both task envs, PPO on the
-    ant, the renderer of a card state, the batch scan).  No kernel: the
-    engine is batched PyTorch, the renderer host NumPy."""
+    ant, the renderer of a card state, the batch scan).  The kernels'
+    checks and times first; then, counted, the envs' rates and PPO with
+    their default ``pipeline="scalar"`` (the three ant kernels); then one
+    Euler run of the tag env with ``"array"`` (the batched engine, the
+    dryrun's pipeline), the renderer and the batch scan.  ``record`` adds
+    the rest of ``"array"``'s rates and PPO updates and the 14x14 solve's
+    routes (PERF.md's record of the batched engine).  Returns the counted
+    launches and each kernel's errors and times at the timed shape."""
     import importlib.util
+
+    from gym_po_tpu_torch.ops._build import LAUNCHES
 
     t_path = time.perf_counter()
     found = {m: importlib.util.find_spec(m) is not None
              for m in ("triton", "mujoco", "gymnasium", "pygame")}
     say("modules", "this machine has " + ", ".join(
         f"{m} {'yes' if v else 'no'}" for m, v in found.items()))
-    phases = [("engine", lambda: ant_engine_check(dev))]
-    phases += [(f"stages {e}", lambda e=e: ant_stage_check(dev, e)) for e in ANT_IDS]
-    phases += [(f"{e} {i}", lambda e=e, i=i: ant_run(dev, card, e, i))
-               for e in ANT_IDS for i in ("rk4", "euler")]
-    phases += [("cholesky", lambda: ant_cholesky_routes(dev, card))]
-    phases += [(f"render {e}", lambda e=e: ant_render_check(dev, card, e))
-               for e in ANT_IDS]
-    phases += [("batch scan", lambda: ant_batch_scan(dev, card))]
-    phases += [(f"ppo {i}", lambda i=i, T=T: ant_ppo(dev, card, i, T))
-               for i, T in ANT_PPO]
-    spent = []
-    for name, fn in phases:
-        t0 = time.perf_counter()
-        fn()
-        spent.append(f"{name} {time.perf_counter() - t0:.1f}")
+    errs, times, spent = {}, {}, []
+
+    def run(phases):
+        for name, fn in phases:
+            t0 = time.perf_counter()
+            fn()
+            spent.append(f"{name} {time.perf_counter() - t0:.1f}")
+
+    def kernel_times():
+        t, e = ant_kernel_times(dev, card)
+        times.update(t)
+        errs.update(e)
+
+    with uncounted():
+        run([("kernels", lambda: ant_scalar_check(dev)),
+             ("kernel times", kernel_times),
+             ("engine", lambda: ant_engine_check(dev))]
+            + [(f"stages {e}", lambda e=e: ant_stage_check(dev, e)) for e in ANT_IDS])
+    LAUNCHES.clear()
+    run([(f"{e} {i}", lambda e=e, i=i: ant_run(dev, card, e, i))
+         for e in ANT_IDS for i in ("rk4", "euler")]
+        + [(f"ppo {i}", lambda i=i, T=T: ant_ppo(dev, card, i, T))
+           for i, T in ANT_PPO])
+    counted = LAUNCHES.copy()
+    array = [(e, i) for e in ANT_IDS for i in ("rk4", "euler")
+             if record or (e, i) == (ANT_IDS[0], "euler")]
+    run([(f"{e} {i} array", lambda e=e, i=i: ant_run(dev, card, e, i, "array"))
+         for e, i in array]
+        + ([(f"ppo {i} array", lambda i=i, T=T: ant_ppo(dev, card, i, T, "array"))
+            for i, T in ANT_PPO]
+           + [("cholesky", lambda: ant_cholesky_routes(dev, card))]
+           if record else [])
+        + [(f"render {e}", lambda e=e: ant_render_check(dev, card, e))
+           for e in ANT_IDS]
+        + [("batch scan", lambda: ant_batch_scan(dev, card))])
     say("ant", f"path 9 took {time.perf_counter() - t_path:.2f} s ("
         + ", ".join(spent) + " s)")
+    return counted, errs, times
 
 
 def block_ops(full: float, part: float = 0) -> dict:
@@ -3755,7 +4133,7 @@ def main() -> int:
 
     sources = ("fused_taxi", "fused_qlearning", "fused_rooms", "fused_ac",
                "fused_msrooms", "fused_rocksample", "fused_crooms",
-               "fused_q_crooms", "fused_tag")
+               "fused_q_crooms", "fused_tag", "ant_forward")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_library, sources))  # one nvcc each, together
@@ -3973,15 +4351,16 @@ def main() -> int:
         if path8[key] <= 0:
             raise AssertionError(f"path 8 did not go through {key}")
         launches[key] += path8[key]
-    # path 9, the articulated ant: no kernel (the engine is batched PyTorch)
-    LAUNCHES.clear()
-    ant_path(dev, card)
-    if any(LAUNCHES.values()):
-        raise AssertionError(f"path 9 launched kernels: {dict(LAUNCHES)}")
+    # path 9, the articulated ant: the envs' default "scalar" forward runs
+    # the three ant kernels (counted inside ant_path: its checks first)
+    path9, ant_errs, ant_times = ant_path(dev, card)
+    if {k for k, v in path9.items() if v} != set(ANT_KERNELS):
+        raise AssertionError(f"path 9 launched {dict(path9)}, not the three "
+                             "ant kernels")
+    launches.update({k: path9[k] for k in ANT_KERNELS})
     say("launches", "on the main paths: " + ", ".join(
         f"{k} {v}" for k, v in launches.items())
-        + "; paths 6 (PPO), 7 (recurrent PPO) and 9 (the ant) none: they "
-        "reach no kernel; "
+        + "; paths 6 (PPO) and 7 (recurrent PPO) none: they reach no kernel; "
         f"path 8's share: fused_qlearning {path8['fused_qlearning']}, "
         f"fused_ac {path8['fused_ac']}")
 
@@ -4125,6 +4504,21 @@ def main() -> int:
             "plain_ms": plain_ms[key],
             "bound_ms": b_rooms[key][0],
             "bound_by": b_rooms[key][1],
+            "library_ms": None,
+        })
+    for key in ANT_KERNELS:
+        ms, plain, b = ant_times[key]
+        record.append({
+            "name": key,
+            "route": "cuda",
+            "source": "gym_po_tpu_torch/csrc/ant_forward.cu",
+            "replaces": ANT_KERNEL_REPLACES[key],
+            "launches": launches[key],
+            "max_abs_err": ant_errs[key][1],
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": b[0],
+            "bound_by": b[1],
             "library_ms": None,
         })
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")

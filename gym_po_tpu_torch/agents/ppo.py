@@ -45,6 +45,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops._build import count_replay, take_captured
 from ..utils.numerics import sqrt_rn
 from .networks import (
     ActorCritic,
@@ -376,7 +377,9 @@ class CollectGraph:
     from that state would.  The generator is registered with the graph:
     each replay draws fresh numbers from its current state and advances
     it, as an eager call does.  The graph reads the model's weights where
-    they lie, so they must be updated in place.
+    they lie, so they must be updated in place.  Kernel launches count
+    where they run: the warm-up's at once, the capture's at each replay
+    (``launches``, :func:`~gym_po_tpu_torch.ops._build.take_captured`).
     """
 
     def __init__(self, env, model, config, obs: torch.Tensor, state,
@@ -404,12 +407,14 @@ class CollectGraph:
         gc.collect()
         gc_on = gc.isenabled()
         gc.disable()
+        take_captured()
         try:
             with torch.cuda.graph(self.graph):
                 self.out = run()
         finally:
             if gc_on:
                 gc.enable()
+        self.launches = take_captured()
         generator.set_state(saved)
 
     def __call__(self, obs: torch.Tensor, state, generator: torch.Generator,
@@ -425,6 +430,7 @@ class CollectGraph:
         for dst, src in zip(self.inputs, (obs, state, *carry)):
             _copy_into(dst, src)
         self.graph.replay()
+        count_replay(self.launches)
         return self.out
 
 

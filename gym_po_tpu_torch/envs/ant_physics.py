@@ -27,8 +27,11 @@ explicit ``torch.Generator`` and never waits on the host.  ``info`` holds
 
 Physics knobs, as in the JAX package: ``solver_iters`` (Newton iterations
 per integrator stage), ``ls_iters`` (line-search bisections), ``integrator``
-(``"rk4"``, the reference's, or ``"euler"``), ``pipeline`` (both names run
-the same batched engine).  The state is float32 and the engine follows it.
+(``"rk4"``, the reference's, or ``"euler"``), ``pipeline`` (``"scalar"``,
+the default: on the card the per-env CUDA kernels of
+:mod:`gym_po_tpu_torch.ops.ant_forward`, on the CPU the batched engine;
+``"array"``: the batched engine on either).  The state is float32 and the
+engine follows it.
 """
 
 from __future__ import annotations

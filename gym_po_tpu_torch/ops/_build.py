@@ -21,8 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "count_launch", "LAUNCHES", "BUILD_DIR",
-           "CSRC"]
+__all__ = ["load_library", "build_log", "count_launch", "take_captured",
+           "count_replay", "LAUNCHES", "BUILD_DIR", "CSRC"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -39,11 +39,41 @@ NVCC_FLAGS = (
 LAUNCHES: collections.Counter = collections.Counter()
 
 
+# A launch made under CUDA-graph capture is recorded into the graph, not
+# run: it is set aside here, and counted where the graph replays it.
+_CAPTURED: collections.Counter = collections.Counter()
+
+
 def count_launch(run, name: str) -> None:
     """Record one launch of kernel ``name`` by wrapper ``run``: its own
-    ``run.launches`` and the process-wide :data:`LAUNCHES`."""
+    ``run.launches`` and the process-wide :data:`LAUNCHES`.  Under
+    CUDA-graph capture the launch is set aside for :func:`take_captured`
+    instead."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        _CAPTURED[run, name] += 1
+        return
     run.launches += 1
     LAUNCHES[name] += 1
+
+
+def take_captured() -> collections.Counter:
+    """The launches set aside under capture since the last call, by
+    (wrapper, kernel name); clears them.  Call it before a capture and
+    after it, and pass the second result to :func:`count_replay` at each
+    replay of the graph."""
+    taken = _CAPTURED.copy()
+    _CAPTURED.clear()
+    return taken
+
+
+def count_replay(captured: collections.Counter) -> None:
+    """Count the launches of one replay of a graph that recorded
+    ``captured`` (:func:`take_captured`)."""
+    for (run, name), n in captured.items():
+        run.launches += n
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -14,9 +14,11 @@ pipeline), as batched tensor code over a leading env axis:
   rows, the primal Newton and APGD solvers
 * :mod:`.engine` — forward dynamics, RK4 on the qpos manifold, Euler
 
-It ports the JAX package's array pipeline; the JAX package's scalar
-pipeline and trace-time-unrolled Cholesky, which exist to make XLA emit
-straight-line TPU vector code, are not carried over.
+These modules port the JAX package's array pipeline.  Its default scalar
+pipeline (per-env straight-line code, which XLA turns into TPU vector
+code) is ported as hand-written CUDA kernels, one env per thread
+(:mod:`gym_po_tpu_torch.ops.ant_forward`), which :func:`.engine.forward`
+runs for ``pipeline="scalar"`` on a CUDA tensor.
 """
 
 from .ant_model import AntModel, HEAVEN_HELL_WALLS, TAG_WALLS, make_ant_model

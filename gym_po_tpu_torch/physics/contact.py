@@ -360,8 +360,8 @@ def candidates(model: AntModel, kin: Kinematics):
     the 25 floor spheres (torso, then both ends of each capsule), then per
     wall slot the torso sphere and the capsules' three slots each
     (capsule-major)."""
-    t = model_tensors(model, kin.com.dtype, kin.com.device)
-    B, ncap, S = kin.com.shape[0], t.ncap, t.n_slots
+    t = model_tensors(model, kin.xpos.dtype, kin.xpos.device)
+    B, ncap, S = kin.xpos.shape[0], t.ncap, t.n_slots
     xmat_g = kin.xmat[:, t.geom_body]
     centers = kin.xpos[:, t.geom_body] + (xmat_g * t.geom_pos[:, None, :]).sum(-1)
     axis_w = (xmat_g * t.geom_axis[:, None, :]).sum(-1)

@@ -16,9 +16,15 @@ Mirrors MuJoCo's pipeline (``mj_forward`` → ``mj_RungeKutta``):
   the warm start carried across them.
 
 Every function takes a batch ``[..., nq]`` and follows ``qpos``'s dtype
-and device.  The JAX package's ``pipeline=`` (``"scalar"``, its TPU path,
-or ``"array"``) is accepted and both names run the same batched code;
-``unroll=`` (a ``lax.scan`` knob there) is accepted and has no effect.
+and device.  ``pipeline=`` names the JAX package's two forms.
+``"scalar"`` (the default, as there) on a CUDA tensor runs the three
+hand-written kernels of :mod:`gym_po_tpu_torch.ops.ant_forward`, one env
+per thread (``ant_smooth`` → ``ant_rows`` → ``ant_newton``); a failed build
+or launch raises.  On a CPU tensor ``"scalar"``, and ``"array"`` on any
+device, run the batched tensor code of :mod:`.dynamics` and
+:mod:`.contact` (the JAX package's array pipeline), the kernels' plain
+twin.  ``unroll=`` (a ``lax.scan`` knob there) is accepted and has no
+effect.
 """
 
 from __future__ import annotations
@@ -74,11 +80,20 @@ def forward(model: AntModel, qpos, qvel, ctrl, warm=None, iters: int = 10,
     ``warm`` is the previous constraint correction ``qacc - qacc_smooth``;
     Newton starts from ``qacc_smooth + warm`` (no warm start = the
     unconstrained solution).  ``ls_iters`` = bisections per line search.
+    ``pipeline="scalar"`` on a CUDA tensor runs the per-env kernels.
     """
     _check_pipeline(pipeline)
     lead = qpos.shape[:-1]
     qpos, qvel = qpos.reshape(-1, model.nq), qvel.reshape(-1, model.nv)
     ctrl = ctrl.to(qpos.dtype).reshape(-1, ctrl.shape[-1]).expand(qpos.shape[0], -1)
+    if pipeline == "scalar" and qpos.device.type == "cuda":
+        from ..ops import ant_forward  # here: ops imports the envs, which import this
+
+        qacc, w = ant_forward.forward(
+            model, qpos.contiguous(), qvel.contiguous(), ctrl.contiguous(),
+            None if warm is None else warm.reshape(-1, model.nv).contiguous(),
+            iters, ls_iters)
+        return qacc.reshape(lead + (model.nv,)), w.reshape(lead + (model.nv,))
     kin, M, qacc_smooth, _ = smooth_forward(model, qpos, qvel, ctrl)
     rows = constraint_rows(model, kin, qpos, qvel)
     q0 = qacc_smooth if warm is None else qacc_smooth + warm.reshape(-1, model.nv)

@@ -1546,23 +1546,27 @@ def _ant_states(n, seed):
 
 
 def test_ant_engine_on_card_equals_cpu(cuda):
-    """The kernel-free engine on the card against itself on the CPU at f64:
-    a forward and an RK4 step (frame_skip 2, 15 iterations), relative to
-    max(1, |x|) within 1e-9."""
+    """The engine on the card against the CPU's at f64, with either
+    pipeline on the card (``"scalar"``: the per-env kernels; ``"array"``:
+    the batched engine): a forward and an RK4 step (frame_skip 2, 15
+    iterations), relative to max(1, |x|) within 1e-9."""
     from gym_po_tpu_torch.physics import TAG_WALLS, make_ant_model
     from gym_po_tpu_torch.physics.engine import PhysicsState, forward, step
 
     model = make_ant_model(TAG_WALLS)
     arrays = _ant_states(32, 0)
-    for fn in (lambda q, v, c, w: forward(model, q, v, c, w, iters=15),
-               lambda q, v, c, w: tuple(step(model, PhysicsState(q, v, w), c,
-                                             frame_skip=2, iters=15))):
-        got = fn(*(torch.as_tensor(x, device=cuda) for x in arrays))
-        want = fn(*(torch.as_tensor(x) for x in arrays))
-        for g, w in zip(got, want):
-            assert g.dtype == torch.float64
-            err = ((g.cpu() - w).abs() / w.abs().clamp_min(1.0)).max()
-            assert err <= 1e-9
+    for pipeline in ("scalar", "array"):
+        for fn in (lambda q, v, c, w: forward(model, q, v, c, w, iters=15,
+                                              pipeline=pipeline),
+                   lambda q, v, c, w: tuple(step(
+                       model, PhysicsState(q, v, w), c, frame_skip=2, iters=15,
+                       pipeline=pipeline))):
+            got = fn(*(torch.as_tensor(x, device=cuda) for x in arrays))
+            want = fn(*(torch.as_tensor(x) for x in arrays))
+            for g, w in zip(got, want):
+                assert g.dtype == torch.float64
+                err = ((g.cpu() - w).abs() / w.abs().clamp_min(1.0)).max()
+                assert err <= 1e-9
 
 
 @pytest.mark.parametrize("env_id", ANT_IDS)
@@ -1584,16 +1588,24 @@ def test_ant_step_vec_waits_on_no_host_sync(cuda, env_id):
 @pytest.mark.parametrize("integrator", ["rk4", "euler"])
 def test_ant_ppo_collect_graph_replay_equals_eager(cuda, integrator):
     """The ant's env step captured in PPO's collect graph replays the eager
-    collect bit for bit."""
+    collect bit for bit, and a replay counts the kernel launches it makes
+    (the capture counts none)."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
     ppo, env, cfg, model, ts = _ppo(cuda, "AntTagPhysics-v0",
                                     {"frame_skip": 2, "integrator": integrator,
                                      "time_limit": 3}, B=64, T=4)
     step = ppo.make_train_step(env, model, cfg)
     ts, _ = step(ts)
     start = ts.generator.get_state()
+    n0 = af.ant_newton.launches
     eager = ppo.collect(env, model, cfg, ts.env_obs, ts.env_state,
                         _generator_at(start, cuda))
+    n_eager = af.ant_newton.launches - n0
+    assert n_eager == 4 * 2 * (4 if integrator == "rk4" else 1)
+    assert step.graph.launches[af.ant_newton, "ant_newton"] == n_eager
     replay = step.graph(ts.env_obs, ts.env_state, ts.generator)
+    assert af.ant_newton.launches - n0 == 2 * n_eager
     _assert_collect_equal(replay, eager)
     ts.generator.set_state(start)
     ts, metrics = step(ts)
@@ -1625,3 +1637,139 @@ def test_ant_render_of_a_card_state_equals_its_cpu_copy(cuda, env_id):
         p, m = _np_fk(env.model, q[k].cpu().numpy())
         np.testing.assert_allclose(xpos[k].cpu().numpy(), p, rtol=0, atol=1e-12)
         np.testing.assert_allclose(xmat[k].cpu().numpy(), m, rtol=0, atol=1e-12)
+
+
+# ------------------------------------------- the ant's scalar forward kernels
+def _rel(a, b):
+    return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+
+
+def _ant_kernel_inputs(cuda, walls, dtype, n=64, seed=0):
+    from gym_po_tpu_torch.physics import HEAVEN_HELL_WALLS, TAG_WALLS, make_ant_model
+
+    model = make_ant_model(TAG_WALLS if walls == "tag" else HEAVEN_HELL_WALLS)
+    arrays = _ant_states(n, seed)
+    return model, [torch.as_tensor(x, dtype=dtype, device=cuda) for x in arrays]
+
+
+@pytest.mark.parametrize("walls", ["tag", "hh"])
+def test_ant_kernels_equal_twins_f64(cuda, walls):
+    """Each of ant_smooth, ant_rows and ant_newton against its plain twin
+    on the same inputs at f64, relative to max(1, |x|) within 1e-9: M,
+    qacc_smooth and the kinematics; the rows densified through the support
+    table (every entry off it zero in the twin) and aref, r, the active
+    flags exactly; qacc and the warm start out of 8 iterations."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    model, (qpos, qvel, ctrl, warm) = _ant_kernel_inputs(cuda, walls,
+                                                         torch.float64)
+    n0 = (af.ant_smooth.launches, af.ant_rows.launches, af.ant_newton.launches)
+    sm = af.ant_smooth(model, qpos, qvel, ctrl)
+    tw = af.smooth_twin(model, qpos, qvel, ctrl)
+    for g, w in zip(sm, tw):
+        assert _rel(g, w) <= 1e-9
+    rows = af.ant_rows(model, sm.skin, qpos, qvel)
+    rt = af.rows_twin(model, sm.skin, qpos, qvel)
+    full = af._contact.constraint_rows(model, af._skin_kinematics(model, sm.skin),
+                                       qpos, qvel)
+    assert _rel(af.dense_rows(model, rows).jac, full.jac) <= 1e-9
+    for name in ("aref", "r"):
+        assert _rel(getattr(rows, name), getattr(rt, name)) <= 1e-9, name
+    assert torch.equal(rows.active, rt.active)
+    assert rows.active[8:].sum() > 0
+    got = af.ant_newton(model, sm, rows, warm, iters=8)
+    want = af.newton_twin(model, sm, rows, warm, iters=8)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-9
+    assert (af.ant_smooth.launches, af.ant_rows.launches,
+            af.ant_newton.launches) == tuple(x + 1 for x in n0)
+
+
+@pytest.mark.parametrize("walls", ["tag", "hh"])
+def test_ant_kernels_equal_twins_f32(cuda, walls):
+    """At f32: the kernels' rows against the twin's on the same kinematics,
+    the active flags equal except on rows whose candidate lies within 1e-5
+    of its threshold and on the capsule-box slots whose validity is a
+    coincidence test of two f32 parameters
+    (``chip_smoke.ant_coincidence_rows``); the physics stage of a step (RK4, frame_skip 3, 8 iterations) with
+    "scalar" against "array" from one state of the env in motion: qpos
+    and qvel within 1e-4, the warm start within 2e-3 relative to
+    max(1, |x|)."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+    from gym_po_tpu_torch.physics.engine import PhysicsState, step
+
+    model, (qpos, qvel, ctrl, warm) = _ant_kernel_inputs(cuda, walls,
+                                                         torch.float32)
+    sm = af.ant_smooth(model, qpos, qvel, ctrl)
+    rows = af.ant_rows(model, sm.skin, qpos, qvel)
+    rt = af.rows_twin(model, sm.skin, qpos, qvel)
+    differ = rows.active != rt.active
+    from chip_smoke import ant_coincidence_rows, ant_row_margin
+
+    coincide = torch.as_tensor(ant_coincidence_rows(model), device=cuda)[:, None]
+    margin = ant_row_margin(model, sm.skin, qpos).abs()
+    assert not (differ & ~coincide & (margin > 1e-5)).any()
+    # the step gates hold on states of the env in motion (on the random
+    # contact states above f32 strays from f64 by 1e-2 m either way)
+    env = gpt_torch.make(ANT_IDS[walls == "hh"], frame_skip=3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    _, st = env.reset_vec(gen, 64)
+    act = torch.rand(64, 8, generator=gen, device=cuda) * 2 - 1
+    for _ in range(2):
+        _, st, *_ = env.step_vec(gen, st, act)
+    out = {p: step(env.model, PhysicsState(st.qpos, st.qvel, st.warm), act,
+                   frame_skip=3, iters=8, pipeline=p) for p in ("scalar", "array")}
+    for k, lim in zip(range(3), (1e-4, 1e-4, 2e-3)):
+        g, w = out["scalar"][k], out["array"][k]
+        err = (g - w).abs() if k < 2 else (g - w).abs() / w.abs().clamp_min(1.0)
+        assert torch.isfinite(g).all() and err.max().item() <= lim
+
+
+def test_ant_scalar_forward_runs_no_array_code(cuda, monkeypatch):
+    """On a CUDA tensor pipeline="scalar" launches the three kernels once a
+    forward and never the batched engine; "array" launches none."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+    from gym_po_tpu_torch.physics import contact, dynamics, engine
+
+    model, (qpos, qvel, ctrl, warm) = _ant_kernel_inputs(cuda, "tag",
+                                                         torch.float32)
+    engine.forward(model, qpos, qvel, ctrl, warm)  # the first call, eager
+
+    def refuse(*a, **k):
+        raise AssertionError("the array engine ran")
+
+    n0 = (af.ant_smooth.launches, af.ant_rows.launches, af.ant_newton.launches)
+    with monkeypatch.context() as m:
+        for mod, name in ((engine, "smooth_forward"),
+                          (engine, "constraint_rows"),
+                          (engine, "solve_constraints_newton")):
+            m.setattr(mod, name, refuse)
+        engine.forward(model, qpos, qvel, ctrl, warm)
+    assert (af.ant_smooth.launches, af.ant_rows.launches,
+            af.ant_newton.launches) == tuple(x + 1 for x in n0)
+    engine.forward(model, qpos, qvel, ctrl, warm, pipeline="array")
+    assert af.ant_newton.launches == n0[2] + 1
+    with pytest.raises(ValueError):
+        af.ant_smooth(model, qpos, qvel, ctrl.double())
+
+
+@pytest.mark.parametrize("env_id", ANT_IDS)
+def test_ant_scalar_step_graph_replay_equals_eager(cuda, env_id):
+    """One env step (the envs' default "scalar" pipeline, frame_skip 2)
+    captured in a CUDA graph after an eager warm-up and replayed equals
+    the eager step from the same state and action, bit for bit."""
+    env = gpt_torch.make(env_id, frame_skip=2, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, st = env.reset_vec(gen, 256)
+    act = torch.rand(256, 8, generator=gen, device=cuda) * 2 - 1
+    qpos, qvel, warm = (x.clone() for x in (st.qpos, st.qvel, st.warm))
+    env.physics(qpos, qvel, warm, act)  # eager warm-up: the buffers, the build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = env.physics(qpos, qvel, warm, act)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = env.physics(qpos, qvel, warm, act)
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)

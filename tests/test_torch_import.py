@@ -76,6 +76,7 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import gym_po_tpu_torch.physics.engine
     import gym_po_tpu_torch.physics.linalg
     import gym_po_tpu_torch.physics.spatial
+    import gym_po_tpu_torch.ops.ant_forward
     import gym_po_tpu_torch.envs.ant_physics
     import gym_po_tpu_torch.envs.mjcf
     import chip_smoke
