@@ -85,17 +85,22 @@ path and read just after:
    adapter where gymnasium is installed;
 9. the articulated ant (``gym_po_tpu_torch.physics``, ``AntTagPhysics-v0``,
    ``AntHeavenHellPhysics-v0``), whose default ``pipeline="scalar"``
-   forward runs the three per-env kernels of ``csrc/ant_forward.cu``
-   (``ant_smooth``, ``ant_rows``, ``ant_newton``): each kernel against its
-   plain twin on the card (f64 to 1e-9 relative, f32 within the step
-   gates) and timed at B = 4,096; the engine on the card against the CPU
+   forward runs the three kernels of ``csrc/ant_forward.cu``
+   (``ant_smooth``, one env a thread; ``ant_rows``, a thread per (unit,
+   env); ``ant_newton``, a warp per env): each kernel against its plain
+   twin on the card (f64 to 1e-9 relative, f32 within the step gates) and
+   timed at B = 4,096, with each kernel's registers, stack frame and
+   shared memory (the previous design beside them:
+   ``ops/probe_ant_forward.py ab``); the engine on the card against the CPU
    at f64 (64 contact states, a forward and an RK4 step), one env step of
    each env against the CPU stage by stage at f32; then, counted,
    ``step_vec`` under the sync debug mode (no host sync), 20 steps of
    random actions at B = 4,096 (finite, above the floor, inside the
    walls), env-steps/s at the envs' defaults (B = 4,096, frame_skip 15, 8
-   Newton iterations, f32; RK4 and Euler) with device ops per env step
-   and the device's busy share (torch.profiler), PPO updates on the ant at
+   Newton iterations, f32; RK4 and Euler) with device ops per env step,
+   the device's busy share and each ant kernel's time in it
+   (torch.profiler), and the active rows an env on the untimed steps
+   against those ``ant_newton`` keeps resident, PPO updates on the ant at
    B = 4,096 (Euler at T = 8, RK4 at T = 2); then, for the record, the
    same rates and PPO updates with ``pipeline="array"`` (the batched
    engine), both routes of the 14x14 solve timed, ``render_ant`` of 4
@@ -143,9 +148,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -3454,11 +3461,27 @@ def ant_run(dev, card, env_id: str, integrator: str,
     ops, busy share, peak memory).  Euler with "scalar" runs 20 steps, step
     5 under the sync debug mode at 'error' (a host sync raises); otherwise
     5 (the RK4 PPO update's collect graph holds its steps sync-free).
-    After every step each qpos is finite, each torso above the floor and
-    each ant inside its walls."""
+    With "scalar", the profiled step's device time of each ant kernel, and
+    on the steps neither timed nor profiled (0, and 5 on from Euler's) the
+    active rows of each env in every forward (read from the forward's rows
+    buffer after it): their largest count and the share of envs above
+    ``ant_newton``'s resident rows (``newton_rows_cap``; more are restaged
+    in every pass).  After every
+    step each qpos is finite, each torso above the floor and each ant
+    inside its walls."""
     import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.ops import ant_forward as af
 
     env = gp.make(env_id, integrator=integrator, pipeline=pipeline, device=dev)
+    forward, seen = af.forward, []
+
+    def recorded(model, qpos, *args):
+        out = forward(model, qpos, *args)
+        rows = af._plan(model, qpos.dtype, qpos.device).batch(qpos.shape[0])[1]
+        n = rows.active.sum(0)
+        seen.append(torch.stack([n.max(), (n > af.newton_rows_cap()).sum().to(n.dtype)]))
+        return out
+
     gen = torch.Generator(device=dev).manual_seed(3)
     _, st = env.reset_vec(gen, B_ANT)
     (x_lo, x_hi), (y_lo, y_hi) = ANT_ARENA[env_id]
@@ -3473,23 +3496,34 @@ def ant_run(dev, card, env_id: str, integrator: str,
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             kept = {}
-            n_ops, busy = device_ops(
-                lambda: kept.update(out=env.step_vec(gen, st, act)))
+            n_ops, busy, top = device_ops(
+                lambda: kept.update(out=env.step_vec(gen, st, act)), top=10**4)
             out = kept["out"]
             peak = torch.cuda.max_memory_allocated() - base
             ops = (f"{n_ops} device ops per env step, device busy {busy:.3f} "
                    f"ms = {busy / statistics.median(times):.4f} of the step"
                    if n_ops else "device ops: not measured (no device events "
                    "in the trace)") + f"; peak memory of a step {peak / 2**20:.1f} MiB"
-        elif i == ANT_TIMED + 2:
-            torch.cuda.set_sync_debug_mode("error")
+            if n_ops and pipeline == "scalar":
+                kern = {k: [(c, ms) for name, c, ms in top if f"{k}_kernel" in name]
+                        for k in ANT_KERNELS}
+                k_ms = sum(ms for v in kern.values() for _, ms in v)
+                ops += ("; in its trace " + ", ".join(
+                    f"{k} {sum(c for c, _ in v)} launches {sum(ms for _, ms in v):.3f} ms"
+                    for k, v in kern.items())
+                    + f", together {k_ms:.3f} ms = {k_ms / busy:.4f} of the busy time")
+        else:
+            if pipeline == "scalar" and not 1 <= i <= ANT_TIMED:
+                af.forward = recorded
+            if i == ANT_TIMED + 2:
+                torch.cuda.set_sync_debug_mode("error")
             try:
                 out = env.step_vec(gen, st, act)
             finally:
+                af.forward = forward
                 torch.cuda.set_sync_debug_mode("default")
-            ops += "; step 5 under set_sync_debug_mode('error'): no host sync"
-        else:
-            out = env.step_vec(gen, st, act)
+            if i == ANT_TIMED + 2:
+                ops += "; step 5 under set_sync_debug_mode('error'): no host sync"
         torch.cuda.synchronize()
         if 1 <= i <= ANT_TIMED:
             times.append((time.perf_counter() - t0) * 1e3)
@@ -3506,6 +3540,12 @@ def ant_run(dev, card, env_id: str, integrator: str,
         resets += int(info["reset_mask"].sum())
         z += [float(q[:, 2].min()), float(q[:, 2].max())]
     med = statistics.median(times)
+    if seen:
+        most, above = torch.stack(seen).amax(0)[0], torch.stack(seen)[:, 1].sum()
+        ops += (f"; {len(seen)} forwards of the untimed steps: at most "
+                f"{int(most)} active rows an env, {int(above)} of "
+                f"{len(seen) * B_ANT} envs ({float(above) / (len(seen) * B_ANT):.6f}) "
+                f"above the {af.newton_rows_cap()} held resident")
     say("ant-speed", f"{env_id} {integrator} pipeline {pipeline} B={B_ANT} "
         f"frame_skip {env.frame_skip} iters {env.solver_iters} ls "
         f"{env.ls_iters} f32 on {card}: {B_ANT / med * 1e3:.6e} env-steps/s "
@@ -3910,9 +3950,9 @@ def ant_f32_errs(model, dev, q, v, c, w, sm, rows, got) -> tuple:
 def ant_kernel_bounds(model, p, rows, iters: int, ls_iters: int) -> dict:
     """Each ant kernel's bound at f32 on this batch (``p`` the kernels'
     plan, ``rows`` the batch's rows): bytes, each input read once and
-    each output written once (the solve reads the active flags of every
-    row and the support values, aref and R of the active rows only; ``p``
-    the kernels' plan of ``model``), and
+    each output written once (the solve reads M over the lower triangle of
+    its static support, ``mass_support``, the active flags of every row and
+    the support values, aref and R of the active rows only), and
     a lower bound of f32 arithmetic instructions (an FMA one): smooth, 7
     a mass-matrix dof pair, the factor's NV^3/6 and the solve's NV^2;
     rows, 40 a candidate, one a support entry and 2 x 10 bisection steps
@@ -3931,12 +3971,13 @@ def ant_kernel_bounds(model, p, rows, iters: int, ls_iters: int) -> dict:
     active_entries = (size[:, None] * rows.active).sum().item()
     m_sup = int(sum(bin(int(x)).count("1") for x in
                     p.tables[p.ne + 1 + p.nnz:].tolist()))
+    m_low = int(np.tril(af.mass_support(model)).sum())
     work = {
         "ant_smooth": (4 * B * (af.NQ + NV + af.NU + NV * NV + NV + af.SKIN),
                        B * (7 * pairs + NV ** 3 // 6 + NV * NV)),
         "ant_rows": (4 * B * (af.SKIN + af.NQ + NV + p.nnz + 3 * p.ne),
                      B * (40 * nc + p.nnz + 180 * af.NCAP * p.n_slots)),
-        "ant_newton": (4 * (B * (NV * NV + NV + NV + p.ne + 2 * NV)
+        "ant_newton": (4 * (B * (m_low + NV + NV + p.ne + 2 * NV)
                             + active_entries + 2 * active),
                        iters * (B * (2 * m_sup + NV ** 3 // 6 + NV * NV)
                                 + 2 * active_entries + 3 * ls_iters * active)),
@@ -3964,15 +4005,13 @@ def ant_kernel_times(dev, card) -> tuple:
         with uncounted():
             sm = af.ant_smooth(model, q, v, c)
             rows = af.ant_rows(model, sm.skin, q, v)
-            scratch = p.batch(B_ANT)[2]
             ms = {"ant_smooth": event_windows(
                       lambda i: af.ant_smooth(model, q, v, c, out=sm), 3, 20),
                   "ant_rows": event_windows(
                       lambda i: af.ant_rows(model, sm.skin, q, v, out=rows), 3, 20),
                   "ant_newton": event_windows(
-                      lambda i: af.ant_newton(model, sm, rows, w, 8, 10, scratch),
-                      3, 20)}
-            got = af.ant_newton(model, sm, rows, w, 8, 10, scratch)
+                      lambda i: af.ant_newton(model, sm, rows, w, 8, 10), 3, 20)}
+            got = af.ant_newton(model, sm, rows, w, 8, 10)
         errs, n_differ = ant_f32_errs(model, dev, q, v, c, w, sm, rows, got)
         plain = {"ant_smooth": event_windows(
                      lambda i: af.smooth_twin(model, q, v, c), 3, 2),
@@ -3983,9 +4022,13 @@ def ant_kernel_times(dev, card) -> tuple:
         bounds = ant_kernel_bounds(model, p, rows, 8, 10)
         held = sum(t.numel() * t.element_size()
                    for part in p.batch(B_ANT) for t in part)
+        na = rows.active.sum(0)
         lines.append(f"{env_id} ({p.ne} rows, {p.nnz} support entries, "
-                     f"{rows.active.sum().item() / B_ANT:.2f} active a state, "
-                     f"buffers {held / 2**20:.1f} MiB): "
+                     f"{len(p.units)} ant_rows units, {na.mean().item():.2f} "
+                     f"active a state (at most {int(na.max().item())}), "
+                     f"buffers {held / 2**20:.1f} MiB, ant_newton's shared "
+                     f"memory {af.newton_smem_bytes(model, torch.float32)} B "
+                     "a block): "
                      + ", ".join(f"{k} {ms[k]:.4f} ms (twin {plain[k]:.3f}, "
                                  f"bound {bounds[k][0]:.4f} by {bounds[k][1]}; "
                                  f"vs twin {errs[k][0]:.3e} relative, "
@@ -4001,6 +4044,32 @@ def ant_kernel_times(dev, card) -> tuple:
         f"timed outputs vs the twins' relative to max(1, |x|) (limits "
         f"{ANT_F32_TOL}): " + "; ".join(lines))
     return out, out_errs
+
+
+def ptxas_summary(log: str) -> str:
+    """Each kernel entry of an nvcc ``-Xptxas=-v`` log: its registers,
+    stack frame, spills and static shared memory (a kernel named by its
+    function and type: ``ant_newton_kernel<f>``)."""
+    out, name, frame = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(ant_\w+?_kernel)I([fd])", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)[:40]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = (f"{m.group(1)} B stack frame, {m.group(2)} B spill "
+                     f"stores, {m.group(3)} B spill loads")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name} {m.group(1)} registers, {frame}, "
+                       f"{smem.group(1) if smem else 0} B static shared memory")
+            name, frame = None, "?"
+    return "; ".join(out)
 
 
 def ant_path(dev, card, record: bool = False) -> tuple:
@@ -4143,6 +4212,7 @@ def main() -> int:
         for line in build_log(name).splitlines():
             if "registers" in line or "build" in line or "spill" in line:
                 say("build", f"{name}: {line.strip()[:160]}")
+    say("build", f"ant_forward.cu by kernel: {ptxas_summary(build_log('ant_forward'))}")
 
     sass_check()
     divisors_check(dev)

@@ -1,26 +1,26 @@
 // The articulated ant's constrained forward dynamics for Hopper (sm_90a):
-// three kernels, one env per thread.
+// three kernels.
 //
 // Replaces no TPU kernel.  It is the port of the JAX package's default
 // pipeline="scalar" forward (gym_po_tpu/physics/engine.py:87-97), which
 // XLA lowers on the TPU to straight-line [B]-vector code: every per-env
-// quantity a scalar, every structural zero dropped at trace time.  Its
-// counterpart here is straight-line scalar code per thread:
+// quantity a scalar, every structural zero dropped at trace time.
 //
 //   ant_smooth  smooth_forward_s (gym_po_tpu/physics/dynamics.py:553): FK,
 //               CoMs, world inertias and dof axes, the mass matrix over each
 //               body's active dofs, the bias force (RNEA with zero qacc),
 //               actuation, damping, and the 14x14 Cholesky solve
-//               (chol_solve_s, gym_po_tpu/physics/linalg.py).
+//               (chol_solve_s, gym_po_tpu/physics/linalg.py).  One env a
+//               thread.
 //   ant_rows    contact_candidates_s + constraint_rows_scalar
 //               (gym_po_tpu/physics/contact.py:422, :568): 8 joint-limit
 //               rows, 25 floor candidates, per wall slot the torso
 //               sphere-box and the 12 capsules' capsule-box triples, then
-//               4 pyramid rows per candidate.
+//               4 pyramid rows per candidate.  One thread per (unit, env).
 //   ant_newton  solve_constraints_newton_s (contact.py:915): `iters` Newton
-//               iterations over the active rows (gradient, Hessian over each
-//               row's static dof support, Cholesky, `ls_iters` bisections of
-//               the line search's derivative on [0, 2]).
+//               iterations over the active rows (gradient, Hessian, 14x14
+//               Cholesky, `ls_iters` bisections of the line search's
+//               derivative on [0, 2]).  One warp per env.
 //
 // The plain PyTorch twins are in gym_po_tpu_torch/ops/ant_forward.py (the
 // port's batched array engine, laid out as the kernels lay out their
@@ -29,23 +29,55 @@
 // Layout.  The model's constants are one buffer of T (the M_* offsets
 // below, packed by ops/ant_forward.py::pack_model); each row's static dof
 // support is a CSR table of int32 (row_ptr [ne + 1], row_dof [nnz]) and the
-// mass matrix's a bitmask per row (m_rows [NV]).  Everything passed between
-// kernels is env-minor, [k, B], so that a warp's loads coalesce: the
-// kinematics the rows need (SKin: body xpos and xmat, dof_u, dof_p), M,
-// qacc_smooth, each row's values over its support ([nnz, B]), aref, r and
-// the active flags ([ne, B]).  The Newton kernel keeps M, H (factored in
-// place) and a few nv-vectors per thread; the per-row slack, line-search
-// slope and D = 1/R of the rows that are active (the only rows that
-// contribute to the gradient, the Hessian or the line search) go to
-// global scratch [ne, B].
+// mass matrix's a bitmask per row (m_rows [NV]); ant_rows' units are a
+// table of UNIT_W int32 each (ops/ant_forward.py::units).  Everything
+// passed between kernels is env-minor, [k, B]: the kinematics the rows
+// need (SKin: body xpos and xmat, dof_u, dof_p), M, qacc_smooth, each
+// row's values over its support ([nnz, B]), aref, r and the active flags
+// ([ne, B]).
 //
-// What bounds it on this card: neither bytes nor FLOPs.  At the envs'
-// batch (B = 4,096) one thread per env is 128 warps, about one per SM, so
-// each kernel runs at the latency of a single warp's dependent arithmetic
-// and of its local-memory arrays (the per-thread frames: M, the Cholesky
-// factor, the kinematics).  The design keeps the frame to a few KB (no
-// dense ne x nv Jacobian) and skips the inactive rows in the solve.  No
-// --use_fast_math: division, sqrt, sin and cos are IEEE/accurate.
+// What bounds them on this card: neither bytes nor FLOPs but how many
+// warps are in flight and how long each waits on its own dependent
+// arithmetic.  At the envs' batch (B = 4,096) one env a thread is 128
+// warps, about one an SM.  So:
+//
+// - ant_rows runs a unit of work per thread: a limit row, a floor sphere
+//   or capsule end, a slot's torso sphere-box, or a capsule's three
+//   capsule-box slots in one slot (one pair of bisections).  blockIdx.y is
+//   the unit, the env index is fastest within a warp: a warp runs one unit
+//   over 32 consecutive envs, uniform, and its [k, B] reads of the
+//   kinematics and writes of the rows coalesce.  A thread reads only its
+//   body's frame and hinges (8 dof slots, not the 84 values of every dof),
+//   so it keeps them in registers.  59 units on the tag arena, 98 on
+//   heaven-hell: at B = 4,096 thousands of warps.
+// - ant_newton runs one warp per env, NewtonEnvs (8 at f32, 4 at f64)
+//   consecutive envs a block.  The block first copies its envs' M, qs,
+//   warm start and active flags into shared memory with the env index
+//   fastest (a row of [k, B] is 8 consecutive values, one 32-byte sector
+//   at f32).  Each warp then compacts its env's active rows (a ballot per
+//   32 rows, in row order; no cap on their count) and keeps, for up to
+//   ROWS_CAP of them, the rows densified over the 14 dofs in shared memory
+//   (dof-major, an odd stride) and aref, D = 1/R, slack and slope in
+//   registers, lane l holding rows l, l + 32, l + 64.  More active rows than
+//   that (chip_smoke.py's contact states have at most 37 on the tag arena,
+//   82 on heaven-hell; a test forces all ne) are taken chunk by chunk from
+//   the rows' own buffers in every pass, in the same order.  No iteration reads global scratch.  M and H are packed lower
+//   triangles in shared memory, each lane owning entries lane + 32 m: the
+//   Hessian is accumulated per entry over the active rows in row order
+//   (each row's weight and force broadcast by a shuffle), the Cholesky
+//   factor runs column by column (the pivot read by all lanes, the column
+//   and the trailing update spread over the lanes' entries) with the
+//   forward substitution carried along, then the backward one row by row,
+//   by the pivots' reciprocals.  The gradient is a lane per dof; the
+//   line search's sum over rows a fixed-order butterfly (__shfl_xor_sync),
+//   which leaves the same bits on every lane, so all lanes take the same
+//   bisection branch.  Nothing is atomic: one launch is deterministic.
+//   At f32 ptxas gives it about 100 registers a thread and a block takes
+//   about 60 KB of shared memory, so 2 blocks (16 warps) fit an SM and
+//   B = 4,096 runs in two waves, each warp bound by its chain of dependent
+//   steps (the factor's and the substitutions' 28 column steps).
+//
+// No --use_fast_math: division, sqrt, sin and cos are IEEE/accurate.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -550,70 +582,108 @@ __device__ void capsule_box(const T* p0, const T* p1, T r, const T* lo, const T*
   if (!(unique && !inside && out[2].dist < big * T(0.5))) out[2].dist = big;
 }
 
+// A unit of ant_rows is one thread's work for one env (ops/ant_forward.py::
+// units, one row of UNIT_W ints per unit, in the JAX candidate order): a
+// joint-limit row, a floor sphere or capsule end, a wall slot's torso
+// sphere-box, or one capsule's three capsule-box slots in one wall slot
+// (they share the segment's two bisections).
+enum : int { U_LIMIT = 0, U_FLOOR_TORSO, U_FLOOR_END, U_WALL_TORSO, U_WALL_CAPSULE };
+enum : int {
+  UF_KIND = 0,
+  UF_INDEX,  // the hinge of a limit row, else the unit's first candidate
+  UF_BODY,
+  UF_GEOM,
+  UF_SLOT,
+  UF_END,     // a floor capsule end: 0 the segment's start, 1 its end
+  UF_HINGE0,  // the hinge dofs that move the body, ascending (-1: none)
+  UF_HINGE1,
+  UNIT_W
+};
+constexpr int NSLOT8 = 8;  // a contact row's dofs: the 6 free ones, the body's <= 2 hinges
+
+// What a contact's Jacobian rows read of one env: the torso's frame and
+// the body's hinges (their world axes and anchors), and qvel of those 8
+// dofs.  The others enter a contact row as exact zeros.
 template <typename T>
 struct RowCtx {
   const T* mdl;
   const int* row_ptr;
   const int* row_dof;
-  int B, e;
+  size_t B;
+  int e, body, hinge[2];
   T* vals;
   T* aref;
   T* r;
   T* active;
   T xpos0[3], R0[9];
-  T dof_u[NV][3], dof_p[NV][3];
-  T qv[NV];
+  T hu[2][3], hp[2][3];
+  T qv[NSLOT8];
 };
 
-// _jrow_entries: the Jacobian row of a contact at world point pos on body
-// `body`, dotted with direction dr, over the body's dofs (others 0)
+// _jrow_entries: the Jacobian row of a contact at world point pos on the
+// body, dotted with direction dr, over the body's 8 dof slots
 template <typename T>
-__device__ void jrow(const RowCtx<T>& c, int body, const T* pos, const T* dr, T* col) {
+__device__ void jrow(const RowCtx<T>& c, const T* pos, const T* dr, T* col) {
   for (int k = 0; k < 3; ++k) col[k] = dr[k];
   T arm0[3] = {pos[0] - c.xpos0[0], pos[1] - c.xpos0[1], pos[2] - c.xpos0[2]};
   T m0[3];
   cross3(arm0, dr, m0);
   for (int i = 0; i < 3; ++i)
     col[3 + i] = c.R0[i] * m0[0] + c.R0[3 + i] * m0[1] + c.R0[6 + i] * m0[2];
-  for (int d = 6; d < NV; ++d) {
-    if (!dof_active(c.mdl, body, d)) {
-      col[d] = T(0);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (c.hinge[s] < 0) {
+      col[6 + s] = T(0);
       continue;
     }
-    T arm[3] = {pos[0] - c.dof_p[d][0], pos[1] - c.dof_p[d][1], pos[2] - c.dof_p[d][2]};
+    T arm[3] = {pos[0] - c.hp[s][0], pos[1] - c.hp[s][1], pos[2] - c.hp[s][2]};
     T mh[3];
     cross3(arm, dr, mh);
-    col[d] = dot3(c.dof_u[d], mh);
+    col[6 + s] = dot3(c.hu[s], mh);
   }
+}
+
+// a[s] for a runtime slot s, by selects (the array stays in registers)
+template <typename T>
+__device__ __forceinline__ T at_slot(const T* a, int s) {
+  T v = a[0];
+#pragma unroll
+  for (int i = 1; i < NSLOT8; ++i) v = s == i ? a[i] : v;
+  return v;
 }
 
 // the 4 pyramid rows (+t1, -t1, +t2, -t2) of candidate `cand`
 template <typename T>
 __device__ void emit_rows(const RowCtx<T>& c, int cand, T dist, const T* n, const T* t1,
-                          const T* t2, const T* pos, int body) {
+                          const T* t2, const T* pos) {
   const T* mdl = c.mdl;
-  T jn[NV], jt[2][NV];
-  jrow(c, body, pos, n, jn);
-  jrow(c, body, pos, t1, jt[0]);
-  jrow(c, body, pos, t2, jt[1]);
+  T jn[NSLOT8], jt[2][NSLOT8];
+  jrow(c, pos, n, jn);
+  jrow(c, pos, t1, jt[0]);
+  jrow(c, pos, t2, jt[1]);
   const T violation = dist - mdl[M_MARGIN2];
   const T active = dist < mdl[M_MARGIN2] ? T(1) : T(0);
   const T imp = impedance(mdl, violation);
   T vel_n = T(0);
-  for (int d = 0; d < NV; ++d) vel_n = vel_n + c.qv[d] * jn[d];
+#pragma unroll
+  for (int s = 0; s < NSLOT8; ++s) vel_n = vel_n + c.qv[s] * jn[s];
   const T kd = mdl[M_K] * imp * violation;
-  const T rc = (T(1) - imp) / imp * (mdl[M_PYR] * mdl[M_BODY_INVW + body]);
+  const T rc = (T(1) - imp) / imp * (mdl[M_PYR] * mdl[M_BODY_INVW + c.body]);
   const T mu = mdl[M_MU];
   const size_t B = c.B;
+#pragma unroll
   for (int tk = 0; tk < 2; ++tk) {
     T vel_t = T(0);
-    for (int d = 0; d < NV; ++d) vel_t = vel_t + c.qv[d] * jt[tk][d];
+#pragma unroll
+    for (int s = 0; s < NSLOT8; ++s) vel_t = vel_t + c.qv[s] * jt[tk][s];
+#pragma unroll
     for (int sg = 0; sg < 2; ++sg) {
       const T smu = sg ? -mu : mu;
       const int row = NLIM + 4 * cand + 2 * tk + sg;
       for (int k = c.row_ptr[row]; k < c.row_ptr[row + 1]; ++k) {
         const int d = c.row_dof[k];
-        c.vals[k * B + c.e] = jn[d] + smu * jt[tk][d];
+        const int s = d < 6 ? d : (d == c.hinge[0] ? 6 : 7);
+        c.vals[k * B + c.e] = at_slot(jn, s) + smu * at_slot(jt[tk], s);
       }
       c.aref[row * B + c.e] = -mdl[M_B] * (vel_n + smu * vel_t) - kd;
       c.r[row * B + c.e] = rc;
@@ -644,84 +714,92 @@ __device__ __forceinline__ const T* slot_box(const T* slot, const T* point) {
   return point[ax] > T(0) ? slot : slot + 6;  // lo at [0, 3), hi at [3, 6)
 }
 
+// The joint-limit row of hinge j: the nearer bound
 template <typename T>
-__global__ void ant_rows_kernel(int B, int n_slots, const T* __restrict__ mdl,
-                                const int* __restrict__ tables, int ne,
+__device__ void limit_row(const T* mdl, const int* row_ptr, int j, size_t B, int e,
+                          const T* qpos, const T* qvel, T* vals, T* aref, T* r, T* active) {
+  const T qj = qpos[(size_t)e * NQ + as_int(mdl[M_JNT_QPOS + j])];
+  const T d_lo = qj - mdl[M_JNT_RANGE + 2 * j], d_hi = mdl[M_JNT_RANGE + 2 * j + 1] - qj;
+  const bool lower = d_lo <= d_hi;
+  const T pos_lim = lower ? d_lo : d_hi, sign = lower ? T(1) : T(-1);
+  const T imp = impedance(mdl, pos_lim);
+  const int dof = as_int(mdl[M_JNT_DOF + j]);
+  vals[row_ptr[j] * B + e] = sign;
+  aref[j * B + e] = -mdl[M_B] * (sign * qvel[(size_t)e * NV + dof]) - mdl[M_K] * imp * pos_lim;
+  r[j * B + e] = (T(1) - imp) / imp * mdl[M_DOF_INVW + dof];
+  active[j * B + e] = pos_lim < T(0) ? T(1) : T(0);
+}
+
+// One thread per (unit, env): blockIdx.y the unit, the env index fastest,
+// so a warp runs one unit over 32 consecutive envs (uniform control flow,
+// coalesced [k, B] reads and writes).
+template <typename T>
+__global__ void ant_rows_kernel(int B, const T* __restrict__ mdl, const int* __restrict__ tables,
+                                int ne, const int* __restrict__ units,
                                 const T* __restrict__ skin, const T* __restrict__ qpos,
                                 const T* __restrict__ qvel, T* __restrict__ vals,
                                 T* __restrict__ aref, T* __restrict__ r, T* __restrict__ active) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
+  if (e >= B) return;  // no warp-level operation follows
+  const int* u = units + blockIdx.y * UNIT_W;
+  const int kind = u[UF_KIND], index = u[UF_INDEX];
+  const size_t Bs = B;
+  if (kind == U_LIMIT) {
+    limit_row(mdl, tables, index, Bs, e, qpos, qvel, vals, aref, r, active);
+    return;
+  }
   RowCtx<T> c;
   c.mdl = mdl;
   c.row_ptr = tables;
   c.row_dof = tables + ne + 1;
-  c.B = B;
+  c.B = Bs;
   c.e = e;
+  c.body = u[UF_BODY];
   c.vals = vals;
   c.aref = aref;
   c.r = r;
   c.active = active;
-  const size_t Bs = B;
   for (int i = 0; i < 3; ++i) c.xpos0[i] = skin[(SK_XPOS + i) * Bs + e];
   for (int i = 0; i < 9; ++i) c.R0[i] = skin[(SK_XMAT + i) * Bs + e];
-  for (int d = 0; d < NV; ++d)
+  for (int d = 0; d < 6; ++d) c.qv[d] = qvel[(size_t)e * NV + d];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int d = c.hinge[s] = u[UF_HINGE0 + s];
     for (int i = 0; i < 3; ++i) {
-      c.dof_u[d][i] = skin[(SK_DOFU + 3 * d + i) * Bs + e];
-      c.dof_p[d][i] = skin[(SK_DOFP + 3 * d + i) * Bs + e];
+      c.hu[s][i] = d < 0 ? T(0) : skin[(SK_DOFU + 3 * d + i) * Bs + e];
+      c.hp[s][i] = d < 0 ? T(0) : skin[(SK_DOFP + 3 * d + i) * Bs + e];
     }
-  for (int d = 0; d < NV; ++d) c.qv[d] = qvel[(size_t)e * NV + d];
-
-  // ---- joint-limit rows: the nearer bound of each hinge
-  const T K = mdl[M_K], Bd = mdl[M_B];
-  for (int j = 0; j < NJ; ++j) {
-    const T qj = qpos[(size_t)e * NQ + as_int(mdl[M_JNT_QPOS + j])];
-    const T d_lo = qj - mdl[M_JNT_RANGE + 2 * j], d_hi = mdl[M_JNT_RANGE + 2 * j + 1] - qj;
-    const bool lower = d_lo <= d_hi;
-    const T pos_lim = lower ? d_lo : d_hi, sign = lower ? T(1) : T(-1);
-    const T imp = impedance(mdl, pos_lim);
-    const int dof = as_int(mdl[M_JNT_DOF + j]);
-    vals[c.row_ptr[j] * Bs + e] = sign;
-    aref[j * Bs + e] = -Bd * (sign * c.qv[dof]) - K * imp * pos_lim;
-    r[j * Bs + e] = (T(1) - imp) / imp * mdl[M_DOF_INVW + dof];
-    active[j * Bs + e] = pos_lim < T(0) ? T(1) : T(0);
+    c.qv[6 + s] = d < 0 ? T(0) : qvel[(size_t)e * NV + d];
   }
 
-  // ---- the collision spheres and capsules in the world frame
-  T center[NG][3], axis_w[NCAP][3], p0[NCAP][3], p1[NCAP][3];
-  for (int g = 0; g < NG; ++g) {
-    const int b = as_int(mdl[M_GEOM_BODY + g]);
-    T R[9], xp[3], off[3];
-    for (int i = 0; i < 9; ++i) R[i] = skin[(SK_XMAT + 9 * b + i) * Bs + e];
-    for (int i = 0; i < 3; ++i) xp[i] = skin[(SK_XPOS + 3 * b + i) * Bs + e];
-    mat_vec(R, mdl + M_GEOM_POS + 3 * g, off);
-    for (int i = 0; i < 3; ++i) center[g][i] = xp[i] + off[i];
-    if (g == 0) continue;
-    mat_vec(R, mdl + M_GEOM_AXIS + 3 * g, axis_w[g - 1]);
+  // the geom in the world frame
+  const int g = u[UF_GEOM], b = c.body;
+  T R[9], center[3], off[3];
+  for (int i = 0; i < 9; ++i) R[i] = skin[(SK_XMAT + 9 * b + i) * Bs + e];
+  mat_vec(R, mdl + M_GEOM_POS + 3 * g, off);
+  for (int i = 0; i < 3; ++i) center[i] = skin[(SK_XPOS + 3 * b + i) * Bs + e] + off[i];
+  const T rr = mdl[M_GEOM_R + g];
+  T axis_w[3], p0[3], p1[3];
+  if (kind == U_FLOOR_END || kind == U_WALL_CAPSULE) {
+    mat_vec(R, mdl + M_GEOM_AXIS + 3 * g, axis_w);
     const T h = mdl[M_GEOM_H + g];
     for (int i = 0; i < 3; ++i) {
-      p0[g - 1][i] = center[g][i] - h * axis_w[g - 1][i];
-      p1[g - 1][i] = center[g][i] + h * axis_w[g - 1][i];
+      p0[i] = center[i] - h * axis_w[i];
+      p1[i] = center[i] + h * axis_w[i];
     }
   }
-
-  // ---- floor (z = 0) candidates: the torso sphere, both ends of each
-  // capsule
-  const T nz[3] = {T(0), T(0), T(1)};
-  {
-    const T rr = mdl[M_GEOM_R + 0];
-    const T dist = center[0][2] - rr;
-    const T pos[3] = {center[0][0], center[0][1], center[0][2] - (rr + T(0.5) * dist)};
-    const T t1[3] = {T(0), T(1), T(0)}, t2[3] = {T(-1), T(0), T(0)};
-    emit_rows(c, 0, dist, nz, t1, t2, pos, as_int(mdl[M_GEOM_BODY + 0]));
-  }
-  for (int i = 0; i < NCAP; ++i) {
-    const int g = 1 + i, body = as_int(mdl[M_GEOM_BODY + g]);
-    const T rr = mdl[M_GEOM_R + g];
+  T t1[3], t2[3];
+  if (kind == U_FLOOR_TORSO) {  // floor (z = 0): the torso sphere, a constant frame
+    const T nz[3] = {T(0), T(0), T(1)};
+    const T dist = center[2] - rr;
+    const T pos[3] = {center[0], center[1], center[2] - (rr + T(0.5) * dist)};
+    const T f1[3] = {T(0), T(1), T(0)}, f2[3] = {T(-1), T(0), T(0)};
+    emit_rows(c, index, dist, nz, f1, f2, pos);
+  } else if (kind == U_FLOOR_END) {
     // _capsule_floor_frame: t1 = -normalize(the axis on the plane)
-    const T px = axis_w[i][0], py = axis_w[i][1];
+    const T nz[3] = {T(0), T(0), T(1)};
+    const T px = axis_w[0], py = axis_w[1];
     const T nrm = tsqrt(px * px + py * py);
-    T t1[3], t2[3];
     if (nrm > T(1e-8)) {
       const T inv = T(-1) / nrm;
       t1[0] = px * inv;
@@ -734,157 +812,372 @@ __global__ void ant_rows_kernel(int B, int n_slots, const T* __restrict__ mdl,
     t2[0] = -t1[1];
     t2[1] = t1[0];
     t2[2] = T(0);
-    for (int end = 0; end < 2; ++end) {
-      const T* cc = end ? p1[i] : p0[i];
-      const T dist = cc[2] - rr;
-      const T pos[3] = {cc[0], cc[1], cc[2] - (rr + T(0.5) * dist)};
-      emit_rows(c, 1 + 2 * i + end, dist, nz, t1, t2, pos, body);
-    }
-  }
-
-  // ---- wall slots: the torso sphere-box, then each capsule's three slots
-  for (int s = 0; s < n_slots; ++s) {
-    const T* slot = mdl + M_SLOTS + NSLOTW * s;
-    const int base = NFLOOR + NSLOT_CAND * s;
-    T t1[3], t2[3];
-    {
-      const T* box = slot_box(slot, center[0]);
-      Geo<T> geo;
-      sphere_box(center[0], mdl[M_GEOM_R + 0], box, box + 3, geo);
-      make_frame(geo.n, t1, t2);
-      emit_rows(c, base, geo.dist, geo.n, t1, t2, geo.pos, as_int(mdl[M_GEOM_BODY + 0]));
-    }
-    for (int i = 0; i < NCAP; ++i) {
-      const int g = 1 + i;
-      const T mid[3] = {T(0.5) * (p0[i][0] + p1[i][0]), T(0.5) * (p0[i][1] + p1[i][1]),
-                        T(0.5) * (p0[i][2] + p1[i][2])};
-      const T* box = slot_box(slot, mid);
-      Geo<T> geo[3];
-      capsule_box(p0[i], p1[i], mdl[M_GEOM_R + g], box, box + 3, geo);
-      for (int k = 0; k < 3; ++k) {
-        make_frame(geo[k].n, t1, t2);
-        emit_rows(c, base + 1 + 3 * i + k, geo[k].dist, geo[k].n, t1, t2, geo[k].pos,
-                  as_int(mdl[M_GEOM_BODY + g]));
-      }
+    const T* cc = u[UF_END] ? p1 : p0;
+    const T dist = cc[2] - rr;
+    const T pos[3] = {cc[0], cc[1], cc[2] - (rr + T(0.5) * dist)};
+    emit_rows(c, index, dist, nz, t1, t2, pos);
+  } else if (kind == U_WALL_TORSO) {
+    const T* slot = mdl + M_SLOTS + NSLOTW * u[UF_SLOT];
+    const T* box = slot_box(slot, center);
+    Geo<T> geo;
+    sphere_box(center, rr, box, box + 3, geo);
+    make_frame(geo.n, t1, t2);
+    emit_rows(c, index, geo.dist, geo.n, t1, t2, geo.pos);
+  } else {  // U_WALL_CAPSULE: the capsule's three slots
+    const T* slot = mdl + M_SLOTS + NSLOTW * u[UF_SLOT];
+    const T mid[3] = {T(0.5) * (p0[0] + p1[0]), T(0.5) * (p0[1] + p1[1]),
+                      T(0.5) * (p0[2] + p1[2])};
+    const T* box = slot_box(slot, mid);
+    Geo<T> geo[3];
+    capsule_box(p0, p1, rr, box, box + 3, geo);
+    for (int k = 0; k < 3; ++k) {
+      make_frame(geo[k].n, t1, t2);
+      emit_rows(c, index + k, geo[k].dist, geo[k].n, t1, t2, geo[k].pos);
     }
   }
 }
 
 // ---------------------------------------------------------------- newton
 
-// out = M x over M's static support (m_rows: a bitmask of each row's
-// structurally nonzero columns)
+// One warp per env, NewtonEnvs<T>::value warps (consecutive envs) a block.
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NL = NV * (NV + 1) / 2;     // a symmetric matrix's packed lower triangle
+constexpr int H_SLOTS = (NL + 31) / 32;   // a lane's entries of it: lane + 32 m
+constexpr int ROWS_CAP = 96;              // active rows held in shared memory at once
+constexpr int ROW_SLOTS = ROWS_CAP / 32;  // a lane's rows of a chunk: 32 c + lane
+constexpr int JT_STRIDE = ROWS_CAP + 1;   // odd: a row's 14 dofs and a dof's 32 rows
+                                          // each fall in distinct banks
 template <typename T>
-__device__ __forceinline__ void m_mul(const T* M, const int* m_rows, const T* x, T* out) {
-  for (int d = 0; d < NV; ++d) {
-    const int mask = m_rows[d];
-    T acc = T(0);
-    for (int x2 = 0; x2 < NV; ++x2)
-      if ((mask >> x2) & 1) acc = acc + M[d * NV + x2] * x[x2];
-    out[d] = acc;
+struct NewtonEnvs {
+  static constexpr int value = sizeof(T) == 4 ? 8 : 4;
+};
+
+// the packed lower triangle, column after column: entry (i, k), i >= k
+__host__ __device__ constexpr int col_off(int k) { return k * NV - k * (k - 1) / 2; }
+__host__ __device__ constexpr int low(int i, int k) { return col_off(k) + i - k; }
+
+__device__ __forceinline__ void low_pair(int t, int& i, int& k) {
+  k = 0;
+  while (t >= NV - k) {
+    t -= NV - k;
+    ++k;
   }
+  i = k + t;
+}
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+
+// One env's shared memory: M and H (packed), the nv-vectors q, qs, mq,
+// rhs (-grad, then dq), tmp and the factor's reciprocal pivots; then the
+// chunk's rows, Jt [NV][JT_STRIDE] (dof-major; before the compaction it
+// holds the env's ne active flags); then the active rows' indices [ne].
+template <typename T>
+__host__ __device__ inline size_t newton_head_bytes() {
+  return align16(sizeof(T) * (2 * NL + 6 * NV));
+}
+template <typename T>
+__host__ __device__ inline size_t newton_rows_bytes(int ne) {
+  const size_t jt = sizeof(T) * NV * JT_STRIDE;
+  return align16(jt > (size_t)ne ? jt : (size_t)ne);
+}
+template <typename T>
+__host__ __device__ inline size_t newton_env_bytes(int ne) {
+  return newton_head_bytes<T>() + newton_rows_bytes<T>(ne) + align16(2 * (size_t)ne);
+}
+
+// a sum over the warp by a butterfly: every lane ends with the same bits
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// (M x)_d over M's static support (mask: m_rows[d]), M packed
+template <typename T>
+__device__ __forceinline__ T m_row(const T* Mp, int mask, int d, const T* x) {
+  T acc = T(0);
+  for (int x2 = 0; x2 < NV; ++x2)
+    if ((mask >> x2) & 1) acc = acc + Mp[x2 >= d ? low(x2, d) : low(d, x2)] * x[x2];
+  return acc;
+}
+
+// A lane's rows of the chunk in registers: slot c holds row 32 c + lane.
+template <typename T>
+struct Chunk {
+  T aref[ROW_SLOTS], D[ROW_SLOTS], slack[ROW_SLOTS], jdq[ROW_SLOTS];
+};
+
+// Active rows a0 .. a0 + n - 1 (n <= ROWS_CAP): each lane its rows' support
+// values into Jt (dense over the dofs), aref and D = 1 / R into ch.
+template <typename T>
+__device__ void stage_rows(int a0, int n, int lane, const unsigned short* idx,
+                           const int* row_ptr, const int* row_dof, const T* vals,
+                           const T* aref, const T* rr, size_t B, int e, T* Jt, Chunk<T>& ch) {
+  __syncwarp();  // the previous chunk's readers are done
+#pragma unroll
+  for (int c = 0; c < ROW_SLOTS; ++c) {
+    const int s = 32 * c + lane;
+    ch.aref[c] = ch.D[c] = T(0);
+    if (s < n) {
+      const int row = idx[a0 + s];
+      for (int d = 0; d < NV; ++d) Jt[d * JT_STRIDE + s] = T(0);
+#pragma unroll 4
+      for (int k = row_ptr[row]; k < row_ptr[row + 1]; ++k)
+        Jt[row_dof[k] * JT_STRIDE + s] = vals[k * B + e];
+      ch.aref[c] = aref[row * B + e];
+      ch.D[c] = T(1) / tmax(rr[row * B + e], T(1e-12));
+    }
+  }
+  __syncwarp();
 }
 
 template <typename T>
-__global__ void ant_newton_kernel(int B, int ne, int iters, int ls_iters,
-                                  const int* __restrict__ tables, const T* __restrict__ M_in,
-                                  const T* __restrict__ qs_in, const T* __restrict__ vals,
-                                  const T* __restrict__ aref, const T* __restrict__ rr,
-                                  const T* __restrict__ act, const T* __restrict__ warm,
-                                  T* __restrict__ qacc_out, T* __restrict__ warm_out,
-                                  int* __restrict__ s_idx, T* __restrict__ s_D,
-                                  T* __restrict__ s_slack, T* __restrict__ s_jdq) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  const size_t Bs = B;
-  const int* row_ptr = tables;
-  const int* row_dof = tables + ne + 1;
-  const int nnz = row_ptr[ne];
-  const int* m_rows = row_dof + nnz;
+__device__ __forceinline__ T row_dot(const T* Jt, int s, const T* x) {
+  T acc = T(0);
+#pragma unroll
+  for (int d = 0; d < NV; ++d) acc = acc + Jt[d * JT_STRIDE + s] * x[d];
+  return acc;
+}
 
-  T M[NV * NV], H[NV * NV];
-  for (int k = 0; k < NV * NV; ++k) M[k] = M_in[k * Bs + e];
-  T qs[NV], q[NV];
-  for (int d = 0; d < NV; ++d) {
-    qs[d] = qs_in[d * Bs + e];
-    q[d] = warm ? qs[d] + warm[(size_t)e * NV + d] : qs[d];
+// the slack J q - aref of the lane's rows of a chunk of n, and with dq
+// their slope J dq
+template <typename T>
+__device__ void chunk_slack(int n, int lane, const T* Jt, const T* q, const T* dq,
+                            Chunk<T>& ch) {
+#pragma unroll
+  for (int c = 0; c < ROW_SLOTS; ++c) {
+    const int s = 32 * c + lane;
+    ch.slack[c] = s < n ? row_dot(Jt, s, q) - ch.aref[c] : T(0);
+    if (dq) ch.jdq[c] = s < n ? row_dot(Jt, s, dq) : T(0);
   }
-  // the active rows (D = 1 / R > 0): the others add exact zeros
-  int na = 0;
-  for (int row = 0; row < ne; ++row) {
-    if (act[row * Bs + e] != T(0)) {
-      s_idx[na * Bs + e] = row;
-      s_D[na * Bs + e] = T(1) / tmax(rr[row * Bs + e], T(1e-12));
-      ++na;
-    }
-  }
+}
 
-  T mq[NV], grad[NV], dq[NV], tmp[NV];
-  for (int it = 0; it < iters; ++it) {
-    for (int d = 0; d < NV; ++d) tmp[d] = q[d] - qs[d];
-    m_mul(M, m_rows, tmp, mq);
-    for (int d = 0; d < NV; ++d) grad[d] = mq[d];
-    for (int k = 0; k < NV * NV; ++k) H[k] = M[k];
-    for (int a = 0; a < na; ++a) {
-      const int row = s_idx[a * Bs + e];
-      const int k0 = row_ptr[row], k1 = row_ptr[row + 1];
-      T jq = T(0);
-      for (int k = k0; k < k1; ++k) jq = jq + vals[k * Bs + e] * q[row_dof[k]];
-      const T slack = jq - aref[row * Bs + e];
-      s_slack[a * Bs + e] = slack;
-      if (slack < T(0)) {
-        const T D = s_D[a * Bs + e];
-        const T f = -D * slack;  // the row's force, -D min(slack, 0)
-        for (int k = k0; k < k1; ++k) {
-          const int d = row_dof[k];
-          const T cd = vals[k * Bs + e];
-          grad[d] = grad[d] - cd * f;
-          const T acd = D * cd;
-          for (int k2 = k; k2 < k1; ++k2) {
-            const int x2 = row_dof[k2];  // x2 >= d: the supports are sorted
-            H[x2 * NV + d] = H[x2 * NV + d] + acd * vals[k2 * Bs + e];
-          }
-        }
+// A chunk's terms of the gradient (lane d < NV: grad_d) and of the
+// Hessian (the lane's packed entries h), row after row in the active
+// order: each row's force and weight broadcast from its lane.
+template <typename T>
+__device__ void chunk_terms(int n, int lane, const T* Jt, const Chunk<T>& ch, const int* ti,
+                            const int* tk, T& grad, T* h) {
+#pragma unroll
+  for (int c = 0; c < ROW_SLOTS; ++c) {
+    const T w = ch.slack[c] < T(0) ? ch.D[c] : T(0);  // the row's Hessian weight
+    const T f = -ch.D[c] * ch.slack[c];               // its force where w > 0
+    const int nn = n - 32 * c < 32 ? n - 32 * c : 32;
+    for (int j = 0; j < nn; ++j) {
+      const T wr = __shfl_sync(FULL, w, j);
+      const T fr = __shfl_sync(FULL, f, j);
+      if (wr == T(0)) continue;  // the same on every lane
+      const int s = 32 * c + j;
+      if (lane < NV) grad = grad - Jt[lane * JT_STRIDE + s] * fr;
+#pragma unroll
+      for (int m = 0; m < H_SLOTS; ++m) {
+        if (tk[m] < 0) continue;
+        const T acd = wr * Jt[tk[m] * JT_STRIDE + s];
+        h[m] = h[m] + acd * Jt[ti[m] * JT_STRIDE + s];
       }
     }
-    chol_factor(H);
-    for (int d = 0; d < NV; ++d) dq[d] = -grad[d];
-    chol_backsub(H, dq);
+  }
+}
 
-    // exact line search: bisect phi'(alpha) on [0, 2]
-    m_mul(M, m_rows, dq, tmp);
+// chol_solve_s across the warp: H x = x.  H (packed; the lane's entries
+// lane + 32 m at (ti, tk)) becomes its Cholesky factor L, right-looking:
+// each entry takes its column's updates in the order k = 0, 1, ... as
+// chol_factor_s does, and L y = x is carried along, column by column;
+// then L^T x = y, row by row from the last.  Each pivot's reciprocal is
+// kept (dinv) for the second substitution.
+template <typename T>
+__device__ void chol_solve_warp(T* H, T* x, T* dinv, int lane, const int* ti, const int* tk) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const T d = tsqrt(H[col_off(j)]);
+    const T inv = T(1) / d;
+    const T y = x[j] * inv;
+    T a[H_SLOTS], b[H_SLOTS];
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m)
+      if (tk[m] > j) {
+        a[m] = H[low(ti[m], j)];
+        b[m] = H[low(tk[m], j)];
+      }
+    __syncwarp();
+    if (lane == 0) {
+      x[j] = y;
+      dinv[j] = inv;
+    }
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m) {
+      const int t = lane + 32 * m;
+      if (tk[m] == j) {
+        if (ti[m] == j) {
+          H[t] = d;
+        } else {
+          const T l = H[t] * inv;
+          H[t] = l;
+          x[ti[m]] = x[ti[m]] - l * y;
+        }
+      } else if (tk[m] > j) {
+        H[t] = H[t] - (a[m] * inv) * (b[m] * inv);
+      }
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int j = NV - 1; j >= 0; --j) {
+    const T z = x[j] * dinv[j];
+    __syncwarp();
+    if (lane == 0) x[j] = z;
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m)
+      if (ti[m] == j && tk[m] >= 0 && tk[m] < j) x[tk[m]] = x[tk[m]] - H[lane + 32 * m] * z;
+    __syncwarp();
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
+    ant_newton_kernel(int B, int ne, int iters, int ls_iters, const int* __restrict__ tables,
+                      const T* __restrict__ M_in, const T* __restrict__ qs_in,
+                      const T* __restrict__ vals, const T* __restrict__ aref,
+                      const T* __restrict__ rr, const T* __restrict__ act,
+                      const T* __restrict__ warm, T* __restrict__ qacc_out,
+                      T* __restrict__ warm_out) {
+  extern __shared__ __align__(16) unsigned char ant_smem[];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int e0 = blockIdx.x * W, e = e0 + wid;
+  const size_t Bs = B, env_bytes = newton_env_bytes<T>(ne), head = newton_head_bytes<T>();
+  const int* row_ptr = tables;
+  const int* row_dof = tables + ne + 1;
+  const int* m_rows = row_dof + row_ptr[ne];
+
+  // ---- the block's W envs into shared memory, the env index fastest: a
+  // row of an env-minor [k, B] input is W consecutive values
+#pragma unroll 4
+  for (int x = threadIdx.x; x < NL * W; x += 32 * W) {
+    const int t = x / W, w = x % W;
+    int i, k;
+    low_pair(t, i, k);
+    ((T*)(ant_smem + w * env_bytes))[t] =
+        e0 + w < B ? M_in[(size_t)(i * NV + k) * Bs + e0 + w] : T(0);
+  }
+  for (int x = threadIdx.x; x < NV * W; x += 32 * W) {
+    const int w = x / NV, d = x % NV;  // warm is [B, NV]: W x NV consecutive values
+    T* v = (T*)(ant_smem + w * env_bytes) + 2 * NL;
+    T s = T(0), q0 = T(0);
+    if (e0 + w < B) {
+      s = qs_in[d * Bs + e0 + w];
+      q0 = warm ? s + warm[(size_t)(e0 + w) * NV + d] : s;
+    }
+    v[d] = q0;
+    v[NV + d] = s;
+  }
+#pragma unroll 4
+  for (int x = threadIdx.x; x < ne * W; x += 32 * W) {
+    const int row = x / W, w = x % W;
+    ant_smem[w * env_bytes + head + row] = e0 + w < B && act[row * Bs + e0 + w] != T(0);
+  }
+  __syncthreads();
+  if (e >= B) return;  // the whole warp, after the block's only barrier
+
+  unsigned char* base = ant_smem + wid * env_bytes;
+  T* Mp = (T*)base;
+  T* H = Mp + NL;
+  T* q = H + NL;
+  T* qs = q + NV;
+  T* mq = qs + NV;
+  T* rhs = mq + NV;
+  T* tmp = rhs + NV;
+  T* dinv = tmp + NV;
+  T* Jt = (T*)(base + head);
+  unsigned short* idx = (unsigned short*)(base + head + newton_rows_bytes<T>(ne));
+
+  // ---- the active rows (D = 1 / R > 0; the others add exact zeros),
+  // compacted in row order
+  int na = 0;
+  for (int r0 = 0; r0 < ne; r0 += 32) {
+    const bool on = r0 + lane < ne && base[head + r0 + lane];
+    const unsigned bal = __ballot_sync(FULL, on);
+    if (on) idx[na + __popc(bal & ((1u << lane) - 1u))] = (unsigned short)(r0 + lane);
+    na += __popc(bal);
+  }
+  int ti[H_SLOTS], tk[H_SLOTS];  // the lane's entries of H (tk -1: none)
+#pragma unroll
+  for (int m = 0; m < H_SLOTS; ++m) {
+    ti[m] = tk[m] = -1;
+    if (lane + 32 * m < NL) low_pair(lane + 32 * m, ti[m], tk[m]);
+  }
+  // up to ROWS_CAP active rows stay in shared memory and registers for the
+  // whole solve; past that every pass over the rows takes them chunk by
+  // chunk from the rows' own buffers, in the same order (the same sums)
+  Chunk<T> ch;
+  const bool resident = na <= ROWS_CAP;
+  if (resident) stage_rows(0, na, lane, idx, row_ptr, row_dof, vals, aref, rr, Bs, e, Jt, ch);
+
+  for (int it = 0; it < iters; ++it) {
+    if (lane < NV) tmp[lane] = q[lane] - qs[lane];
+    __syncwarp();
+    if (lane < NV) mq[lane] = m_row(Mp, m_rows[lane], lane, tmp);
+    __syncwarp();
+    T grad = lane < NV ? mq[lane] : T(0);
+    T h[H_SLOTS];
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m) h[m] = tk[m] >= 0 ? Mp[lane + 32 * m] : T(0);
+    for (int a0 = 0; a0 < na; a0 += ROWS_CAP) {
+      const int n = na - a0 < ROWS_CAP ? na - a0 : ROWS_CAP;
+      if (!resident)
+        stage_rows(a0, n, lane, idx, row_ptr, row_dof, vals, aref, rr, Bs, e, Jt, ch);
+      chunk_slack(n, lane, Jt, q, (const T*)nullptr, ch);
+      chunk_terms(n, lane, Jt, ch, ti, tk, grad, h);
+    }
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m)
+      if (tk[m] >= 0) H[lane + 32 * m] = h[m];
+    if (lane < NV) rhs[lane] = -grad;
+    __syncwarp();
+    chol_solve_warp(H, rhs, dinv, lane, ti, tk);  // rhs = dq
+
+    // exact line search: bisect phi'(alpha) on [0, 2]; phi' is the same
+    // on every lane, so is each branch
+    if (lane < NV) tmp[lane] = m_row(Mp, m_rows[lane], lane, rhs);
+    __syncwarp();
     T g0 = T(0), gq = T(0);
     for (int d = 0; d < NV; ++d) {
-      g0 = g0 + dq[d] * mq[d];
-      gq = gq + dq[d] * tmp[d];
+      g0 = g0 + rhs[d] * mq[d];
+      gq = gq + rhs[d] * tmp[d];
     }
-    for (int a = 0; a < na; ++a) {
-      const int row = s_idx[a * Bs + e];
-      T jd = T(0);
-      for (int k = row_ptr[row]; k < row_ptr[row + 1]; ++k)
-        jd = jd + vals[k * Bs + e] * dq[row_dof[k]];
-      s_jdq[a * Bs + e] = jd;
-    }
+    if (resident) chunk_slack(na, lane, Jt, q, rhs, ch);
     T lo = T(0), hi = T(2);
     for (int l = 0; l < ls_iters; ++l) {
       const T mid = T(0.5) * (lo + hi);
-      T acc = g0 + mid * gq;
-      for (int a = 0; a < na; ++a) {
-        const T jd = s_jdq[a * Bs + e];
-        const T s = s_slack[a * Bs + e] + mid * jd;
-        if (s < T(0)) acc = acc + jd * s_D[a * Bs + e] * s;
+      T part = T(0);
+      for (int a0 = 0; a0 < na; a0 += ROWS_CAP) {
+        const int n = na - a0 < ROWS_CAP ? na - a0 : ROWS_CAP;
+        if (!resident) {
+          stage_rows(a0, n, lane, idx, row_ptr, row_dof, vals, aref, rr, Bs, e, Jt, ch);
+          chunk_slack(n, lane, Jt, q, rhs, ch);
+        }
+#pragma unroll
+        for (int c = 0; c < ROW_SLOTS; ++c) {
+          if (32 * c + lane >= n) continue;
+          const T jd = ch.jdq[c];
+          const T s = ch.slack[c] + mid * jd;
+          if (s < T(0)) part = part + jd * ch.D[c] * s;
+        }
       }
+      const T acc = (g0 + mid * gq) + warp_sum(part);
       if (acc > T(0))
         hi = mid;
       else
         lo = mid;
     }
     const T alpha = T(0.5) * (lo + hi);
-    for (int d = 0; d < NV; ++d) q[d] = q[d] + alpha * dq[d];
+    __syncwarp();
+    if (lane < NV) q[lane] = q[lane] + alpha * rhs[lane];
+    __syncwarp();
   }
-  for (int d = 0; d < NV; ++d) {
-    qacc_out[(size_t)e * NV + d] = q[d];
-    warm_out[(size_t)e * NV + d] = q[d] - qs[d];
+  if (lane < NV) {
+    qacc_out[(size_t)e * NV + lane] = q[lane];
+    warm_out[(size_t)e * NV + lane] = q[lane] - qs[lane];
   }
 }
 
@@ -895,12 +1188,54 @@ __global__ void ant_newton_kernel(int B, int ne, int iters, int ls_iters,
 // float32, 1 float64.  Mirrored by ops/ant_forward.py.
 
 namespace {
-constexpr int kThreads = 32;  // one warp a block: at B = 4,096, 128 blocks over 132 SMs
+constexpr int kThreads = 32;      // ant_smooth: one env a thread, one warp a block
+constexpr int kRowThreads = 128;  // ant_rows: 128 envs of one unit a block
 
-int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
+int blocks_for(int B, int per_block) { return (B + per_block - 1) / per_block; }
+
+// ant_newton's dynamic shared memory: above 48 KB a kernel must opt in on
+// each device (once per device and size, before the first launch that needs
+// it; the launch runs on the current device)
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+int newton_launch(int B, int ne, int iters, int ls_iters, const void* tables, const void* M,
+                  const void* qs, const void* vals, const void* aref, const void* r,
+                  const void* active, const void* warm, void* qacc, void* warm_out,
+                  cudaStream_t st) {
+  constexpr int W = ant::NewtonEnvs<T>::value;
+  const size_t smem = W * ant::newton_env_bytes<T>(ne);
+  static size_t opted[kMaxDevices];  // 0: the default 48 KB
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > opted[dev]) {
+    err = cudaFuncSetAttribute(ant::ant_newton_kernel<T, W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = smem;
+  }
+  ant::ant_newton_kernel<T, W><<<blocks_for(B, W), 32 * W, smem, st>>>(
+      B, ne, iters, ls_iters, (const int*)tables, (const T*)M, (const T*)qs, (const T*)vals,
+      (const T*)aref, (const T*)r, (const T*)active, (const T*)warm, (T*)qacc, (T*)warm_out);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 extern "C" int ant_forward_model_len(int n_slots) { return ant::M_SLOTS + ant::NSLOTW * n_slots; }
+
+extern "C" int ant_forward_unit_width() { return ant::UNIT_W; }
+
+// ant_newton's active rows an env held in shared memory for the whole solve
+extern "C" int ant_newton_rows_cap() { return ant::ROWS_CAP; }
+
+// ant_newton's shared memory a block (its envs a block: 8 at float32, 4 at float64)
+extern "C" long long ant_newton_smem_bytes(int dtype, int ne) {
+  if (dtype == 0) return ant::NewtonEnvs<float>::value * (long long)ant::newton_env_bytes<float>(ne);
+  if (dtype == 1) return ant::NewtonEnvs<double>::value * (long long)ant::newton_env_bytes<double>(ne);
+  return -1;
+}
 
 extern "C" int ant_smooth_launch(int dtype, int B, const void* mdl, const void* qpos,
                                  const void* qvel, const void* ctrl, void* M, void* qs,
@@ -908,11 +1243,11 @@ extern "C" int ant_smooth_launch(int dtype, int B, const void* mdl, const void* 
   if (B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    ant::ant_smooth_kernel<float><<<blocks_for(B), kThreads, 0, st>>>(
+    ant::ant_smooth_kernel<float><<<blocks_for(B, kThreads), kThreads, 0, st>>>(
         B, (const float*)mdl, (const float*)qpos, (const float*)qvel, (const float*)ctrl,
         (float*)M, (float*)qs, (float*)skin);
   else if (dtype == 1)
-    ant::ant_smooth_kernel<double><<<blocks_for(B), kThreads, 0, st>>>(
+    ant::ant_smooth_kernel<double><<<blocks_for(B, kThreads), kThreads, 0, st>>>(
         B, (const double*)mdl, (const double*)qpos, (const double*)qvel, (const double*)ctrl,
         (double*)M, (double*)qs, (double*)skin);
   else
@@ -920,21 +1255,23 @@ extern "C" int ant_smooth_launch(int dtype, int B, const void* mdl, const void* 
   return (int)cudaGetLastError();
 }
 
-extern "C" int ant_rows_launch(int dtype, int B, int n_slots, int ne, const void* mdl,
-                               const void* tables, const void* skin, const void* qpos,
-                               const void* qvel, void* vals, void* aref, void* r, void* active,
-                               void* stream) {
-  if (B <= 0 || n_slots < 0 || ne != ant::NLIM + 4 * (ant::NFLOOR + ant::NSLOT_CAND * n_slots))
+extern "C" int ant_rows_launch(int dtype, int B, int n_slots, int ne, int n_units,
+                               const void* mdl, const void* tables, const void* units,
+                               const void* skin, const void* qpos, const void* qvel, void* vals,
+                               void* aref, void* r, void* active, void* stream) {
+  if (B <= 0 || n_slots < 0 || ne != ant::NLIM + 4 * (ant::NFLOOR + ant::NSLOT_CAND * n_slots) ||
+      n_units != ant::NLIM + ant::NFLOOR + (1 + ant::NCAP) * n_slots)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(blocks_for(B, kRowThreads), n_units);
   if (dtype == 0)
-    ant::ant_rows_kernel<float><<<blocks_for(B), kThreads, 0, st>>>(
-        B, n_slots, (const float*)mdl, (const int*)tables, ne, (const float*)skin,
+    ant::ant_rows_kernel<float><<<grid, kRowThreads, 0, st>>>(
+        B, (const float*)mdl, (const int*)tables, ne, (const int*)units, (const float*)skin,
         (const float*)qpos, (const float*)qvel, (float*)vals, (float*)aref, (float*)r,
         (float*)active);
   else if (dtype == 1)
-    ant::ant_rows_kernel<double><<<blocks_for(B), kThreads, 0, st>>>(
-        B, n_slots, (const double*)mdl, (const int*)tables, ne, (const double*)skin,
+    ant::ant_rows_kernel<double><<<grid, kRowThreads, 0, st>>>(
+        B, (const double*)mdl, (const int*)tables, ne, (const int*)units, (const double*)skin,
         (const double*)qpos, (const double*)qvel, (double*)vals, (double*)aref, (double*)r,
         (double*)active);
   else
@@ -946,23 +1283,15 @@ extern "C" int ant_newton_launch(int dtype, int B, int ne, int iters, int ls_ite
                                  const void* tables, const void* M, const void* qs,
                                  const void* vals, const void* aref, const void* r,
                                  const void* active, const void* warm, void* qacc,
-                                 void* warm_out, void* s_idx, void* s_D, void* s_slack,
-                                 void* s_jdq, void* stream) {
-  if (B <= 0 || ne <= 0 || iters < 0 || ls_iters < 0) return (int)cudaErrorInvalidValue;
+                                 void* warm_out, void* stream) {
+  if (B <= 0 || ne <= 0 || ne > 65535 || iters < 0 || ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    ant::ant_newton_kernel<float><<<blocks_for(B), kThreads, 0, st>>>(
-        B, ne, iters, ls_iters, (const int*)tables, (const float*)M, (const float*)qs,
-        (const float*)vals, (const float*)aref, (const float*)r, (const float*)active,
-        (const float*)warm, (float*)qacc, (float*)warm_out, (int*)s_idx, (float*)s_D,
-        (float*)s_slack, (float*)s_jdq);
-  else if (dtype == 1)
-    ant::ant_newton_kernel<double><<<blocks_for(B), kThreads, 0, st>>>(
-        B, ne, iters, ls_iters, (const int*)tables, (const double*)M, (const double*)qs,
-        (const double*)vals, (const double*)aref, (const double*)r, (const double*)active,
-        (const double*)warm, (double*)qacc, (double*)warm_out, (int*)s_idx, (double*)s_D,
-        (double*)s_slack, (double*)s_jdq);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return newton_launch<float>(B, ne, iters, ls_iters, tables, M, qs, vals, aref, r, active,
+                                warm, qacc, warm_out, st);
+  if (dtype == 1)
+    return newton_launch<double>(B, ne, iters, ls_iters, tables, M, qs, vals, aref, r, active,
+                                 warm, qacc, warm_out, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,21 +1,25 @@
 """The ant engine's ``pipeline="scalar"`` forward: three hand-written CUDA
-kernels, one env per thread, and their plain twins.
+kernels and their plain twins.
 
 Port of the JAX package's default ant forward
 (``gym_po_tpu/physics/engine.py:87-97``: ``smooth_forward_s``,
 ``contact_candidates_s`` + ``constraint_rows_scalar``,
 ``solve_constraints_newton_s``), whose per-env scalar code XLA lowers to
-straight-line vector code on the TPU.  On the card each env is one thread
-of ``csrc/ant_forward.cu``:
+straight-line vector code on the TPU.  On the card (``csrc/ant_forward.cu``):
 
 * :func:`ant_smooth` ``(qpos, qvel, ctrl) -> Smooth(M, qacc_smooth, skin)``:
   FK, the mass matrix, the bias force, actuation, damping and the 14x14
-  solve;
+  solve; one env a thread;
 * :func:`ant_rows` ``(skin, qpos, qvel) -> Rows(vals, aref, r, active)``:
   the 8 joint-limit rows and 4 pyramid rows per collision candidate, each
-  row's values over its static dof support;
+  row's values over its static dof support; one thread per (unit, env), the
+  env index fastest within a warp (:func:`units`: a limit row, a floor
+  sphere or capsule end, a wall slot's torso sphere-box, or a capsule's
+  three capsule-box slots in one wall slot);
 * :func:`ant_newton` ``(smooth, rows, warm) -> (qacc, warm')``: the primal
-  Newton solve over the active rows.
+  Newton solve over the active rows; one warp per env, 8 envs a block at
+  f32 (4 at f64), each env's M, Hessian, factor and active rows in shared
+  memory and registers (:func:`newton_smem_bytes`).
 
 :func:`forward` chains the three on the current stream into buffers made
 once per (model, batch, dtype, device), so an env step allocates nothing
@@ -27,13 +31,15 @@ copies the model to the card.
 Layouts.  The model's constants are one buffer (:func:`pack_model`, read
 back by :func:`unpack_model`); the static dof support of each row (what the
 JAX scalar pipeline drops at trace time as Python zeros) is a CSR table
-(:func:`row_supports`, :func:`mass_support`).  Every buffer between the
+(:func:`row_supports`, :func:`mass_support`); ``ant_rows``' units are an
+int32 table (:func:`units`, :data:`UNIT_FIELDS`).  Every buffer between the
 kernels is env-minor, ``[k, B]``: ``M`` ``[196, B]`` (row-major 14x14),
 ``qacc_smooth`` ``[14, B]``, ``skin`` ``[240, B]`` (:data:`SKIN_FIELDS`:
 body xpos and xmat, each dof's world axis and anchor), ``vals`` ``[nnz, B]``
 (row after row, each over its support), ``aref``, ``r``, ``active``
-``[ne, B]``.  ``qpos``, ``qvel``, ``ctrl``, ``warm`` and the outputs are
-``[B, n]`` as the engine holds them.
+``[ne, B]``; ``ant_newton`` copies its block's envs of them into shared
+memory with the env index fastest.  ``qpos``, ``qvel``, ``ctrl``, ``warm``
+and the outputs are ``[B, n]`` as the engine holds them.
 
 Each kernel wrapper launches its kernel on a CUDA tensor (or raises) and
 runs its twin on a CPU tensor: ``smooth_twin``, ``rows_twin`` and
@@ -60,9 +66,9 @@ from ._build import count_launch
 
 __all__ = [
     "MODEL_FIELDS", "SCALARS", "SKIN_FIELDS", "Smooth", "Rows", "pack_model",
-    "unpack_model", "row_supports", "mass_support", "tables", "ant_smooth",
-    "ant_rows", "ant_newton", "smooth_twin", "rows_twin", "newton_twin",
-    "forward", "dense_rows",
+    "unpack_model", "row_supports", "mass_support", "tables", "UNIT_FIELDS",
+    "units", "newton_smem_bytes", "newton_rows_cap", "ant_smooth", "ant_rows",
+    "ant_newton", "smooth_twin", "rows_twin", "newton_twin", "forward", "dense_rows",
 ]
 
 NB, NV, NQ, NJ, NU, NG = 13, 14, 15, 8, 8, 13
@@ -88,6 +94,10 @@ SKIN_FIELDS = (("xpos", (NB, 3)), ("xmat", (NB, 3, 3)), ("dof_u", (NV, 3)),
 SKIN = sum(int(np.prod(s)) for _, s in SKIN_FIELDS)
 _INT_FIELDS = {"parent", "body_jnt", "jnt_body", "jnt_dof", "jnt_qpos",
                "act_dof", "geom_body"}
+# ant_rows' units (the U_* and UF_* enums of csrc/ant_forward.cu)
+UNIT_FIELDS = ("kind", "index", "body", "geom", "slot", "end", "hinge0",
+               "hinge1")
+U_LIMIT, U_FLOOR_TORSO, U_FLOOR_END, U_WALL_TORSO, U_WALL_CAPSULE = range(5)
 
 
 class Smooth(NamedTuple):
@@ -117,6 +127,8 @@ def _check_model(model: AntModel) -> None:
                                   >= np.arange(1, NB)).any():
         raise ValueError("the kernels take geom 0 as the torso sphere and "
                          "each body after its parent")
+    if max(len(_hinges(model, b)) for b in range(NB)) > 2:
+        raise ValueError("the kernels take at most 2 hinges moving a body")
 
 
 def _scalars(model: AntModel) -> dict:
@@ -249,6 +261,38 @@ def tables(model: AntModel) -> np.ndarray:
     return np.concatenate([row_ptr, np.concatenate(rows), m_rows]).astype(np.int32)
 
 
+def units(model: AntModel) -> np.ndarray:
+    """``ant_rows``' units, one thread's work for one env: int32 ``[n,
+    len(UNIT_FIELDS)]`` in the JAX candidate order (``contact_candidates_s``:
+    the floor spheres, the torso and each capsule's two ends, then per wall
+    slot the torso and each capsule's three slots), after the 8 limit rows.
+    ``index`` is a limit row's hinge, else the unit's first candidate (a
+    capsule-box unit holds three); ``body`` and ``geom`` are the
+    candidate's (-1 for a limit row), ``slot`` its wall slot (-1 on the
+    floor), ``end`` a floor capsule end's (0 the segment's start, 1 its end);
+    ``hinge0``, ``hinge1`` the hinge dofs that move the body, ascending (-1:
+    none)."""
+    _check_model(model)
+    gb = [int(b) for b in model.geom_body]
+
+    def unit(kind, index, geom=-1, slot=-1, end=0):
+        body = gb[geom] if geom >= 0 else -1
+        hinges = _hinges(model, body) if body >= 0 else []
+        return [kind, index, body, geom, slot, end,
+                *(hinges + [-1, -1])[:2]]
+
+    out = [unit(U_LIMIT, j) for j in range(NJ)]
+    out.append(unit(U_FLOOR_TORSO, 0, 0))
+    out += [unit(U_FLOOR_END, 1 + 2 * i + end, 1 + i, end=end)
+            for i in range(NCAP) for end in (0, 1)]
+    for s in range(len(_contact._wall_slots(model.walls))):
+        base = NFLOOR + NSLOT_CAND * s
+        out.append(unit(U_WALL_TORSO, base, 0, s))
+        out += [unit(U_WALL_CAPSULE, base + 1 + 3 * i, 1 + i, s)
+                for i in range(NCAP)]
+    return np.array(out, np.int32)
+
+
 # ------------------------------------------------------------------ plans
 
 _PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -266,6 +310,7 @@ class _Plan:
     def __init__(self, model: AntModel, dtype: torch.dtype, device):
         self.dtype, self.device = dtype, torch.device(device)
         rows = row_supports(model)
+        self.units = torch.as_tensor(units(model), device=device)
         self.n_slots = len(_contact._wall_slots(model.walls))
         self.ne = len(rows)
         self.nnz = sum(len(r) for r in rows)
@@ -276,11 +321,13 @@ class _Plan:
         self.tables = torch.as_tensor(tables(model), device=device)
         self.buffers: dict = {}
         if self.device.type == "cuda" and (
-                _lib().ant_forward_model_len(self.n_slots) != self.model.numel()):
-            raise RuntimeError("the model buffer's layout is not the kernels'")
+                _lib().ant_forward_model_len(self.n_slots) != self.model.numel()
+                or _lib().ant_forward_unit_width() != len(UNIT_FIELDS)):
+            raise RuntimeError("the model buffer's or the units' layout is "
+                               "not the kernels'")
 
     def batch(self, B: int):
-        """(smooth, rows, scratch) buffers of batch ``B``, made once."""
+        """(smooth, rows) buffers of batch ``B``, made once."""
         dtype, device = self.dtype, self.device
         if B not in self.buffers:
             if _capturing(device):
@@ -288,15 +335,13 @@ class _Plan:
                                    "must run eagerly, before any CUDA graph "
                                    "capture")
 
-            def new(*shape, dt=dtype):
-                return torch.empty(shape, dtype=dt, device=device)
+            def new(*shape):
+                return torch.empty(shape, dtype=dtype, device=device)
 
             self.buffers[B] = (
                 Smooth(new(NV * NV, B), new(NV, B), new(SKIN, B)),
                 Rows(new(self.nnz, B), new(self.ne, B), new(self.ne, B),
-                     new(self.ne, B)),
-                (new(self.ne, B, dt=torch.int32), new(self.ne, B),
-                 new(self.ne, B), new(self.ne, B)))
+                     new(self.ne, B)))
         return self.buffers[B]
 
 
@@ -322,9 +367,15 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ant_forward_model_len.argtypes = [i]
     lib.ant_forward_model_len.restype = i
+    lib.ant_forward_unit_width.argtypes = []
+    lib.ant_forward_unit_width.restype = i
+    lib.ant_newton_smem_bytes.argtypes = [i, i]
+    lib.ant_newton_smem_bytes.restype = ctypes.c_longlong
+    lib.ant_newton_rows_cap.argtypes = []
+    lib.ant_newton_rows_cap.restype = i
     lib.ant_smooth_launch.argtypes = [i, i] + [p] * 8
-    lib.ant_rows_launch.argtypes = [i, i, i, i] + [p] * 10
-    lib.ant_newton_launch.argtypes = [i] * 5 + [p] * 15
+    lib.ant_rows_launch.argtypes = [i] * 5 + [p] * 11
+    lib.ant_newton_launch.argtypes = [i] * 5 + [p] * 11
     for fn in (lib.ant_smooth_launch, lib.ant_rows_launch, lib.ant_newton_launch):
         fn.restype = i
     return lib
@@ -348,19 +399,32 @@ def _check(x: torch.Tensor, shape: tuple, dtype, device, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, *args) -> None:
-    err = getattr(_lib(), f"{name}_launch")(*args)
+def _launch(name: str, device, *args) -> None:
+    """``name``'s launcher on ``device``, made current, and its current
+    stream (the stream is the launcher's last argument)."""
+    with torch.cuda.device(device):
+        err = getattr(_lib(), f"{name}_launch")(
+            *args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def newton_smem_bytes(model: AntModel, dtype: torch.dtype) -> int:
+    """``ant_newton``'s dynamic shared memory a block (its envs' M, factor,
+    vectors, active-row indices and rows in shared memory), from the
+    kernels' library."""
+    return int(_lib().ant_newton_smem_bytes(_dtype_code(dtype),
+                                            len(row_supports(model))))
+
+
+def newton_rows_cap() -> int:
+    """``ant_newton``'s active rows an env kept in shared memory for the
+    whole solve; more are restaged chunk by chunk in every pass."""
+    return int(_lib().ant_newton_rows_cap())
+
+
 def _ptr(x):
     return None if x is None else x.data_ptr()
-
-
-def _stream(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -454,8 +518,8 @@ def ant_smooth(model: AntModel, qpos: torch.Tensor, qvel: torch.Tensor,
     if out is None:
         out = Smooth(*(torch.empty(n, B, dtype=dt, device=dev)
                        for n in (NV * NV, NV, SKIN)))
-    _launch("ant_smooth", _dtype_code(dt), B, _ptr(p.model), _ptr(qpos),
-            _ptr(qvel), _ptr(ctrl), *map(_ptr, out), _stream(dev))
+    _launch("ant_smooth", dev, _dtype_code(dt), B, _ptr(p.model), _ptr(qpos),
+            _ptr(qvel), _ptr(ctrl), *map(_ptr, out))
     count_launch(ant_smooth, "ant_smooth")
     return out
 
@@ -475,20 +539,18 @@ def ant_rows(model: AntModel, skin: torch.Tensor, qpos: torch.Tensor,
     if out is None:
         out = Rows(*(torch.empty(n, B, dtype=dt, device=dev)
                      for n in (p.nnz, p.ne, p.ne, p.ne)))
-    _launch("ant_rows", _dtype_code(dt), B, p.n_slots, p.ne,
-            _ptr(p.model), _ptr(p.tables), _ptr(skin), _ptr(qpos), _ptr(qvel),
-            *map(_ptr, out), _stream(dev))
+    _launch("ant_rows", dev, _dtype_code(dt), B, p.n_slots, p.ne, len(p.units),
+            _ptr(p.model), _ptr(p.tables), _ptr(p.units), _ptr(skin),
+            _ptr(qpos), _ptr(qvel), *map(_ptr, out))
     count_launch(ant_rows, "ant_rows")
     return out
 
 
 def ant_newton(model: AntModel, smooth: Smooth, rows: Rows, warm=None,
-               iters: int = 8, ls_iters: int = 10, scratch=None):
+               iters: int = 8, ls_iters: int = 10):
     """The primal Newton solve → ``(qacc, qacc - qacc_smooth)``, each
     ``[B, 14]``, from ``qacc_smooth + warm`` (``warm [B, 14]`` or None):
-    the kernel on a CUDA tensor (``scratch``: the active rows' indices, D,
-    slack and slope, ``[ne, B]`` each, made here when not given), the twin
-    on a CPU tensor."""
+    the kernel on a CUDA tensor, the twin on a CPU tensor."""
     dt, dev = smooth.M.dtype, smooth.M.device
     B = smooth.M.shape[1]
     p = _plan(model, dt, dev)
@@ -502,15 +564,11 @@ def ant_newton(model: AntModel, smooth: Smooth, rows: Rows, warm=None,
         raise ValueError("iters and ls_iters must be >= 0")
     if _device_kind(smooth.M) == "cpu":
         return newton_twin(model, smooth, rows, warm, iters, ls_iters)
-    if scratch is None:
-        scratch = (torch.empty(p.ne, B, dtype=torch.int32, device=dev),
-                   *(torch.empty(p.ne, B, dtype=dt, device=dev) for _ in range(3)))
     qacc = torch.empty(B, NV, dtype=dt, device=dev)
     warm_out = torch.empty_like(qacc)
-    _launch("ant_newton", _dtype_code(dt), B, p.ne, iters, ls_iters,
+    _launch("ant_newton", dev, _dtype_code(dt), B, p.ne, iters, ls_iters,
             _ptr(p.tables), _ptr(smooth.M), _ptr(smooth.qacc_smooth),
-            *map(_ptr, rows), _ptr(warm), _ptr(qacc), _ptr(warm_out),
-            *map(_ptr, scratch), _stream(dev))
+            *map(_ptr, rows), _ptr(warm), _ptr(qacc), _ptr(warm_out))
     count_launch(ant_newton, "ant_newton")
     return qacc, warm_out
 
@@ -526,8 +584,7 @@ def forward(model: AntModel, qpos: torch.Tensor, qvel: torch.Tensor,
     qacc - qacc_smooth)``: ``ant_smooth`` → ``ant_rows`` → ``ant_newton``,
     on a CUDA tensor into the buffers of this (model, batch, dtype,
     device) (on a CPU tensor each wrapper runs its twin)."""
-    sm_buf, rows_buf, scratch = _plan(model, qpos.dtype, qpos.device).batch(
-        qpos.shape[0])
+    sm_buf, rows_buf = _plan(model, qpos.dtype, qpos.device).batch(qpos.shape[0])
     smooth = ant_smooth(model, qpos, qvel, ctrl, out=sm_buf)
     rows = ant_rows(model, smooth.skin, qpos, qvel, out=rows_buf)
-    return ant_newton(model, smooth, rows, warm, iters, ls_iters, scratch)
+    return ant_newton(model, smooth, rows, warm, iters, ls_iters)

@@ -16,7 +16,7 @@ pipeline), as batched tensor code over a leading env axis:
 
 These modules port the JAX package's array pipeline.  Its default scalar
 pipeline (per-env straight-line code, which XLA turns into TPU vector
-code) is ported as hand-written CUDA kernels, one env per thread
+code) is ported as hand-written CUDA kernels
 (:mod:`gym_po_tpu_torch.ops.ant_forward`), which :func:`.engine.forward`
 runs for ``pipeline="scalar"`` on a CUDA tensor.
 """

@@ -1,0 +1,261 @@
+"""The ant kernels' CUDA source run on the CPU, against their plain twins.
+
+``csrc/ant_forward.cu`` runs only on the card, where ``tests/test_torch_cuda.py``
+holds it to the twins.  Here its device code (everything above the
+launchers) is compiled by the host C++ compiler under a small shim that
+runs every GPU thread of a block as a ``std::thread``: ``__syncwarp`` and
+``__syncthreads`` are barriers, a shuffle or a ballot goes through a
+per-warp slot array between two barriers, shared memory is one buffer a
+block (filled with garbage first).  So the warp-per-env Newton solve, its
+compaction, chunking and butterfly sums, and the thread-per-(unit, env)
+rows run as written, with the twins' tolerances: f64 within 1e-9 relative
+to max(1, |x|) (Newton after 16 iterations), f32 within
+``chip_smoke.ant_f32_errs``' gates.  ``-ffp-contract=fast -mfma`` makes
+the host fuse multiply-adds as the card does.  Batches of 20 envs leave
+the last Newton block (8 envs at f32, 4 at f64) part empty; a forced test
+makes every row active, so each pass takes the rows chunk by chunk.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from gym_po_tpu_torch.ops import ant_forward as af
+
+SRC = Path(af.__file__).resolve().parent.parent / "csrc" / "ant_forward.cu"
+
+SHIM = r"""
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <math.h>
+#include <memory>
+#include <stdint.h>
+#include <thread>
+#include <vector>
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __align__(x)
+struct WarpCtx {
+  std::barrier<> bar{32};
+  uint64_t slots[32];
+};
+struct BlockCtx {
+  std::unique_ptr<std::barrier<>> bar;
+  unsigned char* smem;
+};
+inline thread_local WarpCtx* g_warp = nullptr;
+inline thread_local BlockCtx* g_block = nullptr;
+inline unsigned char* shim_smem() { return g_block->smem; }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warp->bar.arrive_and_wait(); }
+inline void __syncthreads() { g_block->bar->arrive_and_wait(); }
+inline int shim_lane() { return threadIdx.x & 31; }
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  uint64_t u = 0;
+  std::memcpy(&u, &v, sizeof(T));
+  g_warp->slots[shim_lane()] = u;
+  __syncwarp();
+  const uint64_t r = g_warp->slots[src & 31];
+  __syncwarp();
+  T out;
+  std::memcpy(&out, &r, sizeof(T));
+  return out;
+}
+template <class T>
+T __shfl_xor_sync(unsigned m, T v, int o) { return __shfl_sync(m, v, shim_lane() ^ o); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  g_warp->slots[shim_lane()] = pred ? 1 : 0;
+  __syncwarp();
+  unsigned b = 0;
+  for (int i = 0; i < 32; ++i) b |= (g_warp->slots[i] ? 1u : 0u) << i;
+  __syncwarp();
+  return b;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// a grid of blocks one after another, a std::thread per thread of a block
+template <class F>
+void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      BlockCtx blk;
+      blk.bar.reset(new std::barrier<>(block.x));
+      std::vector<unsigned char> mem(smem + 16, 0xCD);
+      blk.smem = mem.data();
+      std::vector<std::unique_ptr<WarpCtx>> warps;
+      for (unsigned w = 0; w < (block.x + 31) / 32; ++w) warps.emplace_back(new WarpCtx());
+      std::vector<std::thread> ts;
+      for (unsigned t = 0; t < block.x; ++t)
+        ts.emplace_back([&, t] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          blockDim = block;
+          gridDim = grid;
+          g_block = &blk;
+          g_warp = warps[t / 32].get();
+          fn();
+        });
+      for (auto& th : ts) th.join();
+    }
+}
+"""
+
+LAUNCH = r"""
+template <typename T>
+static void rows(int B, int ne, int n_units, const void* mdl, const void* tables,
+                 const void* units, const void* skin, const void* qpos, const void* qvel,
+                 void* vals, void* aref, void* r, void* active) {
+  shim_launch(dim3((B + 127) / 128, n_units), dim3(128), 0, [&] {
+    ant::ant_rows_kernel<T>(B, (const T*)mdl, (const int*)tables, ne, (const int*)units,
+                            (const T*)skin, (const T*)qpos, (const T*)qvel, (T*)vals, (T*)aref,
+                            (T*)r, (T*)active);
+  });
+}
+extern "C" void host_rows(int dtype, int B, int ne, int n_units, const void* mdl,
+                          const void* tables, const void* units, const void* skin,
+                          const void* qpos, const void* qvel, void* vals, void* aref, void* r,
+                          void* active) {
+  if (dtype == 0)
+    rows<float>(B, ne, n_units, mdl, tables, units, skin, qpos, qvel, vals, aref, r, active);
+  else
+    rows<double>(B, ne, n_units, mdl, tables, units, skin, qpos, qvel, vals, aref, r, active);
+}
+template <typename T>
+static void newton(int B, int ne, int iters, int ls, const void* tables, const void* M,
+                   const void* qs, const void* vals, const void* aref, const void* r,
+                   const void* active, const void* warm, void* qacc, void* warm_out) {
+  constexpr int W = ant::NewtonEnvs<T>::value;
+  shim_launch(dim3((B + W - 1) / W), dim3(32 * W), W * ant::newton_env_bytes<T>(ne), [&] {
+    ant::ant_newton_kernel<T, W>(B, ne, iters, ls, (const int*)tables, (const T*)M,
+                                 (const T*)qs, (const T*)vals, (const T*)aref, (const T*)r,
+                                 (const T*)active, (const T*)warm, (T*)qacc, (T*)warm_out);
+  });
+}
+extern "C" void host_newton(int dtype, int B, int ne, int iters, int ls, const void* tables,
+                            const void* M, const void* qs, const void* vals, const void* aref,
+                            const void* r, const void* active, const void* warm, void* qacc,
+                            void* warm_out) {
+  if (dtype == 0)
+    newton<float>(B, ne, iters, ls, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out);
+  else
+    newton<double>(B, ne, iters, ls, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out);
+}
+"""
+
+
+def host_source() -> str:
+    """The kernels' device code (the source above its launchers) between
+    the shim and the host launchers."""
+    text = SRC.read_text()
+    device = text[:text.index("// " + "-" * 64 + " launchers")]
+    device = device.replace("#include <cuda_runtime.h>\n", "")
+    shared = "extern __shared__ __align__(16) unsigned char ant_smem[];"
+    assert device.count(shared) == 1
+    device = device.replace(shared, "unsigned char* ant_smem = shim_smem();")
+    return SHIM + device + LAUNCH
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build the kernels' device code for the host")
+    d = tmp_path_factory.mktemp("ant_host")
+    (d / "ant_host.cpp").write_text(host_source())
+    subprocess.run([cxx, "-std=c++20", "-O2", "-mfma", "-ffp-contract=fast", "-fPIC",
+                    "-shared", "-pthread", "-o", str(d / "ant_host.so"),
+                    str(d / "ant_host.cpp")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(d / "ant_host.so"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.host_rows.argtypes = [i] * 4 + [p] * 10
+    lib.host_newton.argtypes = [i] * 5 + [p] * 10
+    return lib
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _host_rows(lib, model, skin, qpos, qvel) -> af.Rows:
+    p = af._plan(model, qpos.dtype, "cpu")
+    B = qpos.shape[0]
+    out = af.Rows(*(torch.full((n, B), float("nan"), dtype=qpos.dtype)
+                    for n in (p.nnz, p.ne, p.ne, p.ne)))
+    lib.host_rows(int(qpos.dtype == torch.float64), B, p.ne, len(p.units), _ptr(p.model),
+                  _ptr(p.tables), _ptr(p.units), _ptr(skin), _ptr(qpos), _ptr(qvel),
+                  *map(_ptr, out))
+    return out
+
+
+def _host_newton(lib, model, sm, rows, warm, iters):
+    p = af._plan(model, sm.M.dtype, "cpu")
+    B = sm.M.shape[1]
+    qacc = torch.full((B, af.NV), float("nan"), dtype=sm.M.dtype)
+    warm_out = torch.full_like(qacc, float("nan"))
+    lib.host_newton(int(sm.M.dtype == torch.float64), B, p.ne, iters, 10, _ptr(p.tables),
+                    _ptr(sm.M), _ptr(sm.qacc_smooth), *map(_ptr, rows), _ptr(warm),
+                    _ptr(qacc), _ptr(warm_out))
+    return qacc, warm_out
+
+
+def _inputs(dtype, n, seed):
+    return [torch.as_tensor(x, dtype=dtype)
+            for x in cs.ant_contact_states(n, seed, walls=True)]
+
+
+def _rel(a, b):
+    return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("env_id", cs.ANT_IDS)
+def test_host_rows_and_newton_equal_twins(host_lib, env_id, dtype):
+    model = cs._ant_models()[env_id]
+    q, v, c, w = _inputs(dtype, 20, 7)
+    sm = af.ant_smooth(model, q, v, c)  # the twin: ant_smooth is unchanged
+    rows = _host_rows(host_lib, model, sm.skin, q, v)
+    assert rows.active[af.NJ:].sum() > 0
+    if dtype == torch.float32:
+        got = _host_newton(host_lib, model, sm, rows, w, 8)
+        cs.ant_f32_errs(model, torch.device("cpu"), q, v, c, w, sm, rows, got)
+        return
+    rt = af.rows_twin(model, sm.skin, q, v)
+    full = af._contact.constraint_rows(model, af._skin_kinematics(model, sm.skin), q, v)
+    assert _rel(af.dense_rows(model, rows).jac, full.jac) <= 1e-9
+    for name in ("aref", "r"):
+        assert _rel(getattr(rows, name), getattr(rt, name)) <= 1e-9, name
+    assert torch.equal(rows.active, rt.active)
+    got = _host_newton(host_lib, model, sm, rows, w, 16)
+    want = af.newton_twin(model, sm, rows, w, iters=16)
+    for g, t in zip(got, want):
+        assert _rel(g, t) <= 1e-9
+
+
+@pytest.mark.parametrize("env_id", cs.ANT_IDS)
+def test_host_newton_every_row_active_equals_twin(host_lib, env_id):
+    """Every row active: ne rows an env (404, 848), past the rows the
+    kernel keeps in shared memory, at f64 within 1e-9 after 16
+    iterations."""
+    model = cs._ant_models()[env_id]
+    q, v, c, w = _inputs(torch.float64, 10, 5)
+    sm = af.ant_smooth(model, q, v, c)
+    rows = af.ant_rows(model, sm.skin, q, v)
+    rows = rows._replace(active=torch.ones_like(rows.active))
+    got = _host_newton(host_lib, model, sm, rows, w, 16)
+    want = af.newton_twin(model, sm, rows, w, iters=16)
+    for g, t in zip(got, want):
+        assert _rel(g, t) <= 1e-9

@@ -342,6 +342,89 @@ def test_kernel_layouts_on_the_cpu(walls):
         taf.ant_smooth(tm, qpos.float(), qvel, ctrl)
 
 
+_UNIT_CANDIDATES = {taf.U_FLOOR_TORSO: 1, taf.U_FLOOR_END: 1,
+                    taf.U_WALL_TORSO: 1, taf.U_WALL_CAPSULE: 3}
+
+
+@pytest.mark.parametrize("walls", list(WALLS))
+def test_rows_units_cover_the_jax_candidates(walls):
+    """``ant_rows``' unit table: the 8 limit rows, then units that cover
+    every candidate of the row table exactly once, in the JAX candidate
+    order, each with the body, geom and wall slot that
+    ``contact_candidates_s`` builds it from: a unit's geom (and capsule
+    end) placed by the JAX kinematics lands on the JAX candidate's sphere
+    centre or capsule segment, its body is the JAX one (whose invweight
+    the candidate carries), its hinges the body's."""
+    jm, tm = _models(walls)
+    u = taf.units(tm)
+    F = {f: i for i, f in enumerate(taf.UNIT_FIELDS)}
+    nc = (len(taf.row_supports(tm)) - taf.NJ) // 4
+    assert (u[:taf.NJ, F["kind"]] == taf.U_LIMIT).all()
+    assert list(u[:taf.NJ, F["index"]]) == list(range(taf.NJ))
+    covered = [c for x in u[taf.NJ:] for c in range(
+        x[F["index"]], x[F["index"]] + _UNIT_CANDIDATES[x[F["kind"]]])]
+    assert covered == list(range(nc))
+    qpos = states(walls)[0][0]
+    with numpy_jax():
+        s = jdyn.kinematics_s(jm, qpos)
+        spheres = jcon._sphere_centers_s(jm, s)
+        capsules = jcon._capsules_s(jm, s)
+        slots = jcon._wall_slots(jm.walls)
+        cands = jcon.contact_candidates_s(jm, s)
+    assert len(cands) == nc
+    # each JAX candidate: (body, wall slot, the sphere centre or segment)
+    want = [(b, -1, np.array(c)) for c, b, _, _, _ in spheres]
+    for k in range(len(slots)):
+        want.append((spheres[0][1], k, np.array(spheres[0][0])))
+        for p0, p1, _, b in capsules:
+            want += [(b, k, np.array([p0, p1]))] * 3
+    inv0 = jcon._body_invweight(jm)
+    for x in u[taf.NJ:]:
+        kind, g, b = x[F["kind"]], x[F["geom"]], x[F["body"]]
+        R = np.array(s.xmat[b], np.float64).reshape(3, 3)
+        center = np.array(s.xpos[b]) + R @ np.asarray(jm.geom_pos[g])
+        half = jm.geom_h[g] * (R @ np.asarray(jm.geom_axis[g]))
+        if kind == taf.U_FLOOR_END:
+            point = center + (half if x[F["end"]] else -half)
+        elif kind == taf.U_WALL_CAPSULE:
+            point = np.array([center - half, center + half])
+        else:
+            point = center
+        assert b == int(jm.geom_body[g])
+        assert [h for h in x[[F["hinge0"], F["hinge1"]]] if h >= 0] == [
+            d for d, _ in jcon._hinges_of_body(jm, b)]
+        for c in range(x[F["index"]], x[F["index"]] + _UNIT_CANDIDATES[kind]):
+            wb, wk, wp = want[c]
+            assert (b, x[F["slot"]]) == (wb, wk), c
+            np.testing.assert_allclose(point, wp, rtol=0, atol=1e-12)
+            assert cands[c]["invweight"] == float(inv0[b])
+
+
+@pytest.mark.parametrize("walls", list(WALLS))
+def test_newton_twin_every_row_active_matches_jax(walls):
+    """``newton_twin`` on rows whose active flags are all 1 (every env
+    solves over all ne rows, what the card test hands ``ant_newton``)
+    against the JAX package's ``solve_constraints_newton`` at f64 on the
+    same M, qacc_smooth, rows and warm start: 8 iterations, 10 bisections,
+    qacc to 1e-9."""
+    jm, tm = _models(walls)
+    qpos, qvel, ctrl, warm = map(_t, states(walls))
+    sm = taf.ant_smooth(tm, qpos, qvel, ctrl)
+    rows = taf.ant_rows(tm, sm.skin, qpos, qvel)
+    rows = rows._replace(active=torch.ones_like(rows.active))
+    got, _ = taf.newton_twin(tm, sm, rows, warm, iters=ITERS)
+    dense = taf.dense_rows(tm, rows)
+    M = taf._batch_mass(sm.M)
+    qs = sm.qacc_smooth.T
+    with jax.enable_x64(True):
+        solve = jax.jit(jax.vmap(lambda m, a, jt, ar, r, act, q0: jcon.solve_constraints_newton(
+            jm, m, a, jcon.ConstraintRows(jt, ar, r, act), iters=ITERS,
+            ls_iters=10, qacc0=q0)[0]))
+        want = np.asarray(solve(*(jnp.asarray(x.numpy()) for x in (
+            M, qs, dense.jac_t, dense.aref, dense.r, dense.active, qs + warm))))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
+
+
 def test_launches_under_capture_count_at_replay(monkeypatch):
     """A launch under CUDA-graph capture is set aside, not counted, and
     each replay of the graph counts what it recorded."""

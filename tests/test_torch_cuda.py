@@ -1773,3 +1773,95 @@ def test_ant_scalar_step_graph_replay_equals_eager(cuda, env_id):
     want = env.physics(qpos, qvel, warm, act)
     for g, w in zip(out, want):
         assert torch.equal(g, w)
+
+
+# ------------------------- the ant kernels' geometry: a thread per (unit, env)
+# in ant_rows, a warp per env in ant_newton, at the envs' batch and ragged
+@pytest.mark.parametrize("B", [4096, 4097, 100])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("walls", ["tag", "hh"])
+def test_ant_rows_and_newton_equal_twins_at_batch(cuda, walls, dtype, B):
+    """ant_rows and ant_newton against their twins on the same inputs at
+    B = 4,096 and at batches whose last block is partly empty (4,097: one
+    env in it; 100).  f64: the rows densified through the support table,
+    aref and r within 1e-9 relative to max(1, |x|), the flags equal; the
+    solve after 16 iterations (converged) within 1e-9.  f32: the gates of
+    ``chip_smoke.ant_f32_errs`` (rows 2e-3, the solve after 8 iterations
+    1e-4; flags may differ only within 1e-5 of a threshold or on the
+    capsule-box coincidence slots)."""
+    from chip_smoke import ant_f32_errs
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    model, (qpos, qvel, ctrl, warm) = _ant_kernel_inputs(cuda, walls, dtype,
+                                                         n=B, seed=3)
+    sm = af.ant_smooth(model, qpos, qvel, ctrl)
+    rows = af.ant_rows(model, sm.skin, qpos, qvel)
+    assert rows.active[8:].sum() > 0
+    if dtype == torch.float32:
+        got = af.ant_newton(model, sm, rows, warm, iters=8)
+        ant_f32_errs(model, cuda, qpos, qvel, ctrl, warm, sm, rows, got)
+        return
+    rt = af.rows_twin(model, sm.skin, qpos, qvel)
+    full = af._contact.constraint_rows(model, af._skin_kinematics(model, sm.skin),
+                                       qpos, qvel)
+    assert _rel(af.dense_rows(model, rows).jac, full.jac) <= 1e-9
+    for name in ("aref", "r"):
+        assert _rel(getattr(rows, name), getattr(rt, name)) <= 1e-9, name
+    assert torch.equal(rows.active, rt.active)
+    got = af.ant_newton(model, sm, rows, warm, iters=16)
+    want = af.newton_twin(model, sm, rows, warm, iters=16)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("walls", ["tag", "hh"])
+def test_ant_newton_every_row_active_equals_twin(cuda, walls, dtype):
+    """ant_newton on rows whose active flags are all 1, so every env has
+    ne active rows (404 on the tag arena, 848 on heaven-hell), past what
+    the kernel keeps in shared memory: every pass takes the rows chunk by
+    chunk.  Against newton_twin on the same rows: f64 after 16 iterations
+    within 1e-9, f32 after 8 within 1e-4, relative to max(1, |x|)."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    model, (qpos, qvel, ctrl, warm) = _ant_kernel_inputs(cuda, walls, dtype,
+                                                         n=100, seed=5)
+    sm = af.ant_smooth(model, qpos, qvel, ctrl)
+    rows = af.ant_rows(model, sm.skin, qpos, qvel)
+    rows = rows._replace(active=torch.ones_like(rows.active))
+    iters, tol = (16, 1e-9) if dtype == torch.float64 else (8, 1e-4)
+    got = af.ant_newton(model, sm, rows, warm, iters=iters)
+    want = af.newton_twin(model, sm, rows, warm, iters=iters)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and _rel(g, w) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ant_forward_on_every_card(cuda, dtype):
+    """The three ant kernels on each visible card in turn, with card 0 the
+    current device: ``ant_newton`` opts into its shared memory (66,560 B a
+    block on heaven-hell at f32, above the default 48 KB) on each card, and
+    each wrapper launches on its tensors' card.  Each card's forward (16
+    iterations) equals card 0's bit for bit, and card 0's equals the twins'
+    within 1e-9 at f64."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    model, arrays = _ant_kernel_inputs(cuda, "hh", dtype, n=100, seed=7)
+    assert af.newton_smem_bytes(model, dtype) > 48 * 1024
+    first = None
+    with torch.cuda.device(0):
+        for k in range(torch.cuda.device_count()):
+            dev = torch.device("cuda", k)
+            q, v, c, w = (x.to(dev) for x in arrays)
+            sm = af.ant_smooth(model, q, v, c)
+            rows = af.ant_rows(model, sm.skin, q, v)
+            got = [g.cpu() for g in af.ant_newton(model, sm, rows, w, iters=16)]
+            assert torch.cuda.current_device() == 0
+            if first is None:
+                first = got
+                if dtype == torch.float64:
+                    want = af.newton_twin(model, sm, rows, w, iters=16)
+                    for g, x in zip(got, want):
+                        assert _rel(g, x.cpu()) <= 1e-9
+            for g, x in zip(got, first):
+                assert torch.isfinite(g).all() and torch.equal(g, x), k
