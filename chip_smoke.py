@@ -86,7 +86,7 @@ path and read just after:
 9. the articulated ant (``gym_po_tpu_torch.physics``, ``AntTagPhysics-v0``,
    ``AntHeavenHellPhysics-v0``), whose default ``pipeline="scalar"``
    forward runs the three kernels of ``csrc/ant_forward.cu``
-   (``ant_smooth``, one env a thread; ``ant_rows``, a thread per (unit,
+   (``ant_smooth``, a warp per env; ``ant_rows``, a thread per (unit,
    env); ``ant_newton``, a warp per env): each kernel against its plain
    twin on the card (f64 to 1e-9 relative, f32 within the step gates) and
    timed at B = 4,096, with each kernel's registers, stack frame and

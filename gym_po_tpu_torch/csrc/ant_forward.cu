@@ -10,8 +10,8 @@
 //               CoMs, world inertias and dof axes, the mass matrix over each
 //               body's active dofs, the bias force (RNEA with zero qacc),
 //               actuation, damping, and the 14x14 Cholesky solve
-//               (chol_solve_s, gym_po_tpu/physics/linalg.py).  One env a
-//               thread.
+//               (chol_solve_s, gym_po_tpu/physics/linalg.py).  One warp
+//               per env.
 //   ant_rows    contact_candidates_s + constraint_rows_scalar
 //               (gym_po_tpu/physics/contact.py:422, :568): 8 joint-limit
 //               rows, 25 floor candidates, per wall slot the torso
@@ -30,7 +30,10 @@
 // below, packed by ops/ant_forward.py::pack_model); each row's static dof
 // support is a CSR table of int32 (row_ptr [ne + 1], row_dof [nnz]) and the
 // mass matrix's a bitmask per row (m_rows [NV]); ant_rows' units are a
-// table of UNIT_W int32 each (ops/ant_forward.py::units).  Everything
+// table of UNIT_W int32 each (ops/ant_forward.py::units); ant_smooth reads
+// the tree as an int32 table (the ST_* offsets, ops/ant_forward.py::
+// smooth_table: each body's level, parent and hinge, each dof's anchor,
+// bodies and actuator, the bodies of each packed entry of M).  Everything
 // passed between kernels is env-minor, [k, B]: the kinematics the rows
 // need (SKin: body xpos and xmat, dof_u, dof_p), M, qacc_smooth, each
 // row's values over its support ([nnz, B]), aref, r and the active flags
@@ -41,6 +44,20 @@
 // arithmetic.  At the envs' batch (B = 4,096) one env a thread is 128
 // warps, about one an SM.  So:
 //
+// - ant_smooth runs one warp per env, WarpEnvs (8 at f32, 4 at f64)
+//   consecutive envs a block.  The block copies its envs' qpos, qvel and
+//   ctrl rows (contiguous runs) and the tree's table into shared memory;
+//   each warp runs FK a tree level at a time (a lane per body of the level,
+//   4 dependent levels in place of 12 bodies in series), the CoMs, world
+//   inertias and each (body, rotation dof) pair's Jacobian column and
+//   I^w u a lane each, the packed lower triangle of M a lane per entry
+//   (dealt to the lanes heaviest first, each summed over its bodies only:
+//   78 entries of 105 hold any), the bias force's velocities, frame rates, wrenches and
+//   projection a lane per body or dof, and the solve by chol_solve_warp
+//   (shared with ant_newton); then the block writes its outputs from shared
+//   memory with the env index fastest.  Every per-env array lives in shared
+//   memory (SE_SIZE values an env, static) or in registers at fixed
+//   indices: no stack frame.
 // - ant_rows runs a unit of work per thread: a limit row, a floor sphere
 //   or capsule end, a slot's torso sphere-box, or a capsule's three
 //   capsule-box slots in one slot (one pair of bisections).  blockIdx.y is
@@ -50,7 +67,7 @@
 //   body's frame and hinges (8 dof slots, not the 84 values of every dof),
 //   so it keeps them in registers.  59 units on the tag arena, 98 on
 //   heaven-hell: at B = 4,096 thousands of warps.
-// - ant_newton runs one warp per env, NewtonEnvs (8 at f32, 4 at f64)
+// - ant_newton runs one warp per env, WarpEnvs (8 at f32, 4 at f64)
 //   consecutive envs a block.  The block first copies its envs' M, qs,
 //   warm start and active flags into shared memory with the env index
 //   fastest (a row of [k, B] is 8 consecutive values, one 32-byte sector
@@ -144,10 +161,16 @@ constexpr double MINIMP = 1e-4, MAXIMP = 0.9999;
 
 __device__ __forceinline__ float tsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double tsqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float tcos(float x) { return cosf(x); }
-__device__ __forceinline__ double tcos(double x) { return cos(x); }
-__device__ __forceinline__ float tsin(float x) { return sinf(x); }
-__device__ __forceinline__ double tsin(double x) { return sin(x); }
+// sin and cos of a hinge's half angle x as sincospi(x / pi): its argument
+// reduction is exact, so the kernel carries no Payne-Hanek slow path
+// (sinf/cosf's and sin/cos's scratch array, the only stack frame they give
+// ant_smooth).  At f32, x / pi is formed in f64, one rounding.
+__device__ __forceinline__ void half_sincos(float x, float& s, float& c) {
+  sincospif((float)((double)x * 0.318309886183790671538), &s, &c);
+}
+__device__ __forceinline__ void half_sincos(double x, double& s, double& c) {
+  sincospi(x * 0.318309886183790671538, &s, &c);
+}
 __device__ __forceinline__ float tpow(float x, float p) { return powf(x, p); }
 __device__ __forceinline__ double tpow(double x, double p) { return pow(x, p); }
 template <typename T>
@@ -203,38 +226,6 @@ __device__ __forceinline__ void quat_mul(const T* q, const T* p, T* out) {
   out[3] = q[0] * p[3] + q[1] * p[2] - q[2] * p[1] + q[3] * p[0];
 }
 
-// chol_factor_s: the lower triangle of A (row-major NV x NV) becomes L
-template <typename T>
-__device__ void chol_factor(T* A) {
-  for (int j = 0; j < NV; ++j) {
-    T s = A[j * NV + j];
-    for (int k = 0; k < j; ++k) s = s - A[j * NV + k] * A[j * NV + k];
-    const T d = tsqrt(s);
-    A[j * NV + j] = d;
-    const T inv = T(1) / d;
-    for (int i = j + 1; i < NV; ++i) {
-      T t = A[i * NV + j];
-      for (int k = 0; k < j; ++k) t = t - A[i * NV + k] * A[j * NV + k];
-      A[i * NV + j] = t * inv;
-    }
-  }
-}
-
-// chol_backsub_s: x <- (L L^T)^-1 x
-template <typename T>
-__device__ void chol_backsub(const T* L, T* x) {
-  for (int i = 0; i < NV; ++i) {
-    T s = x[i];
-    for (int k = 0; k < i; ++k) s = s - L[i * NV + k] * x[k];
-    x[i] = s / L[i * NV + i];
-  }
-  for (int i = NV - 1; i >= 0; --i) {
-    T s = x[i];
-    for (int k = i + 1; k < NV; ++k) s = s - L[k * NV + i] * x[k];
-    x[i] = s / L[i * NV + i];
-  }
-}
-
 // MuJoCo's solimp sigmoid d(x) of a violation (_impedance)
 template <typename T>
 __device__ T impedance(const T* mdl, T violation) {
@@ -250,25 +241,171 @@ __device__ T impedance(const T* mdl, T violation) {
   return tclip(mdl[M_D0] + y * mdl[M_DSPAN], T(MINIMP), T(MAXIMP));
 }
 
+// ---------------------------------------------------------------- warp helpers
+
+// ant_smooth and ant_newton run one warp per env, WarpEnvs<T>::value warps
+// (consecutive envs) a block.
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NL = NV * (NV + 1) / 2;    // a symmetric matrix's packed lower triangle
+constexpr int H_SLOTS = (NL + 31) / 32;  // a lane's entries of it: lane + 32 m
 template <typename T>
-__device__ __forceinline__ bool dof_active(const T* mdl, int b, int d) {
-  return mdl[M_DOF_MASK + b * NV + d] != T(0);
+struct WarpEnvs {
+  static constexpr int value = sizeof(T) == 4 ? 8 : 4;
+};
+
+// the packed lower triangle, column after column: entry (i, k), i >= k
+__host__ __device__ constexpr int col_off(int k) { return k * NV - k * (k - 1) / 2; }
+__host__ __device__ constexpr int low(int i, int k) { return col_off(k) + i - k; }
+
+__device__ __forceinline__ void low_pair(int t, int& i, int& k) {
+  k = 0;
+  while (t >= NV - k) {
+    t -= NV - k;
+    ++k;
+  }
+  i = k + t;
+}
+
+// the lane's entries of the packed lower triangle (tk -1: none)
+__device__ __forceinline__ void lane_entries(int lane, int* ti, int* tk) {
+#pragma unroll
+  for (int m = 0; m < H_SLOTS; ++m) {
+    ti[m] = tk[m] = -1;
+    if (lane + 32 * m < NL) low_pair(lane + 32 * m, ti[m], tk[m]);
+  }
+}
+
+// a sum over the warp by a butterfly: every lane ends with the same bits
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// chol_solve_s across the warp: H x = x.  H (packed; the lane's entries
+// lane + 32 m at (ti, tk)) becomes its Cholesky factor L, right-looking:
+// each entry takes its column's updates in the order k = 0, 1, ... as
+// chol_factor_s does, and L y = x is carried along, column by column;
+// then L^T x = y, row by row from the last.  Each pivot's reciprocal is
+// kept (dinv) for the second substitution.
+template <typename T>
+__device__ __forceinline__ void chol_solve_warp(T* H, T* x, T* dinv, int lane, const int* ti,
+                                                const int* tk) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const T d = tsqrt(H[col_off(j)]);
+    const T inv = T(1) / d;
+    const T y = x[j] * inv;
+    T a[H_SLOTS], b[H_SLOTS];
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m)
+      if (tk[m] > j) {
+        a[m] = H[low(ti[m], j)];
+        b[m] = H[low(tk[m], j)];
+      }
+    __syncwarp();
+    if (lane == 0) {
+      x[j] = y;
+      dinv[j] = inv;
+    }
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m) {
+      const int t = lane + 32 * m;
+      if (tk[m] == j) {
+        if (ti[m] == j) {
+          H[t] = d;
+        } else {
+          const T l = H[t] * inv;
+          H[t] = l;
+          x[ti[m]] = x[ti[m]] - l * y;
+        }
+      } else if (tk[m] > j) {
+        H[t] = H[t] - (a[m] * inv) * (b[m] * inv);
+      }
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int j = NV - 1; j >= 0; --j) {
+    const T z = x[j] * dinv[j];
+    __syncwarp();
+    if (lane == 0) x[j] = z;
+#pragma unroll
+    for (int m = 0; m < H_SLOTS; ++m)
+      if (ti[m] == j && tk[m] >= 0 && tk[m] < j) x[tk[m]] = x[tk[m]] - H[lane + 32 * m] * z;
+    __syncwarp();
+  }
 }
 
 // ---------------------------------------------------------------- smooth
 
+// The model's structure as ant_smooth reads it: one int32 table
+// (ops/ant_forward.py::smooth_table, SMOOTH_FIELDS in the same order).
+// Bitmasks: bit d of a body's dofs, bit b of a dof's or an entry's bodies.
+constexpr int NPAIR = 64;  // (body, rotation dof) pairs the table can hold
+enum : int {
+  ST_NLEV = 0,                 // the tree's levels (the root alone is level 0)
+  ST_LEVEL = ST_NLEV + 1,      // [NB] each body's level
+  ST_PARENT = ST_LEVEL + NB,   // [NB] its parent (-1: the root, body 0)
+  ST_JNT = ST_PARENT + NB,     // [NB] the hinge that moves it from its parent, or -1
+  ST_QPOS = ST_JNT + NB,       // [NB] that hinge's qpos index, or -1
+  ST_DOFS = ST_QPOS + NB,      // [NB] the dofs that move it (a bitmask)
+  ST_PBASE = ST_DOFS + NB,     // [NB] its first (body, rotation dof) pair
+  ST_PAIR = ST_PBASE + NB,     // [NPAIR] pair p as (body << 8) | dof, -1 past the last
+  ST_ANCHOR = ST_PAIR + NPAIR, // [NV] a rotation dof's anchor body (its hinge's child)
+  ST_DJNT = ST_ANCHOR + NV,    // [NV] a dof's hinge, or -1
+  ST_DBODIES = ST_DJNT + NV,   // [NV] the bodies a dof moves
+  ST_DACT = ST_DBODIES + NV,   // [NV] the actuator of a dof (the last), or -1
+  ST_MENTRY = ST_DACT + NV,    // [NL] the packed entries of M as t | i << 8 | k << 16,
+                               // the most bodies first (a lane's slots balance)
+  ST_MBODIES = ST_MENTRY + NL, // [NL] the bodies that add to each, in that order
+  ST_LEN = ST_MBODIES + NL
+};
+
+// One env's shared memory, in T: the inputs, the kinematics in the SKin
+// output's order, then the intermediates; the packed M (kept for the
+// output) and H (its copy, factored by the solve).
+constexpr int SKIN_N = SK_DOFP + 3 * NV;
+enum : int {
+  SE_Q = 0,
+  SE_QV = SE_Q + NQ,
+  SE_CTRL = SE_QV + NV,
+  SE_SKIN = SE_CTRL + NU,
+  SE_XQUAT = SE_SKIN + SKIN_N,
+  SE_COM = SE_XQUAT + 4 * NB,
+  SE_IW = SE_COM + 3 * NB,
+  SE_JP = SE_IW + 9 * NB,      // each pair's u_d x (com_b - p_d)
+  SE_IWU = SE_JP + 3 * NPAIR,  // each pair's I_b^w u_d
+  SE_CDOT = SE_IWU + 3 * NPAIR,
+  SE_OMEGA = SE_CDOT + 3 * NB,
+  SE_UDOT = SE_OMEGA + 3 * NB,
+  SE_PDOT = SE_UDOT + 3 * NV,
+  SE_FLIN = SE_PDOT + 3 * NV,
+  SE_FANG = SE_FLIN + 3 * NB,
+  SE_M = SE_FANG + 3 * NB,
+  SE_H = SE_M + NL,
+  SE_X = SE_H + NL,  // qfrc, then qacc_smooth
+  SE_DINV = SE_X + NV,
+  SE_SIZE = SE_DINV + NV
+};
+
+// the pair of body b and rotation dof d (d >= 3, active on b)
+__device__ __forceinline__ int pair_of(const int* tab, int b, int d) {
+  return tab[ST_PBASE + b] + __popc((unsigned)tab[ST_DOFS + b] & ((1u << d) - 1u) & ~7u);
+}
+
 // The CoM-anchored Jacobian column of dof d on body b (active pair):
-// translation dofs the unit axis, rotation dofs u_d x (com_b - p_d).
+// translation dofs the unit axis, rotation dofs their pair's u_d x (com_b - p_d).
 template <typename T>
-__device__ __forceinline__ void jp_col(int d, const T* com_b, const T (*dof_u)[3],
-                                       const T (*dof_p)[3], T* out) {
+__device__ __forceinline__ void jp_col(const T* s, const int* tab, int b, int d, T* out) {
   if (d < 3) {
     out[0] = d == 0 ? T(1) : T(0);
     out[1] = d == 1 ? T(1) : T(0);
     out[2] = d == 2 ? T(1) : T(0);
   } else {
-    T arm[3] = {com_b[0] - dof_p[d][0], com_b[1] - dof_p[d][1], com_b[2] - dof_p[d][2]};
-    cross3(dof_u[d], arm, out);
+    const T* jp = s + SE_JP + 3 * pair_of(tab, b, d);
+    for (int i = 0; i < 3; ++i) out[i] = jp[i];
   }
 }
 
@@ -284,176 +421,264 @@ __device__ void world_inertia(const T* mdl, int b, const T* R, T* iw) {
     for (int j = 0; j < 3; ++j) iw[3 * i + j] = dot3(RI + 3 * i, R + 3 * j);
 }
 
+// One env's smooth dynamics on its warp, everything in its shared memory
+// s (SE_*; the inputs already there) and the block's table tab.  Lanes
+// own bodies, dofs, pairs or packed entries of M in turn, a __syncwarp
+// between dependent steps.  Each value takes its terms in the order of
+// the JAX scalar code (smooth_forward_s).
 template <typename T>
-__global__ void ant_smooth_kernel(int B, const T* __restrict__ mdl, const T* __restrict__ qpos,
-                                  const T* __restrict__ qvel, const T* __restrict__ ctrl,
-                                  T* __restrict__ M_out, T* __restrict__ qs_out,
-                                  T* __restrict__ skin) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  const T* q = qpos + (size_t)e * NQ;
-  T qv[NV];
-  for (int d = 0; d < NV; ++d) qv[d] = qvel[(size_t)e * NV + d];
+__device__ __forceinline__ void smooth_env(const T* __restrict__ mdl, const int* tab, T* s,
+                                           int lane) {
+  const T* q = s + SE_Q;
+  const T* qv = s + SE_QV;
+  T* xpos = s + SE_SKIN + SK_XPOS;
+  T* xmat = s + SE_SKIN + SK_XMAT;
+  T* dof_u = s + SE_SKIN + SK_DOFU;
+  T* dof_p = s + SE_SKIN + SK_DOFP;
+  T* xquat = s + SE_XQUAT;
+  T* com = s + SE_COM;
+  T* iw = s + SE_IW;
+  T* cdot = s + SE_CDOT;
+  T* omega = s + SE_OMEGA;
+  T* udot = s + SE_UDOT;
+  T* pdot = s + SE_PDOT;
+  T* f_lin = s + SE_FLIN;
+  T* f_ang = s + SE_FANG;
+  const int b = lane, d = lane;  // a lane's body or dof
+  const bool body = lane < NB, dof = lane < NV;
+  int ti[H_SLOTS], tk[H_SLOTS];  // the lane's entries of H for the solve
+  lane_entries(lane, ti, tk);
 
-  // ---- FK (_fk_s): bodies in tree order, parents first
-  T xpos[NB][3], xquat[NB][4], xmat[NB][9];
-  {
+  // ---- FK (_fk_s) by tree level: the root, then a lane per body of each
+  // level from its parent's frame
+  if (lane == 0) {
     const T rw = q[3], rx = q[4], ry = q[5], rz = q[6];
     const T inv = T(1) / tsqrt(rw * rw + rx * rx + ry * ry + rz * rz);
-    xquat[0][0] = rw * inv;
-    xquat[0][1] = rx * inv;
-    xquat[0][2] = ry * inv;
-    xquat[0][3] = rz * inv;
-    quat_to_mat(xquat[0], xmat[0]);
-    for (int i = 0; i < 3; ++i) xpos[0][i] = q[i];
+    const T quat[4] = {rw * inv, rx * inv, ry * inv, rz * inv};
+    for (int i = 0; i < 4; ++i) xquat[i] = quat[i];
+    T R[9];
+    quat_to_mat(quat, R);
+    for (int i = 0; i < 9; ++i) xmat[i] = R[i];
+    for (int i = 0; i < 3; ++i) xpos[i] = q[i];
   }
-  for (int b = 1; b < NB; ++b) {
-    const int p = as_int(mdl[M_PARENT + b]);
+  const int level = body ? tab[ST_LEVEL + b] : -1;
+  const int nlev = tab[ST_NLEV];
+  for (int l = 1; l < nlev; ++l) {
+    __syncwarp();
+    if (level != l) continue;
+    const int p = tab[ST_PARENT + b], j = tab[ST_JNT + b];
     T off[3];
-    mat_vec(xmat[p], mdl + M_BODY_POS + 3 * b, off);
-    for (int i = 0; i < 3; ++i) xpos[b][i] = xpos[p][i] + off[i];
-    const int j = as_int(mdl[M_BODY_JNT + b]);
+    mat_vec(xmat + 9 * p, mdl + M_BODY_POS + 3 * b, off);
+    for (int i = 0; i < 3; ++i) xpos[3 * b + i] = xpos[3 * p + i] + off[i];
+    T quat[4];
     if (j >= 0) {
-      const T ang = q[as_int(mdl[M_JNT_QPOS + j])];
-      const T c = tcos(T(0.5) * ang), s = tsin(T(0.5) * ang);
+      T c, sn;
+      half_sincos(T(0.5) * q[tab[ST_QPOS + b]], sn, c);
       const T* ax = mdl + M_JNT_AXIS + 3 * j;
-      const T hq[4] = {c, s * ax[0], s * ax[1], s * ax[2]};
-      quat_mul(xquat[p], hq, xquat[b]);
+      const T hq[4] = {c, sn * ax[0], sn * ax[1], sn * ax[2]};
+      quat_mul(xquat + 4 * p, hq, quat);
     } else {
-      for (int i = 0; i < 4; ++i) xquat[b][i] = xquat[p][i];
+      for (int i = 0; i < 4; ++i) quat[i] = xquat[4 * p + i];
     }
-    quat_to_mat(xquat[b], xmat[b]);
+    for (int i = 0; i < 4; ++i) xquat[4 * b + i] = quat[i];
+    T R[9];
+    quat_to_mat(quat, R);
+    for (int i = 0; i < 9; ++i) xmat[9 * b + i] = R[i];
   }
+  __syncwarp();
 
-  // ---- kinematics_s: CoMs, dof axes and anchors
-  T com[NB][3];
-  for (int b = 0; b < NB; ++b) {
-    T off[3];
-    mat_vec(xmat[b], mdl + M_BODY_IPOS + 3 * b, off);
-    for (int i = 0; i < 3; ++i) com[b][i] = xpos[b][i] + off[i];
+  // ---- kinematics_s: CoMs and world inertias a lane per body, dof axes
+  // and anchors a lane per dof
+  if (body) {
+    T off[3], I[9];
+    mat_vec(xmat + 9 * b, mdl + M_BODY_IPOS + 3 * b, off);
+    for (int i = 0; i < 3; ++i) com[3 * b + i] = xpos[3 * b + i] + off[i];
+    world_inertia(mdl, b, xmat + 9 * b, I);
+    for (int i = 0; i < 9; ++i) iw[9 * b + i] = I[i];
   }
-  T dof_u[NV][3], dof_p[NV][3];
-  int anchor[NV];
-  for (int d = 0; d < NV; ++d) {
-    anchor[d] = 0;
-    for (int i = 0; i < 3; ++i) dof_u[d][i] = dof_p[d][i] = T(0);
-  }
-  for (int k = 0; k < 3; ++k)
+  if (dof) {
+    T u[3] = {T(0), T(0), T(0)}, pt[3] = {T(0), T(0), T(0)};
+    const int j = tab[ST_DJNT + d], a = tab[ST_ANCHOR + d];
+    if (j >= 0) {  // a hinge: its child's frame
+      mat_vec(xmat + 9 * a, mdl + M_JNT_AXIS + 3 * j, u);
+    } else if (d >= 3) {  // a free rotation: the torso's axes
+      for (int i = 0; i < 3; ++i) u[i] = xmat[3 * i + d - 3];
+    }
+    if (d >= 3)
+      for (int i = 0; i < 3; ++i) pt[i] = xpos[3 * a + i];
     for (int i = 0; i < 3; ++i) {
-      dof_u[3 + k][i] = xmat[0][3 * i + k];
-      dof_p[3 + k][i] = xpos[0][i];
-    }
-  for (int j = 0; j < NJ; ++j) {
-    const int child = as_int(mdl[M_JNT_BODY + j]), d = as_int(mdl[M_JNT_DOF + j]);
-    mat_vec(xmat[child], mdl + M_JNT_AXIS + 3 * j, dof_u[d]);
-    for (int i = 0; i < 3; ++i) dof_p[d][i] = xpos[child][i];
-    anchor[d] = child;
-  }
-
-  // ---- mass_matrix_s over each body's active dof pairs; the body
-  // velocities of bias_force_s on the same pass
-  T M[NV * NV];
-  for (int k = 0; k < NV * NV; ++k) M[k] = T(0);
-  T cdot[NB][3], omega[NB][3];
-  for (int b = 0; b < NB; ++b) {
-    const T mb = mdl[M_BODY_MASS + b];
-    T iw[9];
-    world_inertia(mdl, b, xmat[b], iw);
-    for (int i = 0; i < 3; ++i) cdot[b][i] = omega[b][i] = T(0);
-    for (int d = 0; d < NV; ++d) {
-      if (!dof_active(mdl, b, d)) continue;
-      T jpd[3];
-      jp_col(d, com[b], dof_u, dof_p, jpd);
-      for (int i = 0; i < 3; ++i) cdot[b][i] = cdot[b][i] + qv[d] * jpd[i];
-      T iw_jrd[3];
-      if (d >= 3) {
-        for (int i = 0; i < 3; ++i) omega[b][i] = omega[b][i] + qv[d] * dof_u[d][i];
-        mat_vec(iw, dof_u[d], iw_jrd);
-      }
-      for (int x = d; x < NV; ++x) {
-        if (!dof_active(mdl, b, x)) continue;
-        T jpx[3];
-        jp_col(x, com[b], dof_u, dof_p, jpx);
-        T t = mb * dot3(jpd, jpx);
-        if (d >= 3 && x >= 3) t = t + dot3(iw_jrd, dof_u[x]);
-        M[d * NV + x] = M[d * NV + x] + t;
-      }
+      dof_u[3 * d + i] = u[i];
+      dof_p[3 * d + i] = pt[i];
     }
   }
-  for (int d = 0; d < NV; ++d) {
-    M[d * NV + d] = M[d * NV + d] + mdl[M_ARMATURE + d];
-    for (int x = d + 1; x < NV; ++x) M[x * NV + d] = M[d * NV + x];
+  __syncwarp();
+  // each (body, rotation dof) pair's Jacobian column and I^w u_d
+  for (int pi = lane; pi < NPAIR; pi += 32) {
+    const int pr = tab[ST_PAIR + pi];
+    if (pr < 0) break;
+    const int pb = pr >> 8, pd = pr & 255;
+    const T* u = dof_u + 3 * pd;
+    const T arm[3] = {com[3 * pb] - dof_p[3 * pd], com[3 * pb + 1] - dof_p[3 * pd + 1],
+                      com[3 * pb + 2] - dof_p[3 * pd + 2]};
+    T jp[3], iwu[3];
+    cross3(u, arm, jp);
+    mat_vec(iw + 9 * pb, u, iwu);
+    for (int i = 0; i < 3; ++i) {
+      s[SE_JP + 3 * pi + i] = jp[i];
+      s[SE_IWU + 3 * pi + i] = iwu[i];
+    }
   }
-  for (int k = 0; k < NV * NV; ++k) M_out[(size_t)k * B + e] = M[k];
+  __syncwarp();
 
-  // ---- bias_force_s: the rotation dofs' frame rates, then each body's
-  // J-dot q-dot and its wrench, projected back on the active columns
-  T udot[NV][3], pdot[NV][3];
-  for (int d = 3; d < NV; ++d) {
-    const int a = anchor[d];
-    cross3(omega[a], dof_u[d], udot[d]);
-    T arm[3] = {dof_p[d][0] - com[a][0], dof_p[d][1] - com[a][1], dof_p[d][2] - com[a][2]};
-    T w[3];
-    cross3(omega[a], arm, w);
-    for (int i = 0; i < 3; ++i) pdot[d][i] = cdot[a][i] + w[i];
+  // ---- mass_matrix_s: the lane's packed entries (i, k) in the table's
+  // order, each summed over its bodies in body order (none: an exact
+  // zero), the armature on the diagonal; H its copy for the solve
+#pragma unroll
+  for (int m = 0; m < H_SLOTS; ++m) {
+    const int pos = lane + 32 * m;
+    if (pos >= NL) break;
+    const int me = tab[ST_MENTRY + pos];
+    const int t = me & 255, i = (me >> 8) & 255, k = me >> 16;
+    T acc = T(0);
+    for (unsigned bs = (unsigned)tab[ST_MBODIES + pos]; bs; bs &= bs - 1u) {
+      const int bb = __ffs(bs) - 1;
+      T jk[3], ji[3];
+      jp_col(s, tab, bb, k, jk);
+      jp_col(s, tab, bb, i, ji);
+      T v = mdl[M_BODY_MASS + bb] * dot3(jk, ji);
+      if (k >= 3 && i >= 3) v = v + dot3(s + SE_IWU + 3 * pair_of(tab, bb, k), dof_u + 3 * i);
+      acc = acc + v;
+    }
+    if (i == k) acc = acc + mdl[M_ARMATURE + k];
+    s[SE_M + t] = acc;
+    s[SE_H + t] = acc;
   }
-  T qfrc[NV];
-  for (int d = 0; d < NV; ++d) qfrc[d] = T(0);
-  const T g[3] = {T(0), T(0), mdl[M_GRAVITY]};
-  for (int b = 0; b < NB; ++b) {
+
+  // ---- bias_force_s: the body velocities a lane per body
+  if (body) {
+    T c[3] = {T(0), T(0), T(0)}, w[3] = {T(0), T(0), T(0)};
+    for (unsigned ds = (unsigned)tab[ST_DOFS + b]; ds; ds &= ds - 1u) {
+      const int dd = __ffs(ds) - 1;
+      T jd[3];
+      jp_col(s, tab, b, dd, jd);
+      for (int i = 0; i < 3; ++i) c[i] = c[i] + qv[dd] * jd[i];
+      if (dd >= 3)
+        for (int i = 0; i < 3; ++i) w[i] = w[i] + qv[dd] * dof_u[3 * dd + i];
+    }
+    for (int i = 0; i < 3; ++i) {
+      cdot[3 * b + i] = c[i];
+      omega[3 * b + i] = w[i];
+    }
+  }
+  __syncwarp();
+  // the rotation dofs' frame rates, a lane per dof
+  if (dof && d >= 3) {
+    const int a = tab[ST_ANCHOR + d];
+    T ud[3], w[3];
+    cross3(omega + 3 * a, dof_u + 3 * d, ud);
+    const T arm[3] = {dof_p[3 * d] - com[3 * a], dof_p[3 * d + 1] - com[3 * a + 1],
+                      dof_p[3 * d + 2] - com[3 * a + 2]};
+    cross3(omega + 3 * a, arm, w);
+    for (int i = 0; i < 3; ++i) {
+      udot[3 * d + i] = ud[i];
+      pdot[3 * d + i] = cdot[3 * a + i] + w[i];
+    }
+  }
+  __syncwarp();
+  // each body's J-dot q-dot and its wrench, a lane per body
+  if (body) {
     T a_lin[3] = {T(0), T(0), T(0)}, a_ang[3] = {T(0), T(0), T(0)};
-    for (int d = 3; d < NV; ++d) {
-      if (!dof_active(mdl, b, d)) continue;
-      T arm[3] = {com[b][0] - dof_p[d][0], com[b][1] - dof_p[d][1], com[b][2] - dof_p[d][2]};
-      T rel[3] = {cdot[b][0] - pdot[d][0], cdot[b][1] - pdot[d][1], cdot[b][2] - pdot[d][2]};
+    for (unsigned ds = (unsigned)tab[ST_DOFS + b] & ~7u; ds; ds &= ds - 1u) {
+      const int dd = __ffs(ds) - 1;
+      const T arm[3] = {com[3 * b] - dof_p[3 * dd], com[3 * b + 1] - dof_p[3 * dd + 1],
+                        com[3 * b + 2] - dof_p[3 * dd + 2]};
+      const T rel[3] = {cdot[3 * b] - pdot[3 * dd], cdot[3 * b + 1] - pdot[3 * dd + 1],
+                        cdot[3 * b + 2] - pdot[3 * dd + 2]};
       T c1[3], c2[3];
-      cross3(udot[d], arm, c1);
-      cross3(dof_u[d], rel, c2);
+      cross3(udot + 3 * dd, arm, c1);
+      cross3(dof_u + 3 * dd, rel, c2);
       for (int i = 0; i < 3; ++i) {
-        a_lin[i] = a_lin[i] + qv[d] * (c1[i] + c2[i]);
-        a_ang[i] = a_ang[i] + qv[d] * udot[d][i];
+        a_lin[i] = a_lin[i] + qv[dd] * (c1[i] + c2[i]);
+        a_ang[i] = a_ang[i] + qv[dd] * udot[3 * dd + i];
       }
     }
     const T mb = mdl[M_BODY_MASS + b];
-    T iw[9], ia[3], io[3], wio[3], f_lin[3], f_ang[3];
-    world_inertia(mdl, b, xmat[b], iw);
-    mat_vec(iw, a_ang, ia);
-    mat_vec(iw, omega[b], io);
-    cross3(omega[b], io, wio);
+    const T g[3] = {T(0), T(0), mdl[M_GRAVITY]};
+    T ia[3], io[3], wio[3];
+    mat_vec(iw + 9 * b, a_ang, ia);
+    mat_vec(iw + 9 * b, omega + 3 * b, io);
+    cross3(omega + 3 * b, io, wio);
     for (int i = 0; i < 3; ++i) {
-      f_lin[i] = mb * (a_lin[i] - g[i]);
-      f_ang[i] = ia[i] + wio[i];
-    }
-    for (int d = 0; d < NV; ++d) {
-      if (!dof_active(mdl, b, d)) continue;
-      T jpd[3];
-      jp_col(d, com[b], dof_u, dof_p, jpd);
-      T t = dot3(jpd, f_lin);
-      if (d >= 3) t = t + dot3(dof_u[d], f_ang);
-      qfrc[d] = qfrc[d] + t;  // the bias, negated below
+      f_lin[3 * b + i] = mb * (a_lin[i] - g[i]);
+      f_ang[3 * b + i] = ia[i] + wio[i];
     }
   }
-
-  // ---- actuation, damping, qacc_smooth = M^-1 qfrc
-  T tau[NV];
-  for (int d = 0; d < NV; ++d) tau[d] = T(0);
-  for (int k = 0; k < NU; ++k)
-    tau[as_int(mdl[M_ACT_DOF + k])] =
-        mdl[M_GEAR] * tclip(ctrl[(size_t)e * NU + k], T(-1), T(1));
-  for (int d = 0; d < NV; ++d) qfrc[d] = tau[d] - mdl[M_DAMPING + d] * qv[d] - qfrc[d];
-  chol_factor(M);
-  chol_backsub(M, qfrc);
-  for (int d = 0; d < NV; ++d) qs_out[(size_t)d * B + e] = qfrc[d];
-
-  for (int b = 0; b < NB; ++b)
-    for (int i = 0; i < 3; ++i) skin[(size_t)(SK_XPOS + 3 * b + i) * B + e] = xpos[b][i];
-  for (int b = 0; b < NB; ++b)
-    for (int i = 0; i < 9; ++i) skin[(size_t)(SK_XMAT + 9 * b + i) * B + e] = xmat[b][i];
-  for (int d = 0; d < NV; ++d)
-    for (int i = 0; i < 3; ++i) {
-      skin[(size_t)(SK_DOFU + 3 * d + i) * B + e] = dof_u[d][i];
-      skin[(size_t)(SK_DOFP + 3 * d + i) * B + e] = dof_p[d][i];
+  __syncwarp();
+  // the wrenches projected on each dof (a lane per dof, its bodies in body
+  // order); then actuation and damping: qfrc = tau - damping qvel - bias
+  if (dof) {
+    T bias = T(0);
+    for (unsigned bs = (unsigned)tab[ST_DBODIES + d]; bs; bs &= bs - 1u) {
+      const int bb = __ffs(bs) - 1;
+      T jd[3];
+      jp_col(s, tab, bb, d, jd);
+      T v = dot3(jd, f_lin + 3 * bb);
+      if (d >= 3) v = v + dot3(dof_u + 3 * d, f_ang + 3 * bb);
+      bias = bias + v;
     }
+    const int k = tab[ST_DACT + d];
+    const T tau = k >= 0 ? mdl[M_GEAR] * tclip(s[SE_CTRL + k], T(-1), T(1)) : T(0);
+    s[SE_X + d] = tau - mdl[M_DAMPING + d] * qv[d] - bias;
+  }
+  __syncwarp();
+
+  // ---- qacc_smooth = M^-1 qfrc
+  chol_solve_warp(s + SE_H, s + SE_X, s + SE_DINV, lane, ti, tk);
+}
+
+// One warp per env, W consecutive envs a block.  The block copies its
+// envs' qpos, qvel and ctrl rows (W x 15, W x 14, W x 8 contiguous values)
+// and the table into shared memory, each warp runs its env, and the block
+// writes the outputs from shared memory with the env index fastest: a row
+// of an env-minor [k, B] output is W consecutive values.  At f32 the
+// launch bound leaves each thread 64 registers, so 4 blocks fit an SM and
+// B = 4,096 runs in one wave on 132 SMs.
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W, sizeof(T) == 4 ? 4 : 1)
+    ant_smooth_kernel(int B, const T* __restrict__ mdl, const int* __restrict__ tab,
+                      const T* __restrict__ qpos, const T* __restrict__ qvel,
+                      const T* __restrict__ ctrl, T* __restrict__ M_out,
+                      T* __restrict__ qs_out, T* __restrict__ skin) {
+  constexpr int N = 32 * W;
+  __shared__ T sm[W * SE_SIZE];
+  __shared__ int stab[ST_LEN];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int e0 = blockIdx.x * W, nw = B - e0 < W ? B - e0 : W;
+  const size_t Bs = B;
+  for (int x = threadIdx.x; x < ST_LEN; x += N) stab[x] = tab[x];
+  for (int x = threadIdx.x; x < nw * NQ; x += N)
+    sm[(x / NQ) * SE_SIZE + SE_Q + x % NQ] = qpos[(size_t)e0 * NQ + x];
+  for (int x = threadIdx.x; x < nw * NV; x += N)
+    sm[(x / NV) * SE_SIZE + SE_QV + x % NV] = qvel[(size_t)e0 * NV + x];
+  for (int x = threadIdx.x; x < nw * NU; x += N)
+    sm[(x / NU) * SE_SIZE + SE_CTRL + x % NU] = ctrl[(size_t)e0 * NU + x];
+  __syncthreads();
+  if (wid < nw) smooth_env(mdl, stab, sm + wid * SE_SIZE, lane);
+  __syncthreads();
+#pragma unroll 4
+  for (int x = threadIdx.x; x < SKIN_N * W; x += N) {
+    const int k = x / W, w = x % W;
+    if (w < nw) skin[k * Bs + e0 + w] = sm[w * SE_SIZE + SE_SKIN + k];
+  }
+#pragma unroll 4
+  for (int x = threadIdx.x; x < NV * NV * W; x += N) {
+    const int k = x / W, w = x % W, r = k / NV, c = k % NV;
+    if (w < nw) M_out[k * Bs + e0 + w] = sm[w * SE_SIZE + SE_M + (r >= c ? low(r, c) : low(c, r))];
+  }
+  for (int x = threadIdx.x; x < NV * W; x += N) {
+    const int d = x / W, w = x % W;
+    if (w < nw) qs_out[d * Bs + e0 + w] = sm[w * SE_SIZE + SE_X + d];
+  }
 }
 
 // ---------------------------------------------------------------- rows
@@ -839,31 +1064,10 @@ __global__ void ant_rows_kernel(int B, const T* __restrict__ mdl, const int* __r
 
 // ---------------------------------------------------------------- newton
 
-// One warp per env, NewtonEnvs<T>::value warps (consecutive envs) a block.
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int NL = NV * (NV + 1) / 2;     // a symmetric matrix's packed lower triangle
-constexpr int H_SLOTS = (NL + 31) / 32;   // a lane's entries of it: lane + 32 m
 constexpr int ROWS_CAP = 96;              // active rows held in shared memory at once
 constexpr int ROW_SLOTS = ROWS_CAP / 32;  // a lane's rows of a chunk: 32 c + lane
 constexpr int JT_STRIDE = ROWS_CAP + 1;   // odd: a row's 14 dofs and a dof's 32 rows
                                           // each fall in distinct banks
-template <typename T>
-struct NewtonEnvs {
-  static constexpr int value = sizeof(T) == 4 ? 8 : 4;
-};
-
-// the packed lower triangle, column after column: entry (i, k), i >= k
-__host__ __device__ constexpr int col_off(int k) { return k * NV - k * (k - 1) / 2; }
-__host__ __device__ constexpr int low(int i, int k) { return col_off(k) + i - k; }
-
-__device__ __forceinline__ void low_pair(int t, int& i, int& k) {
-  k = 0;
-  while (t >= NV - k) {
-    t -= NV - k;
-    ++k;
-  }
-  i = k + t;
-}
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
@@ -883,14 +1087,6 @@ __host__ __device__ inline size_t newton_rows_bytes(int ne) {
 template <typename T>
 __host__ __device__ inline size_t newton_env_bytes(int ne) {
   return newton_head_bytes<T>() + newton_rows_bytes<T>(ne) + align16(2 * (size_t)ne);
-}
-
-// a sum over the warp by a butterfly: every lane ends with the same bits
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(FULL, v, o);
-  return v;
 }
 
 // (M x)_d over M's static support (mask: m_rows[d]), M packed
@@ -980,60 +1176,6 @@ __device__ void chunk_terms(int n, int lane, const T* Jt, const Chunk<T>& ch, co
   }
 }
 
-// chol_solve_s across the warp: H x = x.  H (packed; the lane's entries
-// lane + 32 m at (ti, tk)) becomes its Cholesky factor L, right-looking:
-// each entry takes its column's updates in the order k = 0, 1, ... as
-// chol_factor_s does, and L y = x is carried along, column by column;
-// then L^T x = y, row by row from the last.  Each pivot's reciprocal is
-// kept (dinv) for the second substitution.
-template <typename T>
-__device__ void chol_solve_warp(T* H, T* x, T* dinv, int lane, const int* ti, const int* tk) {
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const T d = tsqrt(H[col_off(j)]);
-    const T inv = T(1) / d;
-    const T y = x[j] * inv;
-    T a[H_SLOTS], b[H_SLOTS];
-#pragma unroll
-    for (int m = 0; m < H_SLOTS; ++m)
-      if (tk[m] > j) {
-        a[m] = H[low(ti[m], j)];
-        b[m] = H[low(tk[m], j)];
-      }
-    __syncwarp();
-    if (lane == 0) {
-      x[j] = y;
-      dinv[j] = inv;
-    }
-#pragma unroll
-    for (int m = 0; m < H_SLOTS; ++m) {
-      const int t = lane + 32 * m;
-      if (tk[m] == j) {
-        if (ti[m] == j) {
-          H[t] = d;
-        } else {
-          const T l = H[t] * inv;
-          H[t] = l;
-          x[ti[m]] = x[ti[m]] - l * y;
-        }
-      } else if (tk[m] > j) {
-        H[t] = H[t] - (a[m] * inv) * (b[m] * inv);
-      }
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int j = NV - 1; j >= 0; --j) {
-    const T z = x[j] * dinv[j];
-    __syncwarp();
-    if (lane == 0) x[j] = z;
-#pragma unroll
-    for (int m = 0; m < H_SLOTS; ++m)
-      if (ti[m] == j && tk[m] >= 0 && tk[m] < j) x[tk[m]] = x[tk[m]] - H[lane + 32 * m] * z;
-    __syncwarp();
-  }
-}
-
 template <typename T, int W>
 __global__ void __launch_bounds__(32 * W)
     ant_newton_kernel(int B, int ne, int iters, int ls_iters, const int* __restrict__ tables,
@@ -1101,11 +1243,7 @@ __global__ void __launch_bounds__(32 * W)
     na += __popc(bal);
   }
   int ti[H_SLOTS], tk[H_SLOTS];  // the lane's entries of H (tk -1: none)
-#pragma unroll
-  for (int m = 0; m < H_SLOTS; ++m) {
-    ti[m] = tk[m] = -1;
-    if (lane + 32 * m < NL) low_pair(lane + 32 * m, ti[m], tk[m]);
-  }
+  lane_entries(lane, ti, tk);
   // up to ROWS_CAP active rows stay in shared memory and registers for the
   // whole solve; past that every pass over the rows takes them chunk by
   // chunk from the rows' own buffers, in the same order (the same sums)
@@ -1188,7 +1326,6 @@ __global__ void __launch_bounds__(32 * W)
 // float32, 1 float64.  Mirrored by ops/ant_forward.py.
 
 namespace {
-constexpr int kThreads = 32;      // ant_smooth: one env a thread, one warp a block
 constexpr int kRowThreads = 128;  // ant_rows: 128 envs of one unit a block
 
 int blocks_for(int B, int per_block) { return (B + per_block - 1) / per_block; }
@@ -1203,7 +1340,7 @@ int newton_launch(int B, int ne, int iters, int ls_iters, const void* tables, co
                   const void* qs, const void* vals, const void* aref, const void* r,
                   const void* active, const void* warm, void* qacc, void* warm_out,
                   cudaStream_t st) {
-  constexpr int W = ant::NewtonEnvs<T>::value;
+  constexpr int W = ant::WarpEnvs<T>::value;
   const size_t smem = W * ant::newton_env_bytes<T>(ne);
   static size_t opted[kMaxDevices];  // 0: the default 48 KB
   int dev = 0;
@@ -1221,38 +1358,46 @@ int newton_launch(int B, int ne, int iters, int ls_iters, const void* tables, co
       (const T*)aref, (const T*)r, (const T*)active, (const T*)warm, (T*)qacc, (T*)warm_out);
   return (int)cudaGetLastError();
 }
+
+// ant_smooth's shared memory is static: its envs and the table, under the
+// default 48 KB a block at either type
+template <typename T>
+int smooth_launch(int B, const void* mdl, const void* tab, const void* qpos, const void* qvel,
+                  const void* ctrl, void* M, void* qs, void* skin, cudaStream_t st) {
+  constexpr int W = ant::WarpEnvs<T>::value;
+  static_assert(W * ant::SE_SIZE * sizeof(T) + ant::ST_LEN * sizeof(int) <= 48 * 1024,
+                "ant_smooth's shared memory");
+  ant::ant_smooth_kernel<T, W><<<blocks_for(B, W), 32 * W, 0, st>>>(
+      B, (const T*)mdl, (const int*)tab, (const T*)qpos, (const T*)qvel, (const T*)ctrl, (T*)M,
+      (T*)qs, (T*)skin);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 extern "C" int ant_forward_model_len(int n_slots) { return ant::M_SLOTS + ant::NSLOTW * n_slots; }
 
 extern "C" int ant_forward_unit_width() { return ant::UNIT_W; }
 
+extern "C" int ant_smooth_table_len() { return ant::ST_LEN; }
+
 // ant_newton's active rows an env held in shared memory for the whole solve
 extern "C" int ant_newton_rows_cap() { return ant::ROWS_CAP; }
 
 // ant_newton's shared memory a block (its envs a block: 8 at float32, 4 at float64)
 extern "C" long long ant_newton_smem_bytes(int dtype, int ne) {
-  if (dtype == 0) return ant::NewtonEnvs<float>::value * (long long)ant::newton_env_bytes<float>(ne);
-  if (dtype == 1) return ant::NewtonEnvs<double>::value * (long long)ant::newton_env_bytes<double>(ne);
+  if (dtype == 0) return ant::WarpEnvs<float>::value * (long long)ant::newton_env_bytes<float>(ne);
+  if (dtype == 1) return ant::WarpEnvs<double>::value * (long long)ant::newton_env_bytes<double>(ne);
   return -1;
 }
 
-extern "C" int ant_smooth_launch(int dtype, int B, const void* mdl, const void* qpos,
-                                 const void* qvel, const void* ctrl, void* M, void* qs,
-                                 void* skin, void* stream) {
+extern "C" int ant_smooth_launch(int dtype, int B, const void* mdl, const void* tab,
+                                 const void* qpos, const void* qvel, const void* ctrl, void* M,
+                                 void* qs, void* skin, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    ant::ant_smooth_kernel<float><<<blocks_for(B, kThreads), kThreads, 0, st>>>(
-        B, (const float*)mdl, (const float*)qpos, (const float*)qvel, (const float*)ctrl,
-        (float*)M, (float*)qs, (float*)skin);
-  else if (dtype == 1)
-    ant::ant_smooth_kernel<double><<<blocks_for(B, kThreads), kThreads, 0, st>>>(
-        B, (const double*)mdl, (const double*)qpos, (const double*)qvel, (const double*)ctrl,
-        (double*)M, (double*)qs, (double*)skin);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0) return smooth_launch<float>(B, mdl, tab, qpos, qvel, ctrl, M, qs, skin, st);
+  if (dtype == 1) return smooth_launch<double>(B, mdl, tab, qpos, qvel, ctrl, M, qs, skin, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ant_rows_launch(int dtype, int B, int n_slots, int ne, int n_units,

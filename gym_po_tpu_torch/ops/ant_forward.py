@@ -9,7 +9,9 @@ straight-line vector code on the TPU.  On the card (``csrc/ant_forward.cu``):
 
 * :func:`ant_smooth` ``(qpos, qvel, ctrl) -> Smooth(M, qacc_smooth, skin)``:
   FK, the mass matrix, the bias force, actuation, damping and the 14x14
-  solve; one env a thread;
+  solve; one warp per env, 8 envs a block at f32 (4 at f64), FK a tree
+  level at a time and the mass matrix over its support
+  (:func:`smooth_table`);
 * :func:`ant_rows` ``(skin, qpos, qvel) -> Rows(vals, aref, r, active)``:
   the 8 joint-limit rows and 4 pyramid rows per collision candidate, each
   row's values over its static dof support; one thread per (unit, env), the
@@ -32,7 +34,8 @@ Layouts.  The model's constants are one buffer (:func:`pack_model`, read
 back by :func:`unpack_model`); the static dof support of each row (what the
 JAX scalar pipeline drops at trace time as Python zeros) is a CSR table
 (:func:`row_supports`, :func:`mass_support`); ``ant_rows``' units are an
-int32 table (:func:`units`, :data:`UNIT_FIELDS`).  Every buffer between the
+int32 table (:func:`units`, :data:`UNIT_FIELDS`), and so is the tree that
+``ant_smooth`` reads (:func:`smooth_table`, :data:`SMOOTH_FIELDS`).  Every buffer between the
 kernels is env-minor, ``[k, B]``: ``M`` ``[196, B]`` (row-major 14x14),
 ``qacc_smooth`` ``[14, B]``, ``skin`` ``[240, B]`` (:data:`SKIN_FIELDS`:
 body xpos and xmat, each dof's world axis and anchor), ``vals`` ``[nnz, B]``
@@ -67,11 +70,13 @@ from ._build import count_launch
 __all__ = [
     "MODEL_FIELDS", "SCALARS", "SKIN_FIELDS", "Smooth", "Rows", "pack_model",
     "unpack_model", "row_supports", "mass_support", "tables", "UNIT_FIELDS",
-    "units", "newton_smem_bytes", "newton_rows_cap", "ant_smooth", "ant_rows",
+    "units", "SMOOTH_FIELDS", "smooth_table", "newton_smem_bytes", "newton_rows_cap", "ant_smooth", "ant_rows",
     "ant_newton", "smooth_twin", "rows_twin", "newton_twin", "forward", "dense_rows",
 ]
 
 NB, NV, NQ, NJ, NU, NG = 13, 14, 15, 8, 8, 13
+NL = NV * (NV + 1) // 2     # a packed lower triangle, column after column
+NPAIR = 64                  # the (body, rotation dof) pairs ant_smooth holds
 NCAP = NG - 1
 NFLOOR = 1 + 2 * NCAP       # the torso sphere, both ends of each capsule
 NSLOT_CAND = 1 + 3 * NCAP   # per wall slot: the torso, 3 slots per capsule
@@ -98,6 +103,14 @@ _INT_FIELDS = {"parent", "body_jnt", "jnt_body", "jnt_dof", "jnt_qpos",
 UNIT_FIELDS = ("kind", "index", "body", "geom", "slot", "end", "hinge0",
                "hinge1")
 U_LIMIT, U_FLOOR_TORSO, U_FLOOR_END, U_WALL_TORSO, U_WALL_CAPSULE = range(5)
+# ant_smooth's tree table, in the order of the ST_* offsets of
+# csrc/ant_forward.cu (smooth_table)
+SMOOTH_FIELDS = (
+    ("n_levels", 1), ("level", NB), ("parent", NB), ("body_jnt", NB),
+    ("body_qpos", NB), ("body_dofs", NB), ("pair_base", NB), ("pairs", NPAIR),
+    ("dof_anchor", NV), ("dof_jnt", NV), ("dof_bodies", NV), ("dof_act", NV),
+    ("m_entry", NL), ("m_bodies", NL),
+)
 
 
 class Smooth(NamedTuple):
@@ -129,6 +142,17 @@ def _check_model(model: AntModel) -> None:
                          "each body after its parent")
     if max(len(_hinges(model, b)) for b in range(NB)) > 2:
         raise ValueError("the kernels take at most 2 hinges moving a body")
+    parent, bj = np.asarray(model.parent), np.asarray(model.body_jnt)
+    jb = np.asarray(model.jnt_body)
+    if parent[0] != -1 or bj[0] != -1 or sorted(jd) != list(range(6, NV)):
+        raise ValueError("the kernels take body 0 as the free root and one "
+                         "hinge for each dof after the 6 free ones")
+    if any(bj[b] >= 0 and jb[bj[b]] != b for b in range(NB)) or any(
+            bj[jb[j]] != j for j in range(NJ)):
+        raise ValueError("the kernels take each hinge moving its own body")
+    if int(np.asarray(model.dof_mask)[:, 3:].sum()) > NPAIR:
+        raise ValueError(f"ant_smooth holds at most {NPAIR} (body, rotation "
+                         "dof) pairs")
 
 
 def _scalars(model: AntModel) -> dict:
@@ -261,6 +285,74 @@ def tables(model: AntModel) -> np.ndarray:
     return np.concatenate([row_ptr, np.concatenate(rows), m_rows]).astype(np.int32)
 
 
+def _levels(model: AntModel) -> list:
+    """Each body's depth in the tree: the root 0, a child its parent's + 1."""
+    level = [0] * NB
+    for b in range(1, NB):
+        level[b] = level[int(model.parent[b])] + 1
+    return level
+
+
+def smooth_table(model: AntModel) -> np.ndarray:
+    """The tree as ``ant_smooth`` reads it: int32, :data:`SMOOTH_FIELDS` in
+    order.  ``level`` is each body's depth (FK runs a level at a time, each
+    body from its parent in the level before); ``body_jnt`` and ``body_qpos``
+    the hinge that moves a body from its parent and its qpos index (-1:
+    none); ``body_dofs`` a bitmask of the dofs that move a body; ``pairs``
+    the (body, rotation dof) pairs, body after body, each ``(body << 8) |
+    dof`` (-1 past the last), ``pair_base`` each body's first; per dof its
+    anchor body (a hinge's child, the torso for the free dofs), its hinge
+    (-1 for the free dofs), a bitmask of the bodies it moves and its
+    actuator (the last that drives it, as ``actuation_s`` sets them; -1:
+    none); ``m_entry`` the entries of the packed lower triangle (column
+    after column, entry t at (i, k)) as ``t | i << 8 | k << 16``, the ones
+    with the most bodies first (the kernel's lanes take them in turn, so
+    each lane's slots weigh alike), and ``m_bodies`` in the same order the
+    bodies that add a term to each in ``mass_matrix_s``: those that both
+    dofs move, but none to two distinct translations."""
+    _check_model(model)
+    mask = np.asarray(model.dof_mask) != 0
+    jb, jd = np.asarray(model.jnt_body), np.asarray(model.jnt_dof)
+    level = _levels(model)
+    pairs = [(b << 8) | d for b in range(NB) for d in range(3, NV) if mask[b, d]]
+    pair_base = np.cumsum([0] + [int(mask[b, 3:].sum()) for b in range(NB - 1)])
+    dof_jnt = [-1] * NV
+    for j in range(NJ):
+        dof_jnt[int(jd[j])] = j
+    dof_act = [-1] * NV
+    for k, d in enumerate(np.asarray(model.act_dof)):
+        dof_act[int(d)] = k
+    entries = []
+    for k in range(NV):
+        for i in range(k, NV):
+            pure = i < 3 and k < 3 and i != k
+            entries.append((len(entries) | i << 8 | k << 16, 0 if pure else sum(
+                1 << b for b in range(NB) if mask[b, i] and mask[b, k])))
+    entries.sort(key=lambda e: -bin(e[1]).count("1"))
+    fields = {
+        "n_levels": [max(level) + 1], "level": level,
+        "parent": np.asarray(model.parent), "body_jnt": np.asarray(model.body_jnt),
+        "body_qpos": [int(model.jnt_qpos[j]) if j >= 0 else -1
+                      for j in np.asarray(model.body_jnt)],
+        "body_dofs": [sum(1 << d for d in range(NV) if mask[b, d])
+                      for b in range(NB)],
+        "pair_base": pair_base, "pairs": pairs + [-1] * (NPAIR - len(pairs)),
+        "dof_anchor": [int(jb[dof_jnt[d]]) if dof_jnt[d] >= 0 else 0
+                       for d in range(NV)],
+        "dof_jnt": dof_jnt,
+        "dof_bodies": [sum(1 << b for b in range(NB) if mask[b, d])
+                       for d in range(NV)],
+        "dof_act": dof_act, "m_entry": [e for e, _ in entries],
+        "m_bodies": [bs for _, bs in entries],
+    }
+    parts = []
+    for name, n in SMOOTH_FIELDS:
+        a = np.asarray(fields[name], np.int64).reshape(-1)
+        assert a.size == n, name
+        parts.append(a)
+    return np.concatenate(parts).astype(np.int32)
+
+
 def units(model: AntModel) -> np.ndarray:
     """``ant_rows``' units, one thread's work for one env: int32 ``[n,
     len(UNIT_FIELDS)]`` in the JAX candidate order (``contact_candidates_s``:
@@ -305,7 +397,8 @@ def _capturing(device) -> bool:
 
 class _Plan:
     """What the kernels read for one model, dtype and device: the model
-    buffer, the support table, and the buffers of each batch size."""
+    buffer, the support and tree tables, and the buffers of each batch
+    size."""
 
     def __init__(self, model: AntModel, dtype: torch.dtype, device):
         self.dtype, self.device = dtype, torch.device(device)
@@ -319,12 +412,14 @@ class _Plan:
         self.dof = torch.as_tensor(np.concatenate(rows), device=device)
         self.model = torch.as_tensor(pack_model(model), dtype=dtype, device=device)
         self.tables = torch.as_tensor(tables(model), device=device)
+        self.smooth_table = torch.as_tensor(smooth_table(model), device=device)
         self.buffers: dict = {}
         if self.device.type == "cuda" and (
                 _lib().ant_forward_model_len(self.n_slots) != self.model.numel()
-                or _lib().ant_forward_unit_width() != len(UNIT_FIELDS)):
-            raise RuntimeError("the model buffer's or the units' layout is "
-                               "not the kernels'")
+                or _lib().ant_forward_unit_width() != len(UNIT_FIELDS)
+                or _lib().ant_smooth_table_len() != self.smooth_table.numel()):
+            raise RuntimeError("the model buffer's, the units' or the tree "
+                               "table's layout is not the kernels'")
 
     def batch(self, B: int):
         """(smooth, rows) buffers of batch ``B``, made once."""
@@ -369,11 +464,13 @@ def _lib():
     lib.ant_forward_model_len.restype = i
     lib.ant_forward_unit_width.argtypes = []
     lib.ant_forward_unit_width.restype = i
+    lib.ant_smooth_table_len.argtypes = []
+    lib.ant_smooth_table_len.restype = i
     lib.ant_newton_smem_bytes.argtypes = [i, i]
     lib.ant_newton_smem_bytes.restype = ctypes.c_longlong
     lib.ant_newton_rows_cap.argtypes = []
     lib.ant_newton_rows_cap.restype = i
-    lib.ant_smooth_launch.argtypes = [i, i] + [p] * 8
+    lib.ant_smooth_launch.argtypes = [i, i] + [p] * 9
     lib.ant_rows_launch.argtypes = [i] * 5 + [p] * 11
     lib.ant_newton_launch.argtypes = [i] * 5 + [p] * 11
     for fn in (lib.ant_smooth_launch, lib.ant_rows_launch, lib.ant_newton_launch):
@@ -518,8 +615,9 @@ def ant_smooth(model: AntModel, qpos: torch.Tensor, qvel: torch.Tensor,
     if out is None:
         out = Smooth(*(torch.empty(n, B, dtype=dt, device=dev)
                        for n in (NV * NV, NV, SKIN)))
-    _launch("ant_smooth", dev, _dtype_code(dt), B, _ptr(p.model), _ptr(qpos),
-            _ptr(qvel), _ptr(ctrl), *map(_ptr, out))
+    _launch("ant_smooth", dev, _dtype_code(dt), B, _ptr(p.model),
+            _ptr(p.smooth_table), _ptr(qpos), _ptr(qvel), _ptr(ctrl),
+            *map(_ptr, out))
     count_launch(ant_smooth, "ant_smooth")
     return out
 

@@ -1,24 +1,33 @@
 """Measurement probe of the ant's scalar-forward kernels on a CUDA device.
 
-    python -m gym_po_tpu_torch.ops.probe_ant_forward ab --parent DIR
+    python -m gym_po_tpu_torch.ops.probe_ant_forward [ab --parent DIR] [parts]
 
 Run from the repository's root: it takes its states, bounds and helpers
 from ``chip_smoke.py``'s path 9.
 
 Sections:
 
-- ``ab``: the one-env-a-thread design's ``ant_rows`` and ``ant_newton``,
-  built from ``--parent DIR`` (a ``csrc`` directory unpacked by ``mkdir -p
-  build/ant_parent && git archive ffa4c43 gym_po_tpu_torch/csrc | tar -x -C
-  build/ant_parent --strip-components=2``; its C interface, with the
-  solve's four ``[ne, B]`` scratch buffers, is checked in the source)
-  against the current kernels in one process, on ``chip_smoke.py``'s timed
-  inputs: ``ant_contact_states`` of each arena at B = 4,096 f32, 8
-  iterations and 10 bisections.  CUDA-event windows of 20 launches in the
-  order parent, current, current, parent, twice; their medians and the
-  ratio current/parent.  The two designs' outputs are compared: the rows
-  where both set the same flags, the solves on the current rows.  First,
-  the parent's registers, stack frame and spills from ptxas.
+- ``ab``: the parent's ``ant_smooth`` (one env a thread) and ``ant_newton``
+  (whose solve the current ``ant_smooth`` shares) built from ``--parent DIR``
+  (a ``csrc`` directory unpacked by ``mkdir -p build/ant_parent && git
+  archive 7be9f64 gym_po_tpu_torch/csrc | tar -x -C build/ant_parent
+  --strip-components=2``; its C interface, without the tree table, is
+  checked in the source) against the current kernels in one process, on
+  ``chip_smoke.py``'s timed inputs: ``ant_contact_states`` of each arena
+  at B = 4,096 f32.  CUDA-event windows of 100 launches in the order
+  parent, current, current, parent, twice; their medians and the ratio
+  current/parent.  The two ``ant_smooth``s' outputs (M, qacc_smooth, the
+  kinematics) are compared, and the two ``ant_newton``s' on the same
+  inputs bit for bit.  First, the parent's registers, stack frame
+  and spills from ptxas.
+- ``parts``: where ``ant_smooth``'s time goes.  Copies of the current
+  ``ant_forward.cu`` with one step of the per-env work cut out (FK, the
+  kinematics, the mass matrix, the bias force, the solve; ``io``: all of
+  them, leaving the block's staging of inputs and outputs) are built in
+  parallel and timed beside the full kernel on the same inputs (the tag
+  arena's contact states, B = 4,096 f32), windows of 100 launches in the
+  order full, each cut, full, twice; a step's share is the full kernel's
+  median less its cut copy's.  The cut copies' outputs are not used.
 
 Every line it prints is a measurement of this run; the first line is the
 card's name and power limit as ``nvidia-smi`` gives them.  No launch here
@@ -36,10 +45,23 @@ from pathlib import Path
 
 import torch
 
-SECTIONS = ("ab",)
-# the parent's ant_newton_launch ends with the solve's scratch: this
-# probe's ctypes interface is that one
-PARENT_SIGNATURE = "void* warm_out, void* s_idx, void* s_D, void* s_slack,"
+SECTIONS = ("ab", "parts")
+# parts: the text each cut copy of ant_forward.cu leaves out of ant_smooth's
+# per-env function, from the first marker up to the second (not included)
+_SOLVE = "  chol_solve_warp(s + SE_H"
+_END = "}\n\n// One warp per env, W consecutive envs a block."
+PARTS = {
+    "fk": ("  // ---- FK (_fk_s)", "  // ---- kinematics_s"),
+    "kinematics": ("  // ---- kinematics_s", "  // ---- mass_matrix_s"),
+    "mass": ("  // ---- mass_matrix_s", "  // ---- bias_force_s"),
+    "bias": ("  // ---- bias_force_s", "  // ---- qacc_smooth"),
+    "solve": (_SOLVE, _END),
+    "io": ("  // ---- FK (_fk_s)", _END),
+}
+# the parent's ant_smooth_launch takes no tree table: this probe's ctypes
+# interface is that one
+PARENT_SIGNATURE = ("int ant_smooth_launch(int dtype, int B, const void* mdl, "
+                    "const void* qpos,")
 
 
 def _nvidia_smi(query: str) -> str:
@@ -56,8 +78,8 @@ def parent_library(parent: Path):
 
     src = parent / "ant_forward.cu"
     if PARENT_SIGNATURE not in src.read_text():
-        raise SystemExit(f"{src}: not the one-env-a-thread design's C interface "
-                         "(git archive ffa4c43 gym_po_tpu_torch/csrc)")
+        raise SystemExit(f"{src}: not the one-env-a-thread ant_smooth's C "
+                         "interface (git archive 7be9f64 gym_po_tpu_torch/csrc)")
     out = BUILD_DIR / "probe" / "ant_forward_parent.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -67,9 +89,9 @@ def parent_library(parent: Path):
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(out))
     pv, i = ctypes.c_void_p, ctypes.c_int
-    lib.ant_rows_launch.argtypes = [i] * 4 + [pv] * 10
-    lib.ant_newton_launch.argtypes = [i] * 5 + [pv] * 15
-    lib.ant_rows_launch.restype = lib.ant_newton_launch.restype = i
+    lib.ant_smooth_launch.argtypes = [i, i] + [pv] * 8
+    lib.ant_newton_launch.argtypes = [i] * 5 + [pv] * 11
+    lib.ant_smooth_launch.restype = lib.ant_newton_launch.restype = i
     return lib, f"built in {time.perf_counter() - t0:.2f} s\n{proc.stdout}{proc.stderr}"
 
 
@@ -77,10 +99,14 @@ def ab(parent: str) -> None:
     import chip_smoke as cs
 
     from . import ant_forward as af
+    from ._build import build_log
 
     lib, log = parent_library(Path(parent))
     print(f"parent ant_forward.cu {log.splitlines()[0]}, by kernel: "
           f"{cs.ptxas_summary(log)}", flush=True)
+    af._lib()
+    print("current ant_forward.cu by kernel: "
+          f"{cs.ptxas_summary(build_log('ant_forward'))}", flush=True)
     dev, B = torch.device("cuda", 0), cs.B_ANT
     for env_id, model in cs._ant_models().items():
         q, v, c, w = (torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -91,31 +117,27 @@ def ab(parent: str) -> None:
             sm = af.ant_smooth(model, q, v, c)
             rows = af.ant_rows(model, sm.skin, q, v)
             got = af.ant_newton(model, sm, rows, w, 8, 10)
-        prow = af.Rows(*(torch.empty_like(x) for x in rows))
+        psm = af.Smooth(*(torch.empty_like(x) for x in sm))
         pout = [torch.empty_like(x) for x in got]
-        scratch = [torch.empty(p.ne, B, dtype=torch.int32, device=dev)] + [
-            torch.empty(p.ne, B, device=dev) for _ in range(3)]
 
         def launched(err, name):
             if err:
                 raise RuntimeError(f"the parent's {name} launch failed: CUDA "
                                    f"error {err}")
 
-        def parent_rows(i):
-            launched(lib.ant_rows_launch(
-                0, B, p.n_slots, p.ne, p.model.data_ptr(), p.tables.data_ptr(),
-                sm.skin.data_ptr(), q.data_ptr(), v.data_ptr(),
-                *(x.data_ptr() for x in prow), st), "ant_rows")
+        def parent_smooth(i):
+            launched(lib.ant_smooth_launch(
+                0, B, p.model.data_ptr(), q.data_ptr(), v.data_ptr(), c.data_ptr(),
+                *(x.data_ptr() for x in psm), st), "ant_smooth")
 
         def parent_newton(i):
             launched(lib.ant_newton_launch(
                 0, B, p.ne, 8, 10, p.tables.data_ptr(), sm.M.data_ptr(),
                 sm.qacc_smooth.data_ptr(), *(x.data_ptr() for x in rows),
-                w.data_ptr(), *(x.data_ptr() for x in pout),
-                *(x.data_ptr() for x in scratch), st), "ant_newton")
+                w.data_ptr(), *(x.data_ptr() for x in pout), st), "ant_newton")
 
-        calls = {"ant_rows": {"parent": parent_rows, "current": lambda i: af.ant_rows(
-                     model, sm.skin, q, v, out=rows)},
+        calls = {"ant_smooth": {"parent": parent_smooth, "current": lambda i: af.ant_smooth(
+                     model, q, v, c, out=sm)},
                  "ant_newton": {"parent": parent_newton, "current": lambda i: af.ant_newton(
                      model, sm, rows, w, 8, 10)}}
         times = {k: {"parent": [], "current": []} for k in calls}
@@ -124,13 +146,11 @@ def ab(parent: str) -> None:
                 for fn in fns.values():  # warm-up
                     fn(0)
                 for who in ("parent", "current", "current", "parent") * 2:
-                    times[k][who].append(cs.event_windows(fns[who], 1, 20))
-        same = prow.active == rows.active
-        d_rows = max(cs._rel_abs(torch.where(same[p.row], prow.vals, rows.vals),
-                                 rows.vals)[0],
-                     *(cs._rel_abs(torch.where(same, a, b), b)[0]
-                       for a, b in ((prow.aref, rows.aref), (prow.r, rows.r))))
-        d_newton = max(cs._rel_abs(a, b)[0] for a, b in zip(pout, got))
+                    times[k][who].append(cs.event_windows(fns[who], 1, 100))
+            got = af.ant_newton(model, sm, rows, w, 8, 10)
+        diff = {name: cs._rel_abs(a, b)[0]
+                for name, a, b in zip(af.Smooth._fields, psm, sm)}
+        same = all(torch.equal(a, b) for a, b in zip(pout, got))
         bounds = cs.ant_kernel_bounds(model, p, rows, 8, 10)
         parts = []
         for k, t in times.items():
@@ -141,11 +161,84 @@ def ab(parent: str) -> None:
                          f"{bounds[k][0]:.4f} ms by {bounds[k][1]} (windows "
                          + "; ".join(f"{who} " + ", ".join(f"{x:.4f}" for x in xs)
                                      for who, xs in t.items()) + ")")
-        print(f"ab {env_id} B={B} f32, 8 iterations, 10 bisections, medians of "
-              "4 windows of 20 launches: " + ", ".join(parts) + "; the parent's "
-              f"outputs vs the current: rows {d_rows:.3e} relative where both "
-              f"set the same flags ({int((~same).sum())} flags differ), qacc "
-              f"and warm {d_newton:.3e}", flush=True)
+        print(f"ab {env_id} B={B} f32, 8 iterations, 10 bisections, medians of 4 "
+              "windows of 100 launches: " + ", ".join(parts) + "; the parent's "
+              "ant_smooth outputs vs the current, relative to max(1, |x|): "
+              + ", ".join(f"{k} {x:.3e}" for k, x in diff.items())
+              + f"; the parent's ant_newton on the same inputs "
+              f"{'equal to' if same else 'NOT equal to'} the current's, bit "
+              "for bit", flush=True)
+
+
+def _cut(text: str, start: str, end: str) -> str:
+    if text.count(start) != 1 or text.count(end) != 1:
+        raise SystemExit(f"the markers {start!r}, {end!r} are not unique in "
+                         "ant_forward.cu")
+    i = text.index(start)
+    return text[:i] + text[text.index(end, i):]
+
+
+def parts() -> None:
+    import chip_smoke as cs
+
+    from . import ant_forward as af
+    from ._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
+
+    text = (CSRC / "ant_forward.cu").read_text()
+    out = BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (start, end) in PARTS.items():
+        src = out / f"ant_forward_cut_{name}.cu"
+        src.write_text(_cut(text, start, end))
+        procs[name] = (src, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(src.with_suffix(".so")), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (src, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(str(src.with_suffix(".so")))
+        lib.ant_smooth_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+        lib.ant_smooth_launch.restype = ctypes.c_int
+        libs[name] = lib
+        print(f"cut {name}: {cs.ptxas_summary(log)}", flush=True)
+    dev, B = torch.device("cuda", 0), cs.B_ANT
+    env_id, model = next(iter(cs._ant_models().items()))
+    q, v, c, _ = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                  for x in cs.ant_contact_states(B, 21, walls=True))
+    p = af._plan(model, torch.float32, dev)
+    st = torch.cuda.current_stream(dev).cuda_stream
+    with cs.uncounted():
+        sm = af.ant_smooth(model, q, v, c)
+    scratch = af.Smooth(*(torch.empty_like(x) for x in sm))
+
+    def cut(lib):
+        def run(i):
+            err = lib.ant_smooth_launch(
+                0, B, p.model.data_ptr(), p.smooth_table.data_ptr(), q.data_ptr(),
+                v.data_ptr(), c.data_ptr(), *(x.data_ptr() for x in scratch), st)
+            if err:
+                raise RuntimeError(f"a cut ant_smooth launch failed: CUDA error {err}")
+        return run
+
+    fns = {"full": lambda i: af.ant_smooth(model, q, v, c, out=sm),
+           **{name: cut(lib) for name, lib in libs.items()}}
+    times = {k: [] for k in fns}
+    order = ["full", *libs, "full"]
+    with cs.uncounted():
+        for fn in fns.values():  # warm-up
+            fn(0)
+        for who in order * 2:
+            times[who].append(cs.event_windows(fns[who], 1, 100))
+    med = {k: statistics.median(x) for k, x in times.items()}
+    print(f"parts {env_id} B={B} f32, ant_smooth medians of windows of 100 "
+          f"launches: full {med['full']:.4f} ms; " + "; ".join(
+              f"without {k} {med[k]:.4f} ms (share {med['full'] - med[k]:.4f})"
+              for k in PARTS) + " (windows " + "; ".join(
+              f"{k} " + ", ".join(f"{x:.4f}" for x in xs)
+              for k, xs in times.items()) + ")", flush=True)
 
 
 def main(argv) -> int:
@@ -165,7 +258,7 @@ def main(argv) -> int:
         raise SystemExit("ab needs --parent DIR (the parent's csrc directory)")
     print(_nvidia_smi("name,power.limit"), flush=True)
     for name in names:
-        {"ab": lambda: ab(parent)}[name]()
+        {"ab": lambda: ab(parent), "parts": parts}[name]()
     print("clocks after:", _nvidia_smi(
         "clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu"))
     return 0

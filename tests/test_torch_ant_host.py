@@ -6,14 +6,17 @@ launchers) is compiled by the host C++ compiler under a small shim that
 runs every GPU thread of a block as a ``std::thread``: ``__syncwarp`` and
 ``__syncthreads`` are barriers, a shuffle or a ballot goes through a
 per-warp slot array between two barriers, shared memory is one buffer a
-block (filled with garbage first).  So the warp-per-env Newton solve, its
-compaction, chunking and butterfly sums, and the thread-per-(unit, env)
-rows run as written, with the twins' tolerances: f64 within 1e-9 relative
-to max(1, |x|) (Newton after 16 iterations), f32 within
-``chip_smoke.ant_f32_errs``' gates.  ``-ffp-contract=fast -mfma`` makes
-the host fuse multiply-adds as the card does.  Batches of 20 envs leave
-the last Newton block (8 envs at f32, 4 at f64) part empty; a forced test
-makes every row active, so each pass takes the rows chunk by chunk.
+block (filled with garbage first).  So the warp-per-env smooth dynamics
+(FK a tree level at a time, the mass matrix a lane per packed entry, the
+warp Cholesky), the warp-per-env Newton solve, its compaction, chunking
+and butterfly sums, and the thread-per-(unit, env) rows run as written,
+each on the kernels' own outputs (smooth -> rows -> newton), with the
+twins' tolerances: f64 within 1e-9 relative to max(1, |x|) (Newton after
+16 iterations), f32 within ``chip_smoke.ant_f32_errs``' gates.
+``-ffp-contract=fast -mfma`` makes the host fuse multiply-adds as the
+card does.  Batches of 20 envs leave the last smooth and Newton block (8
+envs at f32, 4 at f64) part empty; a forced test makes every row active,
+so each pass takes the rows chunk by chunk.
 """
 
 import ctypes
@@ -48,7 +51,7 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
 struct WarpCtx {
   std::barrier<> bar{32};
@@ -87,6 +90,15 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return b;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline void sincospif(float x, float* s, float* c) {
+  *s = (float)std::sin(M_PI * x);
+  *c = (float)std::cos(M_PI * x);
+}
+inline void sincospi(double x, double* s, double* c) {
+  *s = std::sin(M_PI * x);
+  *c = std::cos(M_PI * x);
+}
 // a grid of blocks one after another, a std::thread per thread of a block
 template <class F>
 void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
@@ -116,6 +128,24 @@ void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
 
 LAUNCH = r"""
 template <typename T>
+static void smooth(int B, const void* mdl, const void* tab, const void* qpos, const void* qvel,
+                   const void* ctrl, void* M, void* qs, void* skin) {
+  constexpr int W = ant::WarpEnvs<T>::value;
+  const size_t smem = W * ant::SE_SIZE * sizeof(T) + ant::ST_LEN * sizeof(int);
+  shim_launch(dim3((B + W - 1) / W), dim3(32 * W), smem, [&] {
+    ant::ant_smooth_kernel<T, W>(B, (const T*)mdl, (const int*)tab, (const T*)qpos,
+                                 (const T*)qvel, (const T*)ctrl, (T*)M, (T*)qs, (T*)skin);
+  });
+}
+extern "C" void host_smooth(int dtype, int B, const void* mdl, const void* tab,
+                            const void* qpos, const void* qvel, const void* ctrl, void* M,
+                            void* qs, void* skin) {
+  if (dtype == 0)
+    smooth<float>(B, mdl, tab, qpos, qvel, ctrl, M, qs, skin);
+  else
+    smooth<double>(B, mdl, tab, qpos, qvel, ctrl, M, qs, skin);
+}
+template <typename T>
 static void rows(int B, int ne, int n_units, const void* mdl, const void* tables,
                  const void* units, const void* skin, const void* qpos, const void* qvel,
                  void* vals, void* aref, void* r, void* active) {
@@ -138,7 +168,7 @@ template <typename T>
 static void newton(int B, int ne, int iters, int ls, const void* tables, const void* M,
                    const void* qs, const void* vals, const void* aref, const void* r,
                    const void* active, const void* warm, void* qacc, void* warm_out) {
-  constexpr int W = ant::NewtonEnvs<T>::value;
+  constexpr int W = ant::WarpEnvs<T>::value;
   shim_launch(dim3((B + W - 1) / W), dim3(32 * W), W * ant::newton_env_bytes<T>(ne), [&] {
     ant::ant_newton_kernel<T, W>(B, ne, iters, ls, (const int*)tables, (const T*)M,
                                  (const T*)qs, (const T*)vals, (const T*)aref, (const T*)r,
@@ -163,9 +193,14 @@ def host_source() -> str:
     text = SRC.read_text()
     device = text[:text.index("// " + "-" * 64 + " launchers")]
     device = device.replace("#include <cuda_runtime.h>\n", "")
-    shared = "extern __shared__ __align__(16) unsigned char ant_smem[];"
-    assert device.count(shared) == 1
-    device = device.replace(shared, "unsigned char* ant_smem = shim_smem();")
+    for shared, shim in (
+            ("extern __shared__ __align__(16) unsigned char ant_smem[];",
+             "unsigned char* ant_smem = shim_smem();"),
+            ("__shared__ T sm[W * SE_SIZE];", "T* sm = (T*)shim_smem();"),
+            ("__shared__ int stab[ST_LEN];",
+             "int* stab = (int*)(shim_smem() + W * SE_SIZE * sizeof(T));")):
+        assert device.count(shared) == 1, shared
+        device = device.replace(shared, shim)
     return SHIM + device + LAUNCH
 
 
@@ -181,6 +216,7 @@ def host_lib(tmp_path_factory):
                     str(d / "ant_host.cpp")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(d / "ant_host.so"))
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.host_smooth.argtypes = [i] * 2 + [p] * 8
     lib.host_rows.argtypes = [i] * 4 + [p] * 10
     lib.host_newton.argtypes = [i] * 5 + [p] * 10
     return lib
@@ -188,6 +224,17 @@ def host_lib(tmp_path_factory):
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
+
+
+def _host_smooth(lib, model, qpos, qvel, ctrl) -> af.Smooth:
+    p = af._plan(model, qpos.dtype, "cpu")
+    B = qpos.shape[0]
+    out = af.Smooth(*(torch.full((n, B), float("nan"), dtype=qpos.dtype)
+                      for n in (af.NV * af.NV, af.NV, af.SKIN)))
+    lib.host_smooth(int(qpos.dtype == torch.float64), B, _ptr(p.model),
+                    _ptr(p.smooth_table), _ptr(qpos), _ptr(qvel), _ptr(ctrl),
+                    *map(_ptr, out))
+    return out
 
 
 def _host_rows(lib, model, skin, qpos, qvel) -> af.Rows:
@@ -221,12 +268,37 @@ def _rel(a, b):
     return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
 
 
+@pytest.mark.parametrize("B", [20, 21])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("env_id", cs.ANT_IDS)
+def test_host_smooth_equals_twin(host_lib, env_id, dtype, B):
+    """The warp-per-env ant_smooth against smooth_twin: M, qacc_smooth
+    and the kinematics at f64 within 1e-9 relative to max(1, |x|); at f32
+    within ``ANT_F32_TOL["ant_smooth"]``.  M is symmetric, zero off
+    ``mass_support`` exactly.  The last block is part empty (B = 21: one
+    env in it at f64)."""
+    model = cs._ant_models()[env_id]
+    q, v, c = (x[:B] for x in _inputs(dtype, 22, 7)[:3])
+    sm = _host_smooth(host_lib, model, q, v, c)
+    tw = af.smooth_twin(model, q, v, c)
+    tol = 1e-9 if dtype == torch.float64 else cs.ANT_F32_TOL["ant_smooth"]
+    for name, g, t in zip(af.Smooth._fields, sm, tw):
+        assert torch.isfinite(g).all() and _rel(g, t) <= tol, name
+    M = af._batch_mass(sm.M)
+    assert torch.equal(M, M.mT)
+    off = torch.as_tensor(~af.mass_support(model))
+    assert (M[:, off] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("env_id", cs.ANT_IDS)
 def test_host_rows_and_newton_equal_twins(host_lib, env_id, dtype):
+    """The host chain, smooth -> rows -> newton, each kernel on the
+    kernels' own outputs, against the twins: f32 through
+    ``chip_smoke.ant_f32_errs``' gates, f64 within 1e-9."""
     model = cs._ant_models()[env_id]
     q, v, c, w = _inputs(dtype, 20, 7)
-    sm = af.ant_smooth(model, q, v, c)  # the twin: ant_smooth is unchanged
+    sm = _host_smooth(host_lib, model, q, v, c)
     rows = _host_rows(host_lib, model, sm.skin, q, v)
     assert rows.active[af.NJ:].sum() > 0
     if dtype == torch.float32:

@@ -26,6 +26,7 @@ drop as Python zeros.
 """
 
 import contextlib
+import dataclasses
 import types
 
 import jax
@@ -161,6 +162,18 @@ def jax_ref():
                     M_s = jdyn.mass_matrix_s(jm, s)
                     ref["mass_support"] = np.array(
                         [[not jdyn._is0(x) for x in row] for row in M_s])
+                    # each body's own terms: mass_matrix_s of the model with
+                    # that body's dofs alone and no armature
+                    ref["mass_bodies"] = []
+                    for b in range(jm.nb):
+                        mask = np.zeros_like(np.asarray(jm.dof_mask))
+                        mask[b] = np.asarray(jm.dof_mask)[b]
+                        jm_b = dataclasses.replace(
+                            jm, dof_mask=mask,
+                            armature=np.zeros_like(np.asarray(jm.armature)))
+                        ref["mass_bodies"].append(np.array(
+                            [[not jdyn._is0(x) for x in row]
+                             for row in jdyn.mass_matrix_s(jm_b, s)]))
             ref["smooth"], ref["rows"] = smooth, rows
             with jax.disable_jit():
                 ref["forward2"] = tuple(np.asarray(x) for x in jeng.forward(
@@ -311,6 +324,73 @@ def test_support_tables_match_jax_structure(jax_ref, walls):
     S = taf.mass_support(tm)
     for d in range(14):
         assert tab[ne + 1 + nnz + d] == sum(1 << e for e in range(14) if S[d, e])
+
+
+def _smooth_fields(tm) -> dict:
+    tab, out, at = taf.smooth_table(tm), {}, 0
+    for name, n in taf.SMOOTH_FIELDS:
+        out[name] = [int(x) for x in tab[at:at + n]]
+        at += n
+    assert at == len(tab) and tab.dtype == np.int32
+    return out
+
+
+def _bits(x) -> set:
+    return {b for b in range(32) if (x >> b) & 1}
+
+
+@pytest.mark.parametrize("walls", list(WALLS))
+def test_smooth_table_matches_jax_model(jax_ref, walls):
+    """``ant_smooth``'s tree table against the JAX model and
+    ``mass_matrix_s``: every body's parent in the level before (the root
+    alone at level 0), each body's hinge and its qpos index, each dof's
+    anchor body (``bias_force_s``), hinge, bodies (``_active_dofs``) and
+    actuator (``actuation_s``), the (body, rotation dof) pairs body after
+    body; and each packed entry's bodies exactly those that add a term to
+    it in ``mass_matrix_s`` (found eagerly, a body at a time), the entries
+    with none exactly ``mass_support``'s zeros."""
+    jm, tm = _models(walls)
+    f = _smooth_fields(tm)
+    nb, nv = jm.nb, jm.nv
+    parent = [int(x) for x in np.asarray(jm.parent)]
+    level = f["level"]
+    assert parent[0] == -1 and level[0] == 0 and f["n_levels"] == [4]
+    assert f["parent"] == parent
+    for b in range(1, nb):
+        assert level[b] == level[parent[b]] + 1 and level[b] < f["n_levels"][0]
+    assert sorted(level) == [0] + [1] * 4 + [2] * 4 + [3] * 4
+    assert f["body_jnt"] == [int(x) for x in np.asarray(jm.body_jnt)]
+    assert f["body_qpos"] == [int(jm.jnt_qpos[j]) if j >= 0 else -1
+                              for j in np.asarray(jm.body_jnt)]
+    active = [jdyn._active_dofs(jm, b) for b in range(nb)]
+    assert [_bits(x) for x in f["body_dofs"]] == [set(a) for a in active]
+    pairs = [(b, d) for b in range(nb) for d in active[b] if d >= 3]
+    assert [(x >> 8, x & 255) for x in f["pairs"] if x >= 0] == pairs
+    assert f["pairs"][len(pairs):] == [-1] * (taf.NPAIR - len(pairs))
+    assert f["pair_base"] == [pairs.index((b, active[b][3]))
+                              if len(active[b]) > 3 else None for b in range(nb)]
+    anchor = [0] * nv
+    for j in range(len(jm.jnt_dof)):
+        anchor[int(jm.jnt_dof[j])] = int(jm.jnt_body[j])
+        assert f["dof_jnt"][int(jm.jnt_dof[j])] == j
+    assert f["dof_anchor"] == anchor and f["dof_jnt"][:6] == [-1] * 6
+    assert [_bits(x) for x in f["dof_bodies"]] == [
+        {b for b in range(nb) if d in active[b]} for d in range(nv)]
+    ctrl = (np.arange(len(jm.act_dof)) + 1) / 10
+    tau = jdyn.actuation_s(jm, ctrl)
+    assert f["dof_act"] == [-1 if jdyn._is0(t) else
+                            int(round(float(t) / jm.gear * 10)) - 1 for t in tau]
+    ref = jax_ref[walls]
+    packed = [(i, k) for k in range(nv) for i in range(k, nv)]
+    entries = [(x & 255, (x >> 8) & 255, x >> 16) for x in f["m_entry"]]
+    assert sorted(t for t, _, _ in entries) == list(range(taf.NL))
+    counts = [len(_bits(x)) for x in f["m_bodies"]]
+    assert counts == sorted(counts, reverse=True)
+    for (t, i, k), bodies in zip(entries, f["m_bodies"]):
+        assert packed[t] == (i, k)
+        want = {b for b in range(nb) if ref["mass_bodies"][b][i, k]}
+        assert _bits(bodies) == want, (i, k)
+        assert i == k or bool(want) == bool(ref["mass_support"][i, k])
 
 
 @pytest.mark.parametrize("walls", list(WALLS))

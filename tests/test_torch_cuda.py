@@ -1814,6 +1814,31 @@ def test_ant_rows_and_newton_equal_twins_at_batch(cuda, walls, dtype, B):
         assert _rel(g, w) <= 1e-9
 
 
+@pytest.mark.parametrize("B", [4096, 4097, 100])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("walls", ["tag", "hh"])
+def test_ant_smooth_equals_twin_at_batch(cuda, walls, dtype, B):
+    """ant_smooth (a warp per env, 8 envs a block at f32, 4 at f64)
+    against smooth_twin on the same inputs at B = 4,096 and at batches
+    whose last block is partly empty (4,097: one env in it; 100): M,
+    qacc_smooth and the kinematics within 1e-9 (f64) and 1e-5 (f32)
+    relative to max(1, |x|); M symmetric and exactly zero off
+    ``mass_support``."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+
+    model, (qpos, qvel, ctrl, _) = _ant_kernel_inputs(cuda, walls, dtype,
+                                                      n=B, seed=3)
+    sm = af.ant_smooth(model, qpos, qvel, ctrl)
+    tw = af.smooth_twin(model, qpos, qvel, ctrl)
+    tol = 1e-9 if dtype == torch.float64 else 1e-5
+    for name, g, w in zip(af.Smooth._fields, sm, tw):
+        assert torch.isfinite(g).all() and _rel(g, w) <= tol, name
+    M = af._batch_mass(sm.M)
+    assert torch.equal(M, M.mT)
+    off = torch.as_tensor(~af.mass_support(model), device=cuda)
+    assert (M[:, off] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("walls", ["tag", "hh"])
 def test_ant_newton_every_row_active_equals_twin(cuda, walls, dtype):
