@@ -53,9 +53,13 @@ path and read just after:
    ``train``, each timed with its collect and learn halves split by CUDA
    events; the collect half's CUDA graph held against the eager collect
    bit for bit from one generator state and both timed, at B = 4,096 and
-   B = 65,536; then the JAX package's PPO learning runs (DiscreteCarFlag,
-   the feedforward HeavenHell surrogate).  It reaches no kernel: its
-   launch counts stay 0;
+   B = 65,536; ``make_multi_train_step`` (each update one replay of an
+   ``UpdateGraph``, the whole update in one CUDA graph) against as many
+   ``make_train_step`` calls from one state, bit for bit, both timed, with
+   the capture's seconds and one replayed update's device ops; ``train``
+   through the multi step; then the JAX package's PPO learning runs
+   (DiscreteCarFlag, the feedforward HeavenHell surrogate).  It reaches no
+   kernel: its launch counts stay 0;
 7. recurrent PPO (``gym_po_tpu_torch.agents.ppo_rnn``) on the same env at
    the same defaults with the GRU 128 wide: updates through
    ``init_rnn_state`` and ``make_rnn_train_step``, each timed with its
@@ -74,8 +78,10 @@ path and read just after:
    ``fused_actor_critic`` with a ``mesh``, B = 65,536, K = 256) and the PPO
    update at ``PPOConfig``'s defaults each equal the same without the mesh,
    bit for bit, the PPO update timed both ways (the host time inside the
-   mesh's all-reduces counted, one update each under ``torch.profiler``)
-   and the all-reduce of a Q table and of PPO's gradient timed; over two
+   mesh's all-reduces counted, one update each under ``torch.profiler``),
+   the multi step with the mesh (its all-reduces in the update's CUDA
+   graph) equal to it without, bit for bit, and the all-reduce of a Q
+   table and of PPO's gradient timed; over two
    ranks sharing the card (gloo: NCCL takes one card per rank), the same
    trainers and a PPO update equal both shards run in one process and
    averaged, bit for bit, and a learn half is broken down (over gloo, each
@@ -101,14 +107,17 @@ path and read just after:
    the device's busy share and each ant kernel's time in it
    (torch.profiler), and the active rows an env on the untimed steps
    against those ``ant_newton`` keeps resident, PPO updates on the ant at
-   B = 4,096 (Euler at T = 8, RK4 at T = 2); then, for the record, the
+   B = 4,096 (Euler at T = 8, RK4 at T = 2), the multi step against single
+   updates at RK4, T = 2, ``train()`` on the heaven-hell env (Euler, T =
+   8, two updates) and one GRU-PPO update on the tag env (Euler, T = 8),
+   their metrics finite; then, for the record, the
    same rates and PPO updates with ``pipeline="array"`` (the batched
    engine), both routes of the 14x14 solve timed, ``render_ant`` of 4
    rows of a B = 4,096 card state of each env (equal to its CPU copy's
    frame, ms per frame), and the batch scan: one Euler ``step_vec`` at
    B = 16,384 against four at B = 4,096 (env-steps/s of each, their
-   ratio, the peak memory), which decides whether the JAX package's
-   ``vector/chunked.py`` is ported.  It prints which of triton, mujoco,
+   ratio, the peak memory), which shows whether chunking
+   (``vector/chunked.py``) could be a speed remedy on the card.  It prints which of triton, mujoco,
    gymnasium and pygame the machine has.
 
 Each phase prints one line; any failure exits non-zero.  There is no CPU
@@ -2266,6 +2275,11 @@ B_PPO_WIDE = 65536  # the size README's step_vec rates are quoted at
 # criterion failed in 4 of 16)
 PPO_CARFLAG_UPDATES = 200
 PPO_HH_UPDATES = 50
+# the multi step (one UpdateGraph replayed PPO_MULTI_UPDATES times) against
+# as many make_train_step calls; PPO_MULTI_WINDOWS rounds of the windows
+# multi, single, single, multi
+PPO_MULTI_UPDATES = 4
+PPO_MULTI_WINDOWS = 2
 
 
 def ppo_metrics_line(m: dict) -> str:
@@ -2294,6 +2308,101 @@ def device_ops(fn, top: int = 0) -> tuple:
     if top:
         ranked = sorted(zip(us, events), key=lambda p: -p[0])[:top]
         out += ([(e.key[:60], e.count, u / 1e3) for u, e in ranked],)
+    return out
+
+
+def train_state_diffs(a, b) -> list:
+    """The fields in which two PPO train states differ (parameters, Adam
+    state, observations, env state, generator state, update count)."""
+    pairs = {"params": (a.params, b.params),
+             "count": (a.opt_state.count, b.opt_state.count),
+             "mu": (a.opt_state.mu, b.opt_state.mu),
+             "nu": (a.opt_state.nu, b.opt_state.nu),
+             "env_obs": (a.env_obs, b.env_obs),
+             "generator": (a.generator.get_state(), b.generator.get_state())}
+    pairs.update({f"env_state.{f.name}": (getattr(a.env_state, f.name),
+                                          getattr(b.env_state, f.name))
+                  for f in dataclasses.fields(a.env_state)})
+    diffs = [k for k, (x, y) in pairs.items()
+             if x.dtype != y.dtype or not torch.equal(x, y)]
+    return diffs + (["update_idx"] if a.update_idx != b.update_idx else [])
+
+
+def ppo_multi_check(dev, card, env, cfg, label, phase="ppo-multi",
+                    seed=5) -> dict:
+    """``make_multi_train_step(N)`` against N calls of ``make_train_step``'s
+    step from one state, bit for bit (parameters, Adam state, observations,
+    env state, generator state, each metric row); the UpdateGraph's capture
+    (its eager warm-up included) on the host clock; ms an update both ways
+    in one process (host clock around a sync, windows multi, single,
+    single, multi, PPO_MULTI_WINDOWS times); the device ops and busy time
+    of one replayed update (torch.profiler); the kernel launches of one
+    replay."""
+    from gym_po_tpu_torch.agents import ppo
+
+    n = PPO_MULTI_UPDATES
+    (model_m, ts_m), (model_s, ts_s) = (
+        ppo.init_train_state(env, cfg, torch.Generator(device=dev).manual_seed(seed))
+        for _ in range(2))
+    multi = ppo.make_multi_train_step(env, model_m, cfg, n)
+    step = ppo.make_train_step(env, model_s, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi.graph = ppo.UpdateGraph(env, model_m, cfg, ts_m)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    ts_m, got = multi(ts_m)
+    rows = []
+    for _ in range(n):
+        ts_s, m = step(ts_s)
+        rows.append(m)
+    torch.cuda.synchronize()
+    diffs = train_state_diffs(ts_m, ts_s) + [
+        f"{k}[{i}]" for i, m in enumerate(rows) for k in ppo.METRIC_NAMES
+        if not torch.equal(got[k][i], m[k])]
+    if diffs:
+        raise AssertionError(f"{label}: the multi step differs from {n} single "
+                             f"updates in {diffs}")
+    state = {"m": ts_m, "s": ts_s}
+
+    def run_multi():
+        state["m"], _ = multi(state["m"])
+
+    def run_single():
+        for _ in range(n):
+            state["s"], _ = step(state["s"])
+
+    t_multi, t_single = [], []
+    for _ in range(PPO_MULTI_WINDOWS):
+        for fn, out in ((run_multi, t_multi), (run_single, t_single),
+                        (run_single, t_single), (run_multi, t_multi)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3 / n)
+    n_ops, busy = device_ops(multi.graph.replay)
+    launches = collections.Counter()
+    for (_, name), k in multi.graph.launches.items():
+        launches[name] += k
+    out = {"capture_s": capture_s, "multi_ms": statistics.median(t_multi),
+           "single_ms": statistics.median(t_single), "ops": n_ops,
+           "busy_ms": busy, "launches": dict(launches)}
+    say(phase, f"{label} on {card}: make_multi_train_step({n}) == {n} "
+        f"make_train_step calls bit for bit (parameters, Adam state, obs, env "
+        f"state, generator, {len(ppo.METRIC_NAMES)} metrics a row); "
+        f"UpdateGraph capture {capture_s:.3f} s; {out['multi_ms']:.3f} ms an "
+        f"update as replays, {out['single_ms']:.3f} ms as single steps "
+        f"(ratio {out['multi_ms'] / out['single_ms']:.4f}; windows "
+        f"{', '.join(f'{x:.3f}' for x in t_multi)} / "
+        f"{', '.join(f'{x:.3f}' for x in t_single)}), "
+        f"{cfg.num_envs * cfg.rollout_steps / out['multi_ms'] * 1e3:.6e} PPO "
+        f"env-steps/s replayed; "
+        + (f"one replayed update {n_ops} device ops, busy {busy:.3f} ms = "
+           f"{busy / out['multi_ms']:.4f} of its time" if n_ops else
+           "device ops: not measured (no device events in the trace)")
+        + "; kernel launches a replay: "
+        + (", ".join(f"{k} {v}" for k, v in launches.items()) or "none"))
     return out
 
 
@@ -2421,9 +2530,10 @@ def ppo_learning(dev, ppo, gp) -> None:
 
 def ppo_path(dev, card) -> None:
     """Path 6: the PPO update on ExtendedHansenTaxi-v4 at PPOConfig's
-    defaults, through init_train_state, make_train_step and train; the
-    collect half's graph held against the eager collect; the collect at
-    B = 65,536; the learning runs."""
+    defaults, through init_train_state, make_train_step,
+    make_multi_train_step and train; the collect half's graph held against
+    the eager collect; the multi step against single updates; the collect
+    at B = 65,536; the learning runs."""
     import gym_po_tpu_torch as gp
     from gym_po_tpu_torch.agents import ppo
 
@@ -2470,15 +2580,17 @@ def ppo_path(dev, card) -> None:
         "events in the trace)")
     ppo_collect_checks(dev, ppo, env, cfg, model, ts, step.graph,
                        f"{PPO_ENV} after {ts.update_idx} updates")
+    del step
+    ppo_multi_check(dev, card, env, cfg, f"{PPO_ENV} B={B} T={T}")
 
     t0 = time.perf_counter()
     _, ts_train, history = ppo.train(env, cfg, seed=1, num_updates=3,
                                      log_every=2)
     if ts_train.update_idx != 3 or len(history) != 2:
         raise AssertionError("PPO train: wrong history")
-    say("ppo-train", f"train(seed=1, num_updates=3, log_every=2): 2 history "
-        f"rows, loss {history[-1]['loss']:.6f}, "
-        f"{time.perf_counter() - t0:.3f} s")
+    say("ppo-train", f"train(seed=1, num_updates=3, log_every=2), through "
+        f"make_multi_train_step(2, bounded=True): 2 history rows, loss "
+        f"{history[-1]['loss']:.6f}, {time.perf_counter() - t0:.3f} s")
 
     wide = cfg._replace(num_envs=B_PPO_WIDE)
     model_w, ts_w = ppo.init_train_state(
@@ -2787,6 +2899,7 @@ def rnn_path(dev, card) -> None:
 SCHED_MESH_Q = [(LR_TRAIN, EPS_TRAIN, 4 * K_TRAIN)]
 SCHED_MESH_AC = [(ALPHA_PI, ALPHA_V, 4 * K_TRAIN)]
 MESH_ROUNDS = 10  # PPO updates with and without the mesh, in turns
+MESH_MULTI_UPDATES = 2  # the multi step's updates with and without the mesh
 ALLREDUCE_ITERS = 50
 
 
@@ -3133,6 +3246,33 @@ def mesh_path(dev, card) -> dict:
                 f"{nccl_grad:.4f} ms per minibatch (host clock, mean of "
                 f"{ALLREDUCE_ITERS})")
             del runs
+            # the multi step: each update one replay of an UpdateGraph, the
+            # mesh's all-reduces captured in it
+            multi_runs = []
+            for m in (None, mesh):
+                model, ts = ppo.init_train_state(
+                    env, cfg, torch.Generator(device=dev).manual_seed(seed))
+                multi = ppo.make_multi_train_step(env, model, cfg,
+                                                  MESH_MULTI_UPDATES, m)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ts, met = multi(ts)
+                torch.cuda.synchronize()
+                if multi.graph is None:
+                    raise AssertionError("PPO multi step: no update graph on the card")
+                multi_runs.append((ts, met, time.perf_counter() - t0))
+            (ta, ma, sa), (tb, mb, sb) = multi_runs
+            diffs = train_state_diffs(ta, tb) + [k for k in ma
+                                                 if not torch.equal(ma[k], mb[k])]
+            if diffs:
+                raise AssertionError("PPO multi step: a one-rank NCCL mesh "
+                                     f"differs from no mesh in {diffs}")
+            say("mesh-ppo-multi", f"make_multi_train_step({MESH_MULTI_UPDATES}) "
+                f"at PPOConfig's defaults: one-rank NCCL mesh (its all-reduces "
+                f"in the update's CUDA graph) == no mesh bit for bit; first "
+                f"call, capture included, {sa:.3f} s without the mesh, "
+                f"{sb:.3f} s with it")
+            del multi_runs, multi
         finally:
             dist.destroy_process_group()
 
@@ -3264,13 +3404,18 @@ ANT_TIMED = 3
 # (the capture of the collect graph grows with T, four forwards an RK4
 # substep against Euler's one: the ant-ppo lines print it)
 ANT_PPO = (("euler", 8), ("rk4", 2))
+# train() on the heaven-hell env (integrator, T, updates) and one GRU-PPO
+# update on the tag env (integrator, T), B = B_ANT, E = M = 4
+ANT_TRAIN_HH = ("euler", 8, 2)
+ANT_RNN = ("euler", 8)
 # the renderer's rows of a B = 4,096 card state; the card's f64 fk against
 # the renderer's NumPy FK (one tree walk, rounding only)
 ANT_RENDER_ROWS = (0, 1, 2047, 4095)
 ANT_RENDER_FK_TOL = 1e-12
-# the batch scan that decides whether vector/chunked.py is ported: one
-# step at B_ANT_SCAN against ANT_SCAN_CHUNKS steps of B_ANT each; the
-# single step reaching ANT_NO_CLIFF of the chunks' rate is no cliff
+# the batch scan that shows whether chunking (vector/chunked.py) is a speed
+# remedy on the card: one step at B_ANT_SCAN against the same batch as
+# ANT_SCAN_CHUNKS chunked steps of B_ANT each; the single step reaching
+# ANT_NO_CLIFF of the chunks' rate is no cliff
 B_ANT_SCAN = 16384
 ANT_SCAN_CHUNKS = 4
 ANT_NO_CLIFF = 0.9
@@ -3640,6 +3785,71 @@ def ant_ppo(dev, card, integrator: str, T: int, pipeline: str = "scalar") -> Non
         f"{B_ANT * T / wall:.6e} PPO env-steps/s; {ppo_metrics_line(m)}")
 
 
+def ant_ppo_multi(dev, card) -> None:
+    """The multi step against single updates (:func:`ppo_multi_check`) on
+    AntTagPhysics-v0 at its defaults (RK4), B = 4,096, T = 2."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo
+
+    env = gp.make(ANT_IDS[0], device=dev)
+    cfg = ppo.PPOConfig(num_envs=B_ANT, rollout_steps=2)
+    ppo_multi_check(dev, card, env, cfg, f"{ANT_IDS[0]} ({env.integrator}, "
+                    f"frame_skip {env.frame_skip}) B={B_ANT} T=2",
+                    phase="ant-ppo-multi")
+
+
+def ant_train(dev, card) -> None:
+    """``train()`` on AntHeavenHellPhysics-v0 (ANT_TRAIN_HH), a history row
+    an update through the multi step: every metric and observation finite."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo
+
+    integrator, T, n = ANT_TRAIN_HH
+    env = gp.make(ANT_IDS[1], integrator=integrator, device=dev)
+    cfg = ppo.PPOConfig(num_envs=B_ANT, rollout_steps=T)
+    t0 = time.perf_counter()
+    _, ts, history = ppo.train(env, cfg, seed=0, num_updates=n, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ts.update_idx != n or len(history) != n:
+        raise AssertionError(f"{ANT_IDS[1]} train: wrong history")
+    if not torch.isfinite(ts.env_obs).all():
+        raise AssertionError(f"{ANT_IDS[1]} train: non-finite observations")
+    lines = [ppo_metrics_line(h) for h in history]
+    say("ant-train", f"train() on {ANT_IDS[1]} ({integrator}, frame_skip "
+        f"{env.frame_skip}) B={B_ANT} T={T} E={cfg.epochs} M={cfg.minibatches} "
+        f"on {card}: {n} updates through make_multi_train_step(1), each a "
+        f"replay of one UpdateGraph, {wall:.3f} s with the capture; last row "
+        f"{lines[-1]}")
+
+
+def ant_rnn_ppo(dev, card) -> None:
+    """GRU-PPO (width 128) on AntTagPhysics-v0 (ANT_RNN), B = 4,096: the
+    first update (the collect graph's capture) and one more, timed; every
+    metric, observation and hidden value finite."""
+    import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.agents import ppo, ppo_rnn
+
+    integrator, T = ANT_RNN
+    env = gp.make(ANT_IDS[0], integrator=integrator, device=dev)
+    cfg = ppo.PPOConfig(num_envs=B_ANT, rollout_steps=T)
+    model, ts = ppo_rnn.init_rnn_state(env, cfg,
+                                       torch.Generator(device=dev).manual_seed(0))
+    step = ppo_rnn.make_rnn_train_step(env, model, cfg)
+    t0 = time.perf_counter()
+    ts, m = step(ts)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    ppo_metrics_line(m)
+    label = f"{ANT_IDS[0]} ({integrator}, frame_skip {env.frame_skip}) GRU 128"
+    ts, m, *_ = rnn_update(ppo, step, ts, card, label, B_ANT, T)
+    if not torch.isfinite(ts.env_obs).all():
+        raise AssertionError(f"{label}: non-finite observations")
+    say("ant-rnn", f"{label} B={B_ANT} T={T} E={cfg.epochs} M={cfg.minibatches}: "
+        f"first update (the collect graph's capture) {first:.3f} s; the second "
+        "above; metrics, observations and hidden state finite")
+
+
 def ant_render_check(dev, card, env_id: str) -> None:
     """``render_ant`` of 4 rows of a B = 4,096 card state after one Euler
     step: the frame of the state's CPU copy pixel for pixel, through
@@ -3697,25 +3907,26 @@ def ant_batch_scan(dev, card) -> None:
     """Whether the card loses env-steps/s above B = 4,096 on the ant
     (the TPU's reason for ``vector/chunked.py``): on AntTagPhysics-v0,
     Euler, the env's other knobs at their defaults, one ``step_vec`` at
-    B = 16,384 against four back-to-back ``step_vec`` calls on four
-    independent B = 4,096 states.  A warm-up of each, then 3 timed rounds
-    of both in turn (host clock around a sync); peak memory of the
-    B = 16,384 step."""
+    B = 16,384 against ``make_chunked_step(env, 4096)`` on another
+    B = 16,384 state (four ``step_vec`` calls of 4,096 rows each).  A
+    warm-up of each, then 3 timed rounds of both in turn (host clock
+    around a sync); peak memory of the single step."""
     import gym_po_tpu_torch as gp
+    from gym_po_tpu_torch.vector import make_chunked_step
 
     env = gp.make(ANT_IDS[0], integrator="euler", device=dev)
     gen = torch.Generator(device=dev).manual_seed(13)
     n = ANT_SCAN_CHUNKS
     st = {"one": env.reset_vec(gen, B_ANT_SCAN)[1],
-          "four": [env.reset_vec(gen, B_ANT)[1] for _ in range(n)]}
+          "four": env.reset_vec(gen, B_ANT_SCAN)[1]}
     act = torch.rand(B_ANT_SCAN, 8, generator=gen, device=dev) * 2 - 1
-    acts = act.split(B_ANT)
+    chunked = make_chunked_step(env, B_ANT)
 
     def one():
         st["one"] = env.step_vec(gen, st["one"], act)[1]
 
     def four():
-        st["four"] = [env.step_vec(gen, s, a)[1] for s, a in zip(st["four"], acts)]
+        st["four"] = chunked(gen, st["four"], act)[1]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -3738,14 +3949,14 @@ def ant_batch_scan(dev, card) -> None:
     rate = {"one": B_ANT_SCAN / statistics.median(times["one"]),
             "four": n * B_ANT / statistics.median(times["four"])}
     ratio = rate["one"] / rate["four"]
-    verdict = ("no cliff: vector/chunked.py stays unported"
+    verdict = ("no cliff: chunking is no speed remedy on the card"
                if ratio >= ANT_NO_CLIFF else
-               "a cliff: vector/chunked.py is to be ported")
+               "a cliff: chunked steps outrun the single step")
     say("ant-batch-scan", f"{ANT_IDS[0]} euler frame_skip {env.frame_skip} "
         f"iters {env.solver_iters} f32 on {card}: one step_vec at "
         f"B={B_ANT_SCAN} {rate['one']:.6e} env-steps/s (s: "
-        f"{', '.join(f'{t:.4f}' for t in times['one'])}), {n} back-to-back "
-        f"at B={B_ANT} {rate['four']:.6e} env-steps/s (s: "
+        f"{', '.join(f'{t:.4f}' for t in times['one'])}), make_chunked_step: "
+        f"{n} chunks of B={B_ANT} {rate['four']:.6e} env-steps/s (s: "
         f"{', '.join(f'{t:.4f}' for t in times['four'])}); ratio "
         f"{ratio:.4f} (no cliff at >= {ANT_NO_CLIFF}): {verdict}; peak "
         f"memory of the B={B_ANT_SCAN} step {peak / 2**20:.1f} MiB")
@@ -4075,8 +4286,10 @@ def ptxas_summary(log: str) -> str:
 def ant_path(dev, card, record: bool = False) -> tuple:
     """Path 9: the articulated ant (engine and both task envs, PPO on the
     ant, the renderer of a card state, the batch scan).  The kernels'
-    checks and times first; then, counted, the envs' rates and PPO with
-    their default ``pipeline="scalar"`` (the three ant kernels); then one
+    checks and times first; then, counted, the envs' rates, PPO (single
+    updates, the multi step against them, ``train()`` on the heaven-hell
+    env) and GRU-PPO with their default ``pipeline="scalar"`` (the three
+    ant kernels); then one
     Euler run of the tag env with ``"array"`` (the batched engine, the
     dryrun's pipeline), the renderer and the batch scan.  ``record`` adds
     the rest of ``"array"``'s rates and PPO updates and the 14x14 solve's
@@ -4113,7 +4326,10 @@ def ant_path(dev, card, record: bool = False) -> tuple:
     run([(f"{e} {i}", lambda e=e, i=i: ant_run(dev, card, e, i))
          for e in ANT_IDS for i in ("rk4", "euler")]
         + [(f"ppo {i}", lambda i=i, T=T: ant_ppo(dev, card, i, T))
-           for i, T in ANT_PPO])
+           for i, T in ANT_PPO]
+        + [("ppo multi rk4", lambda: ant_ppo_multi(dev, card)),
+           ("train heaven-hell", lambda: ant_train(dev, card)),
+           ("gru ppo", lambda: ant_rnn_ppo(dev, card))])
     counted = LAUNCHES.copy()
     array = [(e, i) for e in ANT_IDS for i in ("rk4", "euler")
              if record or (e, i) == (ANT_IDS[0], "euler")]

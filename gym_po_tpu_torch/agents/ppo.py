@@ -32,21 +32,36 @@ the clip and the Adam step, and the update's metrics are averaged once at
 its end.  The collect half holds no collective, so its CUDA graph is the
 same.
 
-Not ported: ``make_chunked_train_step``, the JAX package's remedy for a
-TPU batch cliff; ``make_multi_train_step``, which pays a TPU's dispatch
-cost once per run (here the graph replay takes its place).
+Three entry points run updates:
+
+* :func:`make_train_step`: one update, its collect a CUDA graph and its
+  learn half eager, with CUDA events between the halves (:func:`halves_ms`).
+* :func:`make_multi_train_step`: N updates, the JAX package's one-dispatch
+  ``lax.scan``.  On a CUDA device a whole update (collect, row orders,
+  learn, metrics) is one CUDA graph (:class:`UpdateGraph`), and N updates
+  are N replays that the host enqueues back to back with no sync between
+  them; over a gloo mesh and on the CPU the updates run eagerly.
+  :func:`train` runs through it.
+* :func:`make_chunked_train_step`: the collect as chunks of
+  ``dispatch_batch`` envs, then one learn over their batches
+  (:mod:`~gym_po_tpu_torch.vector.chunked`).  On the H100 it bounds the
+  collect's working set and is no speed remedy: there is no batch cliff.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..core import map_tensors
 from ..ops._build import count_replay, take_captured
 from ..utils.numerics import sqrt_rn
+from ..vector.chunked import _concat_chunks, _split_chunks
 from .networks import (
     ActorCritic,
     AdamState,
@@ -60,11 +75,16 @@ from .networks import (
 )
 
 __all__ = ["PPOConfig", "TrainState", "init_train_state", "make_train_step",
+           "make_multi_train_step", "make_chunked_train_step",
            "shard_train_state", "train", "collect", "batch_from_rollout",
            "row_orders", "learn", "adam_step", "minibatch_step", "mean_metrics",
-           "ppo_loss", "halves_ms", "Batch", "Rollout", "CollectGraph"]
+           "ppo_loss", "eager_update", "halves_ms", "Batch", "Rollout",
+           "CollectGraph", "UpdateGraph", "METRIC_NAMES"]
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5  # optax.adam's, eps as PPO's
+#: an update's metrics: :func:`learn`'s, then the collect's rewards'
+METRIC_NAMES = ("pg_loss", "v_loss", "entropy", "loss", "mean_reward",
+                "pos_reward_rate", "neg_reward_rate")
 
 
 class PPOConfig(NamedTuple):
@@ -350,6 +370,27 @@ def _reward_metrics(reward: torch.Tensor) -> Dict[str, torch.Tensor]:
             "neg_reward_rate": (reward < -0.5).to(torch.float32).mean()}
 
 
+def _learn_half(model: ActorCritic, config: PPOConfig, ts: TrainState,
+                batch: Batch, ro: Rollout, mesh) -> Dict[str, torch.Tensor]:
+    """The row orders (drawn after the collect's draws), :func:`learn` and
+    the update's metrics, averaged over the mesh's ranks."""
+    orders = row_orders(config, batch.obs.shape[0], ts.generator)
+    metrics = learn(model, ts.params, ts.opt_state, config, batch, orders, mesh)
+    return mean_metrics({**metrics, **_reward_metrics(ro.reward)}, mesh)
+
+
+def eager_update(env, model: ActorCritic, config: PPOConfig, ts: TrainState,
+                 mesh=None):
+    """One PPO update run eagerly, ``(ts, metrics)``: what
+    :class:`UpdateGraph` replays and :func:`make_train_step` runs with its
+    collect graphed."""
+    batch, ro, obs_f, state_f = collect(env, model, config, ts.env_obs,
+                                        ts.env_state, ts.generator)
+    metrics = _learn_half(model, config, ts, batch, ro, mesh)
+    return dataclasses.replace(ts, env_obs=obs_f, env_state=state_f,
+                               update_idx=ts.update_idx + 1), metrics
+
+
 def _clone_state(state):
     return dataclasses.replace(state, **{
         f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)})
@@ -364,6 +405,46 @@ def _copy_into(dst, src) -> None:
         getattr(dst, f.name).copy_(getattr(src, f.name))
 
 
+def _capture(fn, generator: torch.Generator, restore: Sequence[torch.Tensor] = ()):
+    """``fn`` captured as a CUDA graph that draws from ``generator``:
+    returns ``(graph, fn's outputs, launches)``.
+
+    One eager warm-up on a side stream comes first; then ``generator`` and
+    the tensors of ``restore`` (what the warm-up changes in place) are put
+    back to their state from before it, so the first replay draws and reads
+    what an eager call from that state would.  Kernel launches count where
+    they run: the warm-up's at once, the capture's at each replay
+    (:func:`~gym_po_tpu_torch.ops._build.take_captured`).
+    """
+    gen_state = generator.get_state()
+    saved = [t.clone() for t in restore]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    for t, v in zip(restore, saved):
+        t.copy_(v)
+    generator.set_state(gen_state)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    # an unreachable graph that the collector freed during the capture
+    # would invalidate it: collect first, and not during it
+    gc.collect()
+    gc_on = gc.isenabled()
+    gc.disable()
+    take_captured()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    finally:
+        if gc_on:
+            gc.enable()
+    launches = take_captured()
+    generator.set_state(gen_state)
+    return graph, out, launches
+
+
 class CollectGraph:
     """A collect captured as one CUDA graph, replayed from fixed input
     buffers.
@@ -372,14 +453,12 @@ class CollectGraph:
     :func:`collect` by default; ``carry`` are further tensors it reads (the
     recurrent collect's hidden state and reset flags), held in input
     buffers as ``obs`` and ``state`` are.  The capture is preceded by one
-    eager warm-up on a side stream, and the generator is put back to its
-    state from before both, so the first replay draws what an eager call
-    from that state would.  The generator is registered with the graph:
-    each replay draws fresh numbers from its current state and advances
-    it, as an eager call does.  The graph reads the model's weights where
-    they lie, so they must be updated in place.  Kernel launches count
-    where they run: the warm-up's at once, the capture's at each replay
-    (``launches``, :func:`~gym_po_tpu_torch.ops._build.take_captured`).
+    eager warm-up (:func:`_capture`), so the first replay draws what an
+    eager call from the generator's state would.  The generator is
+    registered with the graph: each replay draws fresh numbers from its
+    current state and advances it, as an eager call does.  The graph reads
+    the model's weights where they lie, so they must be updated in place.
+    ``launches`` are the kernel launches of one replay.
     """
 
     def __init__(self, env, model, config, obs: torch.Tensor, state,
@@ -389,33 +468,9 @@ class CollectGraph:
         self.inputs = [obs.clone(), _clone_state(state),
                        *(c.clone() for c in carry)]
         obs_in, state_in, *carry_in = self.inputs
-
-        def run():
-            return collect_fn(env, model, config, obs_in, state_in, generator,
-                              *carry_in)
-
-        saved = generator.get_state()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
-        # an unreachable graph that the collector freed during the capture
-        # would invalidate it: collect first, and not during it
-        gc.collect()
-        gc_on = gc.isenabled()
-        gc.disable()
-        take_captured()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.out = run()
-        finally:
-            if gc_on:
-                gc.enable()
-        self.launches = take_captured()
-        generator.set_state(saved)
+        self.graph, self.out, self.launches = _capture(
+            lambda: collect_fn(env, model, config, obs_in, state_in, generator,
+                               *carry_in), generator)
 
     def __call__(self, obs: torch.Tensor, state, generator: torch.Generator,
                  *carry: torch.Tensor):
@@ -432,6 +487,64 @@ class CollectGraph:
         self.graph.replay()
         count_replay(self.launches)
         return self.out
+
+
+class UpdateGraph:
+    """One whole PPO update captured as one CUDA graph: :func:`collect`,
+    :func:`row_orders`, :func:`learn`, the update's metrics stacked into one
+    tensor (``metrics``, in :data:`METRIC_NAMES`' order), and last the final
+    observations and env state copied into the graph's own input buffers
+    (``obs``, ``state``), from which the next replay goes on with no copy
+    by the host.
+
+    The graph updates ``ts``'s parameters (the model's flat buffer) and
+    Adam state where they lie, and draws from ``ts``'s generator, which is
+    registered with it: a replay draws what :func:`eager_update` draws from
+    the generator's state, in the same order (the collect's draws, then the
+    row orders), and advances it as much.  The warm-up before the capture
+    runs a whole update, so the parameters, Adam's state, the input buffers
+    and the generator are put back to their state from before it
+    (:func:`_capture`).  With a ``mesh`` the learn half's all-reduces are
+    in the graph.  ``launches`` are the kernel launches of one replay.
+    """
+
+    def __init__(self, env, model: ActorCritic, config: PPOConfig,
+                 ts: TrainState, mesh=None):
+        self.generator = ts.generator
+        self.params, self.opt_state = ts.params, ts.opt_state
+        self.obs, self.state = ts.env_obs.clone(), _clone_state(ts.env_state)
+
+        def run():
+            batch, ro, obs_f, state_f = collect(env, model, config, self.obs,
+                                                self.state, self.generator)
+            metrics = _learn_half(model, config, ts, batch, ro, mesh)
+            row = torch.stack([metrics[k] for k in METRIC_NAMES])
+            _copy_into(self.obs, obs_f)
+            _copy_into(self.state, state_f)
+            return row
+
+        opt = self.opt_state
+        self.graph, self.metrics, self.launches = _capture(
+            run, self.generator, (self.params, opt.count, opt.mu, opt.nu,
+                                  self.obs, *(getattr(self.state, f.name) for f
+                                              in dataclasses.fields(self.state))))
+
+    def load(self, ts: TrainState) -> None:
+        """Put ``ts``'s observations and env state into the input buffers;
+        ``ts`` must hold the parameters, Adam state and generator the graph
+        was captured with."""
+        if (ts.generator is not self.generator or ts.params is not self.params
+                or ts.opt_state is not self.opt_state):
+            raise ValueError("the graph updates the parameters, Adam state "
+                             "and generator it was captured with")
+        _copy_into(self.obs, ts.env_obs)
+        _copy_into(self.state, ts.env_state)
+
+    def replay(self) -> None:
+        """One update from the input buffers, left in them; its metrics in
+        ``metrics`` until the next replay."""
+        self.graph.replay()
+        count_replay(self.launches)
 
 
 def make_train_step(env, model: ActorCritic, config: PPOConfig, mesh=None):
@@ -454,30 +567,151 @@ def make_train_step(env, model: ActorCritic, config: PPOConfig, mesh=None):
     _check(config, 1 if mesh is None else mesh.size)
 
     def step(ts: TrainState):
-        if ts.env_obs.is_cuda:
-            if step.graph is None:
-                step.graph = CollectGraph(env, model, config, ts.env_obs,
-                                          ts.env_state, ts.generator)
-            step.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            step.events[0].record()
-            batch, ro, obs_f, state_f = step.graph(ts.env_obs, ts.env_state,
-                                                   ts.generator)
-            obs_f, state_f = obs_f.clone(), _clone_state(state_f)
-            step.events[1].record()
-        else:
-            batch, ro, obs_f, state_f = collect(env, model, config, ts.env_obs,
-                                                ts.env_state, ts.generator)
-        orders = row_orders(config, batch.obs.shape[0], ts.generator)
-        metrics = learn(model, ts.params, ts.opt_state, config, batch, orders,
-                        mesh)
-        metrics = mean_metrics({**metrics, **_reward_metrics(ro.reward)}, mesh)
-        if step.events is not None:
-            step.events[2].record()
+        if not ts.env_obs.is_cuda:
+            return eager_update(env, model, config, ts, mesh)
+        if step.graph is None:
+            step.graph = CollectGraph(env, model, config, ts.env_obs,
+                                      ts.env_state, ts.generator)
+        step.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        step.events[0].record()
+        batch, ro, obs_f, state_f = step.graph(ts.env_obs, ts.env_state,
+                                               ts.generator)
+        obs_f, state_f = obs_f.clone(), _clone_state(state_f)
+        step.events[1].record()
+        metrics = _learn_half(model, config, ts, batch, ro, mesh)
+        step.events[2].record()
         return dataclasses.replace(ts, env_obs=obs_f, env_state=state_f,
                                    update_idx=ts.update_idx + 1), metrics
 
     step.graph = None
     step.events = None
+    return step
+
+
+def _graphed(device: torch.device, mesh) -> bool:
+    """Whether an update on ``device`` over ``mesh`` runs as one CUDA graph:
+    on a CUDA device with no mesh, a one-rank mesh with no group, or an
+    NCCL group.  A gloo group all-reduces through the host, so its updates
+    run eagerly, as the CPU's do."""
+    if device.type != "cuda":
+        return False
+    return mesh is None or mesh.group is None or \
+        dist.get_backend(mesh.group) == "nccl"
+
+
+def make_multi_train_step(env, model: ActorCritic, config: PPOConfig,
+                          num_updates: int, mesh=None, bounded: bool = False):
+    """``num_updates`` PPO updates, the JAX package's one-dispatch scan:
+    ``multi(ts) -> (ts, metrics)``, each metric a ``[num_updates]`` tensor
+    on the device, ``update_idx`` advanced by ``num_updates``.
+
+    On a CUDA device (with no mesh or an NCCL one) every update is a replay
+    of one :class:`UpdateGraph`, captured at the first call
+    (``multi.graph``): the host enqueues the replays back to back, each
+    followed by one device copy of its metrics into their row, and syncs
+    with none.  Otherwise (the CPU, a gloo mesh) the updates run eagerly
+    (:func:`eager_update`).  Either way the result equals ``num_updates``
+    calls of :func:`make_train_step`'s step.  Parameters and Adam state
+    change in place, as there.
+
+    ``bounded=True`` gives ``multi(ts, limit)`` with a host ``int``, the
+    total update count to stop at: it runs ``min(num_updates, limit -
+    ts.update_idx)`` updates (none if that is not positive), so the state
+    is the plain form's at the limit, and fills the metric rows past it
+    with NaN.
+    """
+    _check(config, 1 if mesh is None else mesh.size)
+    num_updates = int(num_updates)
+    if num_updates < 1:
+        raise ValueError(f"num_updates={num_updates} must be positive")
+
+    def run(ts: TrainState, n: int):
+        rows = torch.full((num_updates, len(METRIC_NAMES)), math.nan,
+                          device=ts.params.device)
+        if n > 0 and _graphed(ts.params.device, mesh):
+            if multi.graph is None:
+                multi.graph = UpdateGraph(env, model, config, ts, mesh)
+            graph = multi.graph
+            graph.load(ts)
+            for i in range(n):
+                graph.replay()
+                rows[i].copy_(graph.metrics)
+            ts = dataclasses.replace(ts, env_obs=graph.obs.clone(),
+                                     env_state=_clone_state(graph.state),
+                                     update_idx=ts.update_idx + n)
+        else:
+            for i in range(n):
+                ts, m = eager_update(env, model, config, ts, mesh)
+                rows[i].copy_(torch.stack([m[k] for k in METRIC_NAMES]))
+        return ts, dict(zip(METRIC_NAMES, rows.t().contiguous().unbind()))
+
+    if bounded:
+        def multi(ts: TrainState, limit: int):
+            return run(ts, max(0, min(num_updates, int(limit) - ts.update_idx)))
+    else:
+        def multi(ts: TrainState):
+            return run(ts, num_updates)
+
+    multi.graph = None
+    return multi
+
+
+def make_chunked_train_step(env, model: ActorCritic, config: PPOConfig,
+                            dispatch_batch: int = 4096):
+    """One PPO update ``step(ts) -> (ts, metrics)`` for ``num_envs`` above
+    ``dispatch_batch``, as the JAX package's: the collect runs as
+    ``num_envs / dispatch_batch`` chunks of ``dispatch_batch`` envs in
+    turn, every chunk drawing from ``ts.generator`` in chunk order, then
+    one :func:`learn` runs over the chunks' batches concatenated
+    chunk-major (row ``c·T·B_c + t·B_c + b`` for env ``b`` of chunk ``c``,
+    not the single collect's ``t·B + b``).  The reward metrics are the
+    means over the chunks.  On a CUDA device every chunk is a replay of one
+    :class:`CollectGraph` captured at ``dispatch_batch`` envs
+    (``step.graph``) on that chunk's rows.
+
+    At or below ``dispatch_batch`` it returns :func:`make_train_step`'s
+    step; otherwise ``dispatch_batch`` must divide ``num_envs``.  On the
+    H100 it bounds the collect's working set to a chunk and is no speed
+    remedy (:mod:`~gym_po_tpu_torch.vector.chunked`).
+    """
+    if config.num_envs <= dispatch_batch:
+        return make_train_step(env, model, config)
+    if config.num_envs % dispatch_batch:
+        raise ValueError(f"dispatch_batch={dispatch_batch} must divide "
+                         f"num_envs={config.num_envs}")
+    _check(config)
+    n_chunks = config.num_envs // dispatch_batch
+    chunk_config = config._replace(num_envs=dispatch_batch)
+
+    def step(ts: TrainState):
+        outs = []
+        for obs, state in zip(_split_chunks(ts.env_obs, n_chunks),
+                              _split_chunks(ts.env_state, n_chunks)):
+            if ts.env_obs.is_cuda:
+                if step.graph is None:
+                    step.graph = CollectGraph(env, model, chunk_config, obs,
+                                              state, ts.generator)
+                batch, ro, obs_f, state_f = step.graph(obs, state, ts.generator)
+            else:
+                batch, ro, obs_f, state_f = collect(env, model, chunk_config,
+                                                    obs, state, ts.generator)
+            out = (batch, ro.reward, obs_f, state_f)
+            # a replay's outputs live in the graph until the next one
+            outs.append(map_tensors(torch.clone, out) if ts.env_obs.is_cuda else out)
+        batch = _concat_chunks([o[0] for o in outs])
+        orders = row_orders(config, batch.obs.shape[0], ts.generator)
+        metrics = learn(model, ts.params, ts.opt_state, config, batch, orders)
+        chunks = torch.full((), n_chunks, dtype=torch.float32,
+                            device=ts.params.device)
+        rewards = [_reward_metrics(o[1]) for o in outs]
+        for k in rewards[0]:
+            metrics[k] = sum(r[k] for r in rewards) / chunks
+        return dataclasses.replace(
+            ts, env_obs=_concat_chunks([o[2] for o in outs]),
+            env_state=_concat_chunks([o[3] for o in outs]),
+            update_idx=ts.update_idx + 1), metrics
+
+    step.graph = None
     return step
 
 
@@ -523,24 +757,32 @@ def halves_ms(step) -> Tuple[float, float]:
 
 def train(env, config: PPOConfig, seed: int = 0, num_updates: int = 100,
           mesh=None, log_every: int = 0):
-    """Init from ``seed`` on the env's device, then ``num_updates`` updates.
+    """Init from ``seed`` on the env's device, then ``num_updates`` updates,
+    as the JAX package's ``train``: in chunks of ``log_every`` updates (the
+    whole run when 0) through one :func:`make_multi_train_step`, bounded
+    when the total is not a multiple of the chunk.
 
     With ``log_every`` the history holds the last update's metrics of each
-    chunk of ``log_every`` updates (a ragged tail gives one row more), as
-    floats; returns ``(model, ts, history)``.  With a ``mesh`` every rank
-    makes the global state and keeps its share (:func:`shard_train_state`).
+    chunk (a ragged tail gives one row more), as floats; returns ``(model,
+    ts, history)``.  With a ``mesh`` every rank makes the global state and
+    keeps its share (:func:`shard_train_state`).
     """
     generator = torch.Generator(device=env.device).manual_seed(seed)
     model, ts = init_train_state(env, config, generator)
     if mesh is not None:
         ts = shard_train_state(ts, mesh)
-    step = make_train_step(env, model, config, mesh)
+    chunk = max(log_every or num_updates, 1)
+    ragged = num_updates % chunk != 0
+    multi = make_multi_train_step(env, model, config, chunk, mesh,
+                                  bounded=ragged)
     history = []
-    for i in range(num_updates):
-        ts, metrics = step(ts)
-        done = i + 1
-        if log_every and (done % log_every == 0 or done == num_updates):
-            m = {k: float(v) for k, v in metrics.items()}
+    done = 0
+    while done < num_updates:
+        ts, metrics = multi(ts, num_updates) if ragged else multi(ts)
+        n = min(chunk, num_updates - done)
+        done += n
+        if log_every:
+            m = {k: float(v[n - 1]) for k, v in metrics.items()}
             history.append(m)
             print(f"update {done}: {m}")
     return model, ts, history

@@ -5,6 +5,7 @@ from .vec_env import (
     VecEnv,
     rollout,
 )
+from .chunked import DISPATCH_BATCH, chunked_rollout, make_chunked_step
 
 __all__ = [
     "VecEnv",
@@ -12,4 +13,7 @@ __all__ = [
     "rollout",
     "RecordEpisodeStatistics",
     "EpisodeStatsState",
+    "chunked_rollout",
+    "make_chunked_step",
+    "DISPATCH_BATCH",
 ]

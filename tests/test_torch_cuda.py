@@ -1381,6 +1381,108 @@ def test_ppo_train_on_card():
     assert all(np.isfinite(h["loss"]) for h in history)
 
 
+def _assert_train_states_equal(a, b):
+    """Parameters, Adam state, env observations and state, generator state
+    and update count, bit for bit."""
+    assert a.update_idx == b.update_idx
+    for x, y in ((a.params, b.params), (a.opt_state.count, b.opt_state.count),
+                 (a.opt_state.mu, b.opt_state.mu), (a.opt_state.nu, b.opt_state.nu),
+                 (a.env_obs, b.env_obs),
+                 (a.generator.get_state(), b.generator.get_state())):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    for f in a.env_state.__dataclass_fields__:
+        assert torch.equal(getattr(a.env_state, f), getattr(b.env_state, f)), f
+
+
+UPDATE_GRAPH_CASES = [("ExtendedHansenTaxi-v4", {}),
+                      ("AntTagPhysics-v0", {"frame_skip": 2, "integrator": "euler",
+                                            "time_limit": 3})]
+
+
+@pytest.mark.parametrize("env_id,kw", UPDATE_GRAPH_CASES)
+def test_update_graph_replay_equals_eager_updates(cuda, env_id, kw):
+    """make_multi_train_step's three replays of one UpdateGraph (collect,
+    row orders, learn, metrics in one CUDA graph) equal three eager updates
+    from the same state bit for bit: parameters, Adam state, observations,
+    env state, generator state and each metric row; a replay counts the
+    ant kernels it launches."""
+    from gym_po_tpu_torch.ops._build import LAUNCHES
+
+    ant = env_id.startswith("Ant")
+    B, T = (64, 2) if ant else (512, 16)
+    ppo, env, cfg, model, ts = _ppo(cuda, env_id, kw, B=B, T=T)
+    _, _, _, model_e, ts_e = _ppo(cuda, env_id, kw, B=B, T=T)
+    multi = ppo.make_multi_train_step(env, model, cfg, 3)
+    ts, got = multi(ts)
+    rows = []
+    for _ in range(3):
+        ts_e, m = ppo.eager_update(env, model_e, cfg, ts_e)
+        rows.append(m)
+    _assert_train_states_equal(ts, ts_e)
+    assert set(got) == set(ppo.METRIC_NAMES)
+    for i, m in enumerate(rows):
+        for k in ppo.METRIC_NAMES:
+            assert got[k].shape == (3,) and torch.equal(got[k][i], m[k]), (i, k)
+    launches = sum(multi.graph.launches.values())
+    assert (launches > 0) == ant
+    before = LAUNCHES["ant_newton"]
+    ts, _ = multi(ts)  # a second call replays the same graph, from ts
+    assert ts.update_idx == 6
+    if ant:
+        per_replay = sum(n for (_, name), n in multi.graph.launches.items()
+                         if name == "ant_newton")
+        assert per_replay == T * 2 * 1 and LAUNCHES["ant_newton"] - before == 3 * per_replay
+    _, _, _, _, other = _ppo(cuda, env_id, kw, B=B, T=T)
+    with pytest.raises(ValueError):
+        multi(other)  # another train state's parameters
+
+
+def test_multi_bounded_equals_plain_on_card(cuda):
+    """bounded(5) with limit 3 replays three updates: the state and the
+    generator equal plain(3)'s, rows 3-4 are NaN; at the limit it replays
+    none."""
+    ppo, env, cfg, model, ts = _ppo(cuda, "ExtendedHansenTaxi-v4", {})
+    _, _, _, model_p, ts_p = _ppo(cuda, "ExtendedHansenTaxi-v4", {})
+    ts, got = ppo.make_multi_train_step(env, model, cfg, 5, bounded=True)(ts, 3)
+    ts_p, want = ppo.make_multi_train_step(env, model_p, cfg, 3)(ts_p)
+    _assert_train_states_equal(ts, ts_p)
+    for k in want:
+        assert torch.equal(got[k][:3], want[k]) and torch.isnan(got[k][3:]).all()
+
+
+def test_chunked_train_step_collect_graph_equals_eager_chunks(cuda, monkeypatch):
+    """The chunked train step replays one collect graph per chunk; with the
+    graph swapped for the eager collect (one eager collect per chunk from
+    the same generator) the update is the same bit for bit."""
+    from gym_po_tpu_torch.agents import ppo
+
+    def chunked(seed=0):
+        env = gpt_torch.make("ExtendedHansenTaxi-v4", device=cuda)
+        cfg = ppo.PPOConfig(num_envs=256, rollout_steps=8, epochs=2,
+                            minibatches=4, hidden=(32, 32))
+        model, ts = ppo.init_train_state(
+            env, cfg, torch.Generator(device=cuda).manual_seed(seed))
+        return ts, ppo.make_chunked_train_step(env, model, cfg, dispatch_batch=64)
+
+    ts, step = chunked()
+    ts, got = step(ts)
+    assert step.graph is not None
+
+    class EagerCollect:
+        def __init__(self, env, model, config, obs, state, generator):
+            self.args = env, model, config
+
+        def __call__(self, obs, state, generator):
+            return ppo.collect(*self.args, obs, state, generator)
+
+    monkeypatch.setattr(ppo, "CollectGraph", EagerCollect)
+    ts_e, step_e = chunked()
+    ts_e, want = step_e(ts_e)
+    assert isinstance(step_e.graph, EagerCollect)
+    _assert_train_states_equal(ts, ts_e)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
 # ---------------------------------------------------------- recurrent PPO
 RNN_CASES = [("ExtendedHansenTaxi-v4", {}, torch.float32),
              ("HeavenHellContinuous-v0", {"time_limit": 20}, torch.float32),
@@ -1525,6 +1627,27 @@ def test_one_rank_nccl_mesh_ppo_update_equals_no_mesh(nccl_one_rank):
         out.append((ts.params.clone(), metrics))
     (pa, ma), (pb, mb) = out
     assert torch.equal(pa, pb)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def test_one_rank_nccl_mesh_multi_step_equals_no_mesh(nccl_one_rank):
+    """make_multi_train_step with a one-rank NCCL mesh (its all-reduces
+    captured in the update's graph) equals it without a mesh, bit for bit,
+    over two updates."""
+    from gym_po_tpu_torch.agents import ppo
+
+    dev = nccl_one_rank.device
+    env = gpt_torch.make("ExtendedHansenTaxi-v4", device=dev)
+    cfg = ppo.PPOConfig(num_envs=512, rollout_steps=16, epochs=2, minibatches=4)
+    out = []
+    for mesh in (None, nccl_one_rank):
+        model, ts = ppo.init_train_state(env, cfg,
+                                         torch.Generator(device=dev).manual_seed(3))
+        multi = ppo.make_multi_train_step(env, model, cfg, 2, mesh)
+        out.append(multi(ts) + (multi.graph,))
+    (ta, ma, ga), (tb, mb, gb) = out
+    assert ga is not None and gb is not None
+    _assert_train_states_equal(ta, tb)
     assert all(torch.equal(ma[k], mb[k]) for k in ma)
 
 
