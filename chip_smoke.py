@@ -4260,13 +4260,15 @@ def ant_kernel_times(dev, card) -> tuple:
 def ptxas_summary(log: str) -> str:
     """Each kernel entry of an nvcc ``-Xptxas=-v`` log: its registers,
     stack frame, spills and static shared memory (a kernel named by its
-    function and type: ``ant_newton_kernel<f>``)."""
+    function and type: ``ant_newton_kernel<f>``; its build that counts the
+    active rows ``ant_newton_kernel<f, counted>``)."""
     out, name, frame = [], None, "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"(ant_\w+?_kernel)I([fd])", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)[:40]
+            counted = ", counted" if "Lb1E" in m.group(1) else ""
+            name = f"{k.group(1)}<{k.group(2)}{counted}>" if k else m.group(1)[:40]
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)

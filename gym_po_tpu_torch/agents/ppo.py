@@ -61,6 +61,7 @@ import torch.distributed as dist
 from ..core import map_tensors
 from ..ops._build import count_replay, take_captured
 from ..utils.numerics import sqrt_rn
+from ..utils.profiling import annotate
 from ..vector.chunked import _concat_chunks, _split_chunks
 from .networks import (
     ActorCritic,
@@ -265,19 +266,23 @@ def collect(env, model: ActorCritic, config: PPOConfig, obs: torch.Tensor,
     Returns ``(batch, rollout, obs_T, state_T)``.  Runs eagerly; the train
     step replays it as a CUDA graph on a CUDA device.
     """
-    steps = []
-    for _ in range(config.rollout_steps):
-        pi, value = model(obs)
-        action, logp = sample_action(pi, generator)
-        nobs, nstate, rew, done, trunc, info = env.step_vec(generator, state, action)
-        # value of the pre-reset successor: bootstraps truncation (_gae)
-        _, v_term = model(env.observe_vec(info["terminal_state"]))
-        fin = (done | trunc).to(torch.float32)
-        steps.append((obs, action, logp, value, v_term, done.to(torch.float32),
-                      rew.to(torch.float32), 1.0 - fin))
-        obs, state = nobs, nstate
-    ro = Rollout(*(torch.stack(column) for column in zip(*steps)))
-    return batch_from_rollout(ro, config), ro, obs, state
+    device = obs.device
+    with annotate("ppo.collect", device):
+        steps = []
+        for _ in range(config.rollout_steps):
+            pi, value = model(obs)
+            action, logp = sample_action(pi, generator)
+            with annotate("env.step", device):
+                nobs, nstate, rew, done, trunc, info = env.step_vec(generator, state,
+                                                                    action)
+            # value of the pre-reset successor: bootstraps truncation (_gae)
+            _, v_term = model(env.observe_vec(info["terminal_state"]))
+            fin = (done | trunc).to(torch.float32)
+            steps.append((obs, action, logp, value, v_term, done.to(torch.float32),
+                          rew.to(torch.float32), 1.0 - fin))
+            obs, state = nobs, nstate
+        ro = Rollout(*(torch.stack(column) for column in zip(*steps)))
+        return batch_from_rollout(ro, config), ro, obs, state
 
 
 def batch_from_rollout(ro: Rollout, config: PPOConfig) -> Batch:
@@ -374,9 +379,10 @@ def _learn_half(model: ActorCritic, config: PPOConfig, ts: TrainState,
                 batch: Batch, ro: Rollout, mesh) -> Dict[str, torch.Tensor]:
     """The row orders (drawn after the collect's draws), :func:`learn` and
     the update's metrics, averaged over the mesh's ranks."""
-    orders = row_orders(config, batch.obs.shape[0], ts.generator)
-    metrics = learn(model, ts.params, ts.opt_state, config, batch, orders, mesh)
-    return mean_metrics({**metrics, **_reward_metrics(ro.reward)}, mesh)
+    with annotate("ppo.learn", ts.params.device):
+        orders = row_orders(config, batch.obs.shape[0], ts.generator)
+        metrics = learn(model, ts.params, ts.opt_state, config, batch, orders, mesh)
+        return mean_metrics({**metrics, **_reward_metrics(ro.reward)}, mesh)
 
 
 def eager_update(env, model: ActorCritic, config: PPOConfig, ts: TrainState,
@@ -543,7 +549,8 @@ class UpdateGraph:
     def replay(self) -> None:
         """One update from the input buffers, left in them; its metrics in
         ``metrics`` until the next replay."""
-        self.graph.replay()
+        with annotate("ppo.replay"):
+            self.graph.replay()
         count_replay(self.launches)
 
 

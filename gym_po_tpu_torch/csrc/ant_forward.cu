@@ -88,7 +88,11 @@
 //   by the pivots' reciprocals.  The gradient is a lane per dof; the
 //   line search's sum over rows a fixed-order butterfly (__shfl_xor_sync),
 //   which leaves the same bits on every lane, so all lanes take the same
-//   bisection branch.  Nothing is atomic: one launch is deterministic.
+//   bisection branch.  The solve has no atomic: one launch is deterministic.
+//   With a counter (rows_count, non-null while the port's spans are on)
+//   the block adds its envs' active rows to it: each thread its own flags,
+//   a warp sum, then one atomic add a block.  That build is its own
+//   instance (COUNT); without a counter the kernel has no trace of it.
 //   At f32 ptxas gives it about 100 registers a thread and a block takes
 //   about 60 KB of shared memory, so 2 blocks (16 warps) fit an SM and
 //   B = 4,096 runs in two waves, each warp bound by its chain of dependent
@@ -1176,14 +1180,14 @@ __device__ void chunk_terms(int n, int lane, const T* Jt, const Chunk<T>& ch, co
   }
 }
 
-template <typename T, int W>
+template <typename T, int W, bool COUNT>
 __global__ void __launch_bounds__(32 * W)
     ant_newton_kernel(int B, int ne, int iters, int ls_iters, const int* __restrict__ tables,
                       const T* __restrict__ M_in, const T* __restrict__ qs_in,
                       const T* __restrict__ vals, const T* __restrict__ aref,
                       const T* __restrict__ rr, const T* __restrict__ act,
                       const T* __restrict__ warm, T* __restrict__ qacc_out,
-                      T* __restrict__ warm_out) {
+                      T* __restrict__ warm_out, unsigned long long* __restrict__ rows_count) {
   extern __shared__ __align__(16) unsigned char ant_smem[];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int e0 = blockIdx.x * W, e = e0 + wid;
@@ -1218,7 +1222,24 @@ __global__ void __launch_bounds__(32 * W)
     const int row = x / W, w = x % W;
     ant_smem[w * env_bytes + head + row] = e0 + w < B && act[row * Bs + e0 + w] != T(0);
   }
-  __syncthreads();
+  if constexpr (COUNT) {
+    // the block's active rows: each thread its own flags, a warp sum, then
+    // one atomic add a block
+    __shared__ unsigned rows_part[W];
+    unsigned n = 0;
+    for (int x = threadIdx.x; x < ne * W; x += 32 * W)
+      n += ant_smem[(x % W) * env_bytes + head + x / W];
+    n = __reduce_add_sync(FULL, n);
+    if (lane == 0) rows_part[wid] = n;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long sum = 0;
+      for (int w = 0; w < W; ++w) sum += rows_part[w];
+      atomicAdd(rows_count, sum);
+    }
+  } else {
+    __syncthreads();
+  }
   if (e >= B) return;  // the whole warp, after the block's only barrier
 
   unsigned char* base = ant_smem + wid * env_bytes;
@@ -1335,11 +1356,11 @@ int blocks_for(int B, int per_block) { return (B + per_block - 1) / per_block; }
 // it; the launch runs on the current device)
 constexpr int kMaxDevices = 64;
 
-template <typename T>
+template <typename T, bool COUNT>
 int newton_launch(int B, int ne, int iters, int ls_iters, const void* tables, const void* M,
                   const void* qs, const void* vals, const void* aref, const void* r,
                   const void* active, const void* warm, void* qacc, void* warm_out,
-                  cudaStream_t st) {
+                  void* rows_count, cudaStream_t st) {
   constexpr int W = ant::WarpEnvs<T>::value;
   const size_t smem = W * ant::newton_env_bytes<T>(ne);
   static size_t opted[kMaxDevices];  // 0: the default 48 KB
@@ -1348,14 +1369,15 @@ int newton_launch(int B, int ne, int iters, int ls_iters, const void* tables, co
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (smem > 48 * 1024 && smem > opted[dev]) {
-    err = cudaFuncSetAttribute(ant::ant_newton_kernel<T, W>,
+    err = cudaFuncSetAttribute(ant::ant_newton_kernel<T, W, COUNT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted[dev] = smem;
   }
-  ant::ant_newton_kernel<T, W><<<blocks_for(B, W), 32 * W, smem, st>>>(
+  ant::ant_newton_kernel<T, W, COUNT><<<blocks_for(B, W), 32 * W, smem, st>>>(
       B, ne, iters, ls_iters, (const int*)tables, (const T*)M, (const T*)qs, (const T*)vals,
-      (const T*)aref, (const T*)r, (const T*)active, (const T*)warm, (T*)qacc, (T*)warm_out);
+      (const T*)aref, (const T*)r, (const T*)active, (const T*)warm, (T*)qacc, (T*)warm_out,
+      (unsigned long long*)rows_count);
   return (int)cudaGetLastError();
 }
 
@@ -1428,15 +1450,18 @@ extern "C" int ant_newton_launch(int dtype, int B, int ne, int iters, int ls_ite
                                  const void* tables, const void* M, const void* qs,
                                  const void* vals, const void* aref, const void* r,
                                  const void* active, const void* warm, void* qacc,
-                                 void* warm_out, void* stream) {
+                                 void* warm_out, void* rows_count, void* stream) {
   if (B <= 0 || ne <= 0 || ne > 65535 || iters < 0 || ls_iters < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  // without a counter, the instance with no count
   if (dtype == 0)
-    return newton_launch<float>(B, ne, iters, ls_iters, tables, M, qs, vals, aref, r, active,
-                                warm, qacc, warm_out, st);
+    return (rows_count ? newton_launch<float, true> : newton_launch<float, false>)(
+        B, ne, iters, ls_iters, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out,
+        rows_count, st);
   if (dtype == 1)
-    return newton_launch<double>(B, ne, iters, ls_iters, tables, M, qs, vals, aref, r, active,
-                                 warm, qacc, warm_out, st);
+    return (rows_count ? newton_launch<double, true> : newton_launch<double, false>)(
+        B, ne, iters, ls_iters, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out,
+        rows_count, st);
   return (int)cudaErrorInvalidValue;
 }

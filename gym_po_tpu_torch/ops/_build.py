@@ -21,8 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "count_launch", "take_captured",
-           "count_replay", "LAUNCHES", "BUILD_DIR", "CSRC"]
+__all__ = ["load_library", "load_source", "build_log", "count_launch",
+           "take_captured", "count_replay", "LAUNCHES", "BUILD_DIR", "CSRC"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -105,16 +105,35 @@ def build_log(name: str) -> str:
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its hashed library is missing; load it."""
-    out = _library_path(name)
+    return _load(CSRC / f"{name}.cu", _library_path(name))
+
+
+def load_source(stem: str, source: str) -> ctypes.CDLL:
+    """Build a generated CUDA source, written to
+    ``build/gym_po_tpu_torch/<stem>-<hash>.cu``, if its hashed library is
+    missing; load it."""
+    h = hashlib.sha256(source.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    src = out.with_suffix(".cu")
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = src.with_name(f"{src.stem}.{os.getpid()}.tmp.cu")
+        tmp.write_text(source)
+        os.replace(tmp, src)
+    return _load(src, out)
+
+
+def _load(src: Path, out: Path) -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for {name}.cu ({proc.returncode}):\n"
+                f"nvcc failed for {src.name} ({proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
         out.with_suffix(".log").write_text(

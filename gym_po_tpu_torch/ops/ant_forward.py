@@ -65,6 +65,7 @@ import torch
 from ..physics import contact as _contact
 from ..physics import dynamics as _dynamics
 from ..physics.ant_model import AntModel
+from ..utils.profiling import count_nonzero, counter
 from ._build import count_launch
 
 __all__ = [
@@ -472,7 +473,7 @@ def _lib():
     lib.ant_newton_rows_cap.restype = i
     lib.ant_smooth_launch.argtypes = [i, i] + [p] * 9
     lib.ant_rows_launch.argtypes = [i] * 5 + [p] * 11
-    lib.ant_newton_launch.argtypes = [i] * 5 + [p] * 11
+    lib.ant_newton_launch.argtypes = [i] * 5 + [p] * 12
     for fn in (lib.ant_smooth_launch, lib.ant_rows_launch, lib.ant_newton_launch):
         fn.restype = i
     return lib
@@ -648,7 +649,11 @@ def ant_newton(model: AntModel, smooth: Smooth, rows: Rows, warm=None,
                iters: int = 8, ls_iters: int = 10):
     """The primal Newton solve → ``(qacc, qacc - qacc_smooth)``, each
     ``[B, 14]``, from ``qacc_smooth + warm`` (``warm [B, 14]`` or None):
-    the kernel on a CUDA tensor, the twin on a CPU tensor."""
+    the kernel on a CUDA tensor, the twin on a CPU tensor.  With spans on
+    (:func:`~gym_po_tpu_torch.utils.profiling.enable_spans`) either adds
+    the active rows of every env to the ``ant.active_rows`` counter: the
+    kernel with one atomic add a block, into the counter whose pointer a
+    CUDA graph keeps."""
     dt, dev = smooth.M.dtype, smooth.M.device
     B = smooth.M.shape[1]
     p = _plan(model, dt, dev)
@@ -661,12 +666,14 @@ def ant_newton(model: AntModel, smooth: Smooth, rows: Rows, warm=None,
     if iters < 0 or ls_iters < 0:
         raise ValueError("iters and ls_iters must be >= 0")
     if _device_kind(smooth.M) == "cpu":
+        count_nonzero("ant.active_rows", rows.active)
         return newton_twin(model, smooth, rows, warm, iters, ls_iters)
     qacc = torch.empty(B, NV, dtype=dt, device=dev)
     warm_out = torch.empty_like(qacc)
     _launch("ant_newton", dev, _dtype_code(dt), B, p.ne, iters, ls_iters,
             _ptr(p.tables), _ptr(smooth.M), _ptr(smooth.qacc_smooth),
-            *map(_ptr, rows), _ptr(warm), _ptr(qacc), _ptr(warm_out))
+            *map(_ptr, rows), _ptr(warm), _ptr(qacc), _ptr(warm_out),
+            _ptr(counter("ant.active_rows", dev)))
     count_launch(ant_newton, "ant_newton")
     return qacc, warm_out
 

@@ -7,19 +7,24 @@ from ``chip_smoke.py``'s path 9.
 
 Sections:
 
-- ``ab``: the parent's ``ant_smooth`` (one env a thread) and ``ant_newton``
-  (whose solve the current ``ant_smooth`` shares) built from ``--parent DIR``
-  (a ``csrc`` directory unpacked by ``mkdir -p build/ant_parent && git
-  archive 7be9f64 gym_po_tpu_torch/csrc | tar -x -C build/ant_parent
-  --strip-components=2``; its C interface, without the tree table, is
-  checked in the source) against the current kernels in one process, on
+- ``ab``: the parent's ``ant_smooth`` and ``ant_newton`` (whose solve the
+  current ``ant_smooth`` shares) built from ``--parent DIR`` (a ``csrc``
+  directory unpacked by ``mkdir -p build/ant_parent && git archive b6d2ef9
+  gym_po_tpu_torch/csrc | tar -x -C build/ant_parent
+  --strip-components=2``; its C interface, ``ant_newton`` with no
+  active-rows counter, is checked in the source) against the current
+  kernels in one process, each side launched alike through its library's
+  C entry point, the current ``ant_newton`` with its counter null (its
+  build without the count) and, as ``counted``, with a counter (its
+  counting build, as while the port's spans are on), on
   ``chip_smoke.py``'s timed inputs: ``ant_contact_states`` of each arena
   at B = 4,096 f32.  CUDA-event windows of 100 launches in the order
-  parent, current, current, parent, twice; their medians and the ratio
-  current/parent.  The two ``ant_smooth``s' outputs (M, qacc_smooth, the
-  kinematics) are compared, and the two ``ant_newton``s' on the same
-  inputs bit for bit.  First, the parent's registers, stack frame
-  and spills from ptxas.
+  parent, current[, counted, counted], current, parent, twice; their
+  medians and the ratios current/parent and counted/current.  The two
+  ``ant_smooth``s' outputs (M, qacc_smooth, the kinematics) are compared,
+  the ``ant_newton``s' on the same inputs bit for bit, and the counter
+  against the launches times the active rows.  First, the parent's
+  registers, stack frame and spills from ptxas.
 - ``parts``: where ``ant_smooth``'s time goes.  Copies of the current
   ``ant_forward.cu`` with one step of the per-env work cut out (FK, the
   kinematics, the mass matrix, the bias force, the solve; ``io``: all of
@@ -58,10 +63,11 @@ PARTS = {
     "solve": (_SOLVE, _END),
     "io": ("  // ---- FK (_fk_s)", _END),
 }
-# the parent's ant_smooth_launch takes no tree table: this probe's ctypes
-# interface is that one
-PARENT_SIGNATURE = ("int ant_smooth_launch(int dtype, int B, const void* mdl, "
-                    "const void* qpos,")
+# the parent's launchers: ant_smooth's with the tree table, ant_newton's
+# with no active-rows counter (this probe's ctypes interface is theirs)
+PARENT_SIGNATURES = ("int ant_smooth_launch(int dtype, int B, const void* mdl, "
+                     "const void* tab,",
+                     "void* warm_out, void* stream) {")
 
 
 def _nvidia_smi(query: str) -> str:
@@ -77,9 +83,11 @@ def parent_library(parent: Path):
     from ._build import BUILD_DIR, NVCC_FLAGS, _nvcc
 
     src = parent / "ant_forward.cu"
-    if PARENT_SIGNATURE not in src.read_text():
-        raise SystemExit(f"{src}: not the one-env-a-thread ant_smooth's C "
-                         "interface (git archive 7be9f64 gym_po_tpu_torch/csrc)")
+    text = src.read_text()
+    if not all(sig in text for sig in PARENT_SIGNATURES):
+        raise SystemExit(f"{src}: not the launchers' C interface before the "
+                         "active-rows counter (git archive b6d2ef9 "
+                         "gym_po_tpu_torch/csrc)")
     out = BUILD_DIR / "probe" / "ant_forward_parent.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -89,7 +97,7 @@ def parent_library(parent: Path):
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(out))
     pv, i = ctypes.c_void_p, ctypes.c_int
-    lib.ant_smooth_launch.argtypes = [i, i] + [pv] * 8
+    lib.ant_smooth_launch.argtypes = [i, i] + [pv] * 9
     lib.ant_newton_launch.argtypes = [i] * 5 + [pv] * 11
     lib.ant_smooth_launch.restype = lib.ant_newton_launch.restype = i
     return lib, f"built in {time.perf_counter() - t0:.2f} s\n{proc.stdout}{proc.stderr}"
@@ -117,47 +125,60 @@ def ab(parent: str) -> None:
             sm = af.ant_smooth(model, q, v, c)
             rows = af.ant_rows(model, sm.skin, q, v)
             got = af.ant_newton(model, sm, rows, w, 8, 10)
-        psm = af.Smooth(*(torch.empty_like(x) for x in sm))
-        pout = [torch.empty_like(x) for x in got]
+        psm, csm = (af.Smooth(*(torch.empty_like(x) for x in sm)) for _ in range(2))
+        pout, cout = ([torch.empty_like(x) for x in got] for _ in range(2))
 
         def launched(err, name):
             if err:
-                raise RuntimeError(f"the parent's {name} launch failed: CUDA "
-                                   f"error {err}")
+                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
-        def parent_smooth(i):
-            launched(lib.ant_smooth_launch(
-                0, B, p.model.data_ptr(), q.data_ptr(), v.data_ptr(), c.data_ptr(),
-                *(x.data_ptr() for x in psm), st), "ant_smooth")
+        # both sides launched alike, through their libraries' C entry points
+        def smooth_of(lib_, out):
+            return lambda i: launched(lib_.ant_smooth_launch(
+                0, B, p.model.data_ptr(), p.smooth_table.data_ptr(), q.data_ptr(),
+                v.data_ptr(), c.data_ptr(), *(x.data_ptr() for x in out), st),
+                "ant_smooth")
 
-        def parent_newton(i):
-            launched(lib.ant_newton_launch(
+        def newton_of(lib_, out, *counter):
+            return lambda i: launched(lib_.ant_newton_launch(
                 0, B, p.ne, 8, 10, p.tables.data_ptr(), sm.M.data_ptr(),
                 sm.qacc_smooth.data_ptr(), *(x.data_ptr() for x in rows),
-                w.data_ptr(), *(x.data_ptr() for x in pout), st), "ant_newton")
+                w.data_ptr(), *(x.data_ptr() for x in out), *counter, st), "ant_newton")
 
-        calls = {"ant_smooth": {"parent": parent_smooth, "current": lambda i: af.ant_smooth(
-                     model, q, v, c, out=sm)},
-                 "ant_newton": {"parent": parent_newton, "current": lambda i: af.ant_newton(
-                     model, sm, rows, w, 8, 10)}}
-        times = {k: {"parent": [], "current": []} for k in calls}
+        # "counted": the current ant_newton's build that counts the active
+        # rows (the pointer set, as while the port's spans are on)
+        rows_count = torch.zeros((), dtype=torch.int64, device=dev)
+        kout = [torch.empty_like(x) for x in got]
+        calls = {"ant_smooth": {"parent": smooth_of(lib, psm),
+                                "current": smooth_of(af._lib(), csm)},
+                 "ant_newton": {"parent": newton_of(lib, pout),
+                                "current": newton_of(af._lib(), cout, None),
+                                "counted": newton_of(af._lib(), kout,
+                                                     rows_count.data_ptr())}}
+        times = {k: {who: [] for who in fns} for k, fns in calls.items()}
         with cs.uncounted():
             for k, fns in calls.items():
                 for fn in fns.values():  # warm-up
                     fn(0)
-                for who in ("parent", "current", "current", "parent") * 2:
+                for who in (list(fns) + list(fns)[::-1]) * 2:
                     times[k][who].append(cs.event_windows(fns[who], 1, 100))
-            got = af.ant_newton(model, sm, rows, w, 8, 10)
+        torch.cuda.synchronize(dev)
+        launches = 1 + len(times["ant_newton"]["counted"]) * 100
+        active = int(torch.count_nonzero(rows.active))
         diff = {name: cs._rel_abs(a, b)[0]
-                for name, a, b in zip(af.Smooth._fields, psm, sm)}
-        same = all(torch.equal(a, b) for a, b in zip(pout, got))
+                for name, a, b in zip(af.Smooth._fields, psm, csm)}
+        same = all(torch.equal(a, b) for a, b in zip(pout, cout))
+        counted_same = all(torch.equal(a, b) for a, b in zip(kout, cout))
         bounds = cs.ant_kernel_bounds(model, p, rows, 8, 10)
         parts = []
         for k, t in times.items():
             med = {who: statistics.median(x) for who, x in t.items()}
+            counted = (f", counted {med['counted']:.4f} ms, counted/current "
+                       f"{med['counted'] / med['current']:.4f}"
+                       if "counted" in med else "")
             parts.append(f"{k} parent {med['parent']:.4f} ms, current "
                          f"{med['current']:.4f} ms, current/parent "
-                         f"{med['current'] / med['parent']:.4f}, bound "
+                         f"{med['current'] / med['parent']:.4f}{counted}, bound "
                          f"{bounds[k][0]:.4f} ms by {bounds[k][1]} (windows "
                          + "; ".join(f"{who} " + ", ".join(f"{x:.4f}" for x in xs)
                                      for who, xs in t.items()) + ")")
@@ -167,7 +188,11 @@ def ab(parent: str) -> None:
               + ", ".join(f"{k} {x:.3e}" for k, x in diff.items())
               + f"; the parent's ant_newton on the same inputs "
               f"{'equal to' if same else 'NOT equal to'} the current's, bit "
-              "for bit", flush=True)
+              f"for bit; the counted build's {'equal to' if counted_same else 'NOT equal to'}"
+              f" the current's, its counter {int(rows_count)} over {launches} launches "
+              f"against {active} active rows a launch "
+              f"({'equal' if int(rows_count) == launches * active else 'NOT equal'})",
+              flush=True)
 
 
 def _cut(text: str, start: str, end: str) -> str:

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, count_nonzero
 from .ant_model import AntModel
 from .contact import constraint_rows, solve_constraints_newton
 from .dynamics import smooth_forward
@@ -83,24 +84,26 @@ def forward(model: AntModel, qpos, qvel, ctrl, warm=None, iters: int = 10,
     ``pipeline="scalar"`` on a CUDA tensor runs the per-env kernels.
     """
     _check_pipeline(pipeline)
-    lead = qpos.shape[:-1]
-    qpos, qvel = qpos.reshape(-1, model.nq), qvel.reshape(-1, model.nv)
-    ctrl = ctrl.to(qpos.dtype).reshape(-1, ctrl.shape[-1]).expand(qpos.shape[0], -1)
-    if pipeline == "scalar" and qpos.device.type == "cuda":
-        from ..ops import ant_forward  # here: ops imports the envs, which import this
+    with annotate("ant.forward", qpos.device):
+        lead = qpos.shape[:-1]
+        qpos, qvel = qpos.reshape(-1, model.nq), qvel.reshape(-1, model.nv)
+        ctrl = ctrl.to(qpos.dtype).reshape(-1, ctrl.shape[-1]).expand(qpos.shape[0], -1)
+        if pipeline == "scalar" and qpos.device.type == "cuda":
+            from ..ops import ant_forward  # here: ops imports the envs, which import this
 
-        qacc, w = ant_forward.forward(
-            model, qpos.contiguous(), qvel.contiguous(), ctrl.contiguous(),
-            None if warm is None else warm.reshape(-1, model.nv).contiguous(),
-            iters, ls_iters)
-        return qacc.reshape(lead + (model.nv,)), w.reshape(lead + (model.nv,))
-    kin, M, qacc_smooth, _ = smooth_forward(model, qpos, qvel, ctrl)
-    rows = constraint_rows(model, kin, qpos, qvel)
-    q0 = qacc_smooth if warm is None else qacc_smooth + warm.reshape(-1, model.nv)
-    qacc, _ = solve_constraints_newton(model, M, qacc_smooth, rows, iters=iters,
-                                       ls_iters=ls_iters, qacc0=q0)
-    return (qacc.reshape(lead + (model.nv,)),
-            (qacc - qacc_smooth).reshape(lead + (model.nv,)))
+            qacc, w = ant_forward.forward(
+                model, qpos.contiguous(), qvel.contiguous(), ctrl.contiguous(),
+                None if warm is None else warm.reshape(-1, model.nv).contiguous(),
+                iters, ls_iters)
+            return qacc.reshape(lead + (model.nv,)), w.reshape(lead + (model.nv,))
+        kin, M, qacc_smooth, _ = smooth_forward(model, qpos, qvel, ctrl)
+        rows = constraint_rows(model, kin, qpos, qvel)
+        count_nonzero("ant.active_rows", rows.active)
+        q0 = qacc_smooth if warm is None else qacc_smooth + warm.reshape(-1, model.nv)
+        qacc, _ = solve_constraints_newton(model, M, qacc_smooth, rows, iters=iters,
+                                           ls_iters=ls_iters, qacc0=q0)
+        return (qacc.reshape(lead + (model.nv,)),
+                (qacc - qacc_smooth).reshape(lead + (model.nv,)))
 
 
 def _integrate_pos(model: AntModel, qpos, qvel_avg, dt):

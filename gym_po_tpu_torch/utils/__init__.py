@@ -16,7 +16,7 @@ from .grid import (
     hansen_indices,
     surrounding_indices,
 )
-from .profiling import Timer, annotate, steps_per_second, trace
+from .profiling import Timer, annotate, trace
 
 __all__ = [
     "ACTIONS_ORDINAL",
@@ -28,7 +28,6 @@ __all__ = [
     "save_checkpoint",
     "restore_checkpoint",
     "latest_step",
-    "steps_per_second",
     "trace",
     "annotate",
     "Timer",

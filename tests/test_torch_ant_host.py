@@ -89,6 +89,17 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   __syncwarp();
   return b;
 }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  g_warp->slots[shim_lane()] = v;
+  __syncwarp();
+  unsigned s = 0;
+  for (int i = 0; i < 32; ++i) s += (unsigned)g_warp->slots[i];
+  __syncwarp();
+  return s;
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline void sincospif(float x, float* s, float* c) {
@@ -167,22 +178,28 @@ extern "C" void host_rows(int dtype, int B, int ne, int n_units, const void* mdl
 template <typename T>
 static void newton(int B, int ne, int iters, int ls, const void* tables, const void* M,
                    const void* qs, const void* vals, const void* aref, const void* r,
-                   const void* active, const void* warm, void* qacc, void* warm_out) {
+                   const void* active, const void* warm, void* qacc, void* warm_out,
+                   void* count) {
   constexpr int W = ant::WarpEnvs<T>::value;
-  shim_launch(dim3((B + W - 1) / W), dim3(32 * W), W * ant::newton_env_bytes<T>(ne), [&] {
-    ant::ant_newton_kernel<T, W>(B, ne, iters, ls, (const int*)tables, (const T*)M,
-                                 (const T*)qs, (const T*)vals, (const T*)aref, (const T*)r,
-                                 (const T*)active, (const T*)warm, (T*)qacc, (T*)warm_out);
+  // the dynamic shared memory, then the static rows_part[W]
+  auto kernel = count ? ant::ant_newton_kernel<T, W, true> : ant::ant_newton_kernel<T, W, false>;
+  shim_launch(dim3((B + W - 1) / W), dim3(32 * W),
+              W * ant::newton_env_bytes<T>(ne) + W * sizeof(unsigned), [&] {
+    kernel(B, ne, iters, ls, (const int*)tables, (const T*)M, (const T*)qs, (const T*)vals,
+           (const T*)aref, (const T*)r, (const T*)active, (const T*)warm, (T*)qacc,
+           (T*)warm_out, (unsigned long long*)count);
   });
 }
 extern "C" void host_newton(int dtype, int B, int ne, int iters, int ls, const void* tables,
                             const void* M, const void* qs, const void* vals, const void* aref,
                             const void* r, const void* active, const void* warm, void* qacc,
-                            void* warm_out) {
+                            void* warm_out, void* count) {
   if (dtype == 0)
-    newton<float>(B, ne, iters, ls, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out);
+    newton<float>(B, ne, iters, ls, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out,
+                  count);
   else
-    newton<double>(B, ne, iters, ls, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out);
+    newton<double>(B, ne, iters, ls, tables, M, qs, vals, aref, r, active, warm, qacc, warm_out,
+                   count);
 }
 """
 
@@ -196,6 +213,8 @@ def host_source() -> str:
     for shared, shim in (
             ("extern __shared__ __align__(16) unsigned char ant_smem[];",
              "unsigned char* ant_smem = shim_smem();"),
+            ("__shared__ unsigned rows_part[W];",
+             "unsigned* rows_part = (unsigned*)(shim_smem() + W * newton_env_bytes<T>(ne));"),
             ("__shared__ T sm[W * SE_SIZE];", "T* sm = (T*)shim_smem();"),
             ("__shared__ int stab[ST_LEN];",
              "int* stab = (int*)(shim_smem() + W * SE_SIZE * sizeof(T));")):
@@ -218,7 +237,7 @@ def host_lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_smooth.argtypes = [i] * 2 + [p] * 8
     lib.host_rows.argtypes = [i] * 4 + [p] * 10
-    lib.host_newton.argtypes = [i] * 5 + [p] * 10
+    lib.host_newton.argtypes = [i] * 5 + [p] * 11
     return lib
 
 
@@ -248,14 +267,14 @@ def _host_rows(lib, model, skin, qpos, qvel) -> af.Rows:
     return out
 
 
-def _host_newton(lib, model, sm, rows, warm, iters):
+def _host_newton(lib, model, sm, rows, warm, iters, count=None):
     p = af._plan(model, sm.M.dtype, "cpu")
     B = sm.M.shape[1]
     qacc = torch.full((B, af.NV), float("nan"), dtype=sm.M.dtype)
     warm_out = torch.full_like(qacc, float("nan"))
     lib.host_newton(int(sm.M.dtype == torch.float64), B, p.ne, iters, 10, _ptr(p.tables),
                     _ptr(sm.M), _ptr(sm.qacc_smooth), *map(_ptr, rows), _ptr(warm),
-                    _ptr(qacc), _ptr(warm_out))
+                    _ptr(qacc), _ptr(warm_out), _ptr(count))
     return qacc, warm_out
 
 
@@ -331,3 +350,25 @@ def test_host_newton_every_row_active_equals_twin(host_lib, env_id):
     want = af.newton_twin(model, sm, rows, w, iters=16)
     for g, t in zip(got, want):
         assert _rel(g, t) <= 1e-9
+
+
+@pytest.mark.parametrize("env_id,dtype,every_row", [
+    (cs.ANT_IDS[0], dtype, every_row)
+    for dtype in (torch.float64, torch.float32) for every_row in (False, True)]
+    + [(cs.ANT_IDS[1], torch.float64, False)])
+def test_host_newton_counts_active_rows(host_lib, env_id, dtype, every_row):
+    """With a counter, the Newton solve adds every env's active rows to it
+    (a warp sum, one atomic add a block; the last block part empty) and
+    solves bit for bit as with none."""
+    model = cs._ant_models()[env_id]
+    q, v, c, w = _inputs(dtype, 20, 7)
+    sm = _host_smooth(host_lib, model, q, v, c)
+    rows = _host_rows(host_lib, model, sm.skin, q, v)
+    if every_row:
+        rows = rows._replace(active=torch.ones_like(rows.active))
+    count = torch.full((), 5, dtype=torch.int64)
+    got = _host_newton(host_lib, model, sm, rows, w, 2, count)
+    want = _host_newton(host_lib, model, sm, rows, w, 2)
+    assert int(count) == 5 + int((rows.active != 0).sum()) > 5
+    for g, t in zip(got, want):
+        assert torch.equal(g, t)

@@ -2013,3 +2013,112 @@ def test_ant_forward_on_every_card(cuda, dtype):
                         assert _rel(g, x.cpu()) <= 1e-9
             for g, x in zip(got, first):
                 assert torch.isfinite(g).all() and torch.equal(g, x), k
+
+
+# ------------------------------------------------------------------ spans
+def _profiled_replay(multi, ts, spans):
+    """One call of ``multi`` (one replay) under torch.profiler, with spans
+    on or off: its device ops' names, its span markers apart (name, start,
+    duration in ns), and the starts of the host's ``ppo.replay`` spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym_po_tpu_torch.utils.profiling import enable_spans, parse_marker
+
+    def ns(e, what):
+        fn = getattr(e, f"{what}_ns", None)
+        return int(fn()) if fn is not None else int(getattr(e, f"{what}_us")() * 1000)
+
+    torch.cuda.synchronize()
+    enable_spans(spans)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            multi(ts)
+            torch.cuda.synchronize()
+    finally:
+        enable_spans(False)
+    ops, marks, replays = [], [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if parse_marker(name) is not None:
+                marks.append((name, ns(e, "start"), ns(e, "duration")))
+            elif not getattr(e, "is_user_annotation", lambda: False)():
+                ops.append(name)
+        elif name == "ppo.replay":
+            replays.append(ns(e, "start"))
+    return ops, marks, replays
+
+
+@pytest.mark.parametrize("env_id,kw", UPDATE_GRAPH_CASES)
+def test_update_graph_spans_on_the_device_timeline(cuda, env_id, kw):
+    """An UpdateGraph captured with spans on: two replays equal a graph
+    captured with spans off, bit for bit; one traced replay holds one
+    ppo.collect around its T env.step spans (on the ant, frame_skip
+    ant.forward spans inside each), then one ppo.learn, and besides the
+    markers the same device ops as the graph without spans (ant_newton in
+    its counting build), which holds no marker; the device's ppo.collect
+    begins within a millisecond before and 100 ms after the host's
+    ppo.replay (one clock)."""
+    from gym_po_tpu_torch.utils.profiling import enable_spans, pair_markers
+
+    ant = env_id.startswith("Ant")
+    B, T = (64, 2) if ant else (512, 16)
+    ppo, env, cfg, model, ts = _ppo(cuda, env_id, kw, B=B, T=T)
+    _, _, _, model_off, ts_off = _ppo(cuda, env_id, kw, B=B, T=T)
+    enable_spans(True)
+    try:
+        multi = ppo.make_multi_train_step(env, model, cfg, 2)
+        ts, got = multi(ts)
+    finally:
+        enable_spans(False)
+    multi_off = ppo.make_multi_train_step(env, model_off, cfg, 2)
+    ts_off, want = multi_off(ts_off)
+    _assert_train_states_equal(ts, ts_off)
+    for k in ppo.METRIC_NAMES:
+        assert torch.equal(got[k], want[k]), k
+    one, one_off = (ppo.make_multi_train_step(env, m, cfg, 1) for m in (model, model_off))
+    one.graph, one_off.graph = multi.graph, multi_off.graph
+    ops, marks, replays = _profiled_replay(one, ts, True)
+    ops_off, marks_off, replays_off = _profiled_replay(one_off, ts_off, False)
+    # the graph with spans runs ant_newton's build that counts the active rows
+    ops = [o.replace("ant_newton_kernel<float, 8, true>", "ant_newton_kernel<float, 8, false>")
+           for o in ops]
+    assert marks_off == [] and replays_off == [] and sorted(ops) == sorted(ops_off)
+    spans = pair_markers(marks)
+    assert {k: len(v) for k, v in spans.items()} == {
+        "ppo.collect": 1, "env.step": T, "ppo.learn": 1,
+        **({"ant.forward": T * kw["frame_skip"]} if ant else {})}
+    (c0, c1), (l0, _) = spans["ppo.collect"][0], spans["ppo.learn"][0]
+    assert all(c0 < a and b < c1 for a, b in spans["env.step"]) and c1 < l0
+    assert all(any(s0 < a and b < s1 for s0, s1 in spans["env.step"])
+               for a, b in spans.get("ant.forward", ()))
+    # one clock: the device's collect starts just after the host's replay
+    # span opens.  The profiler aligns the device's clock to the host's only
+    # to a fraction of a millisecond (one run read the collect 0.18 ms
+    # before the replay span), and a clock of its own would put it seconds off.
+    assert len(replays) == 1 and -1e6 < c0 - replays[0] < 1e8
+
+
+@pytest.mark.parametrize("walls", ["tag", "hh"])
+def test_ant_active_rows_counter_equals_rows(cuda, walls):
+    """With spans on, one forward adds to ant.active_rows the active rows
+    of its ant_rows; with spans off it adds nothing."""
+    from gym_po_tpu_torch.ops import ant_forward as af
+    from gym_po_tpu_torch.utils.profiling import enable_spans, read_counters
+
+    model, (qpos, qvel, ctrl, warm) = _ant_kernel_inputs(cuda, walls, torch.float32)
+    want = af.forward(model, qpos, qvel, ctrl, warm, iters=8)
+    enable_spans(True)
+    try:
+        before = read_counters().get("ant.active_rows", 0)
+        got = af.forward(model, qpos, qvel, ctrl, warm, iters=8)
+        after = read_counters()["ant.active_rows"]
+    finally:
+        enable_spans(False)
+    sm = af.ant_smooth(model, qpos, qvel, ctrl)
+    rows = af.ant_rows(model, sm.skin, qpos, qvel)
+    assert after - before == int((rows.active != 0).sum()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    af.forward(model, qpos, qvel, ctrl, warm, iters=8)
+    assert read_counters()["ant.active_rows"] == after

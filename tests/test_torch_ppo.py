@@ -27,6 +27,7 @@ smoke tests to the JAX tests' criteria at the JAX tests' sizes.
 
 import dataclasses
 import inspect
+import json
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,7 @@ from gym_po_tpu.agents import ppo as jppo
 from gym_po_tpu_torch.agents import networks as tnet
 from gym_po_tpu_torch.agents import ppo as tppo
 from gym_po_tpu_torch.agents.ppo import Batch, PPOConfig, Rollout
+from gym_po_tpu_torch.utils.profiling import enable_spans, read_counters, spans_enabled, trace
 
 GRAD_TOL = dict(atol=5e-7, rtol=1e-5)
 ADAM_TOL = dict(atol=1e-9, rtol=1e-6)
@@ -443,6 +445,87 @@ def test_train_step_updates_and_is_finite():
     assert int(ts2.opt_state.count) == 4
     assert set(metrics) == {"loss", "pg_loss", "v_loss", "entropy", "mean_reward",
                             "pos_reward_rate", "neg_reward_rate"}
+
+
+# ---------------------------------------------------------------- spans
+def _chrome_spans(path, names):
+    """(name, start, end) of the Chrome trace's complete events named in
+    ``names``, in time order (microseconds)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("name") in names),
+                  key=lambda x: x[1])
+
+
+def test_update_trace_holds_the_collect_steps_then_learn(tmp_path):
+    """Under trace(), one eager CPU update shows one ppo.collect holding
+    its T env.step spans, then one ppo.learn."""
+    te = gpt_torch.make("ExtendedHansenTaxi-v4", device="cpu")
+    cfg = PPOConfig(num_envs=16, rollout_steps=6, epochs=1, minibatches=2,
+                    hidden=(16,))
+    model, ts = tppo.init_train_state(te, cfg, torch.Generator().manual_seed(0))
+    step = tppo.make_train_step(te, model, cfg)
+    with trace(str(tmp_path)):
+        step(ts)
+    assert not spans_enabled()
+    spans = _chrome_spans(tmp_path / "trace.json", {"ppo.collect", "env.step", "ppo.learn"})
+    assert [n for n, _, _ in spans] == ["ppo.collect"] + ["env.step"] * 6 + ["ppo.learn"]
+    (_, c0, c1), *steps, (_, l0, _) = spans
+    assert all(c0 <= a and b <= c1 for _, a, b in steps) and c1 <= l0
+
+
+def test_ant_update_trace_holds_its_forwards_in_its_steps(tmp_path, monkeypatch):
+    """One eager CPU ant update (RK4, frame_skip 2, T = 2; 2 Newton
+    iterations of 2 bisections) under trace() holds T x frame_skip x 4
+    ant.forward spans, each inside an env.step; the ant.active_rows
+    counter gains the active rows of every forward's constraint rows."""
+    from gym_po_tpu_torch.physics import engine
+
+    te = gpt_torch.make("AntTagPhysics-v0", frame_skip=2, solver_iters=2, ls_iters=2,
+                        device="cpu")
+    cfg = PPOConfig(num_envs=4, rollout_steps=2, epochs=1, minibatches=1,
+                    hidden=(8,))
+    model, ts = tppo.init_train_state(te, cfg, torch.Generator().manual_seed(0))
+    step = tppo.make_train_step(te, model, cfg)
+    active = []
+    real = engine.constraint_rows
+
+    def constraint_rows(*a, **k):
+        rows = real(*a, **k)
+        active.append(int((rows.active != 0).sum()))
+        return rows
+    monkeypatch.setattr(engine, "constraint_rows", constraint_rows)
+    before = read_counters().get("ant.active_rows", 0)
+    with trace(str(tmp_path)):
+        step(ts)
+    spans = _chrome_spans(tmp_path / "trace.json", {"env.step", "ant.forward"})
+    steps = [(a, b) for n, a, b in spans if n == "env.step"]
+    forwards = [(a, b) for n, a, b in spans if n == "ant.forward"]
+    assert len(steps) == 2 and len(forwards) == 2 * 2 * 4 == len(active)
+    assert all(any(s0 <= a and b <= s1 for s0, s1 in steps) for a, b in forwards)
+    assert read_counters()["ant.active_rows"] - before == sum(active) > 0
+
+
+def test_spans_leave_eager_updates_bit_for_bit():
+    """Two eager updates with spans on equal two with spans off: the
+    parameters, Adam's state and every metric, bit for bit."""
+    te = gpt_torch.make("ExtendedHansenTaxi-v4", device="cpu")
+    cfg = PPOConfig(num_envs=16, rollout_steps=6, epochs=2, minibatches=2,
+                    hidden=(16,))
+    out = []
+    for on in (False, True):
+        model, ts = tppo.init_train_state(te, cfg, torch.Generator().manual_seed(0))
+        enable_spans(on)
+        try:
+            ts, metrics = tppo.make_multi_train_step(te, model, cfg, 2)(ts)
+        finally:
+            enable_spans(False)
+        out.append((ts, metrics))
+    (a, ma), (b, mb) = out
+    for x, y in ((a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+                 (a.opt_state.nu, b.opt_state.nu), (a.opt_state.count, b.opt_state.count),
+                 *((ma[k], mb[k]) for k in tppo.METRIC_NAMES)):
+        assert torch.equal(x, y)
 
 
 def test_train_driver_history_rows(capsys):

@@ -1,8 +1,9 @@
 """The port's utilities against the JAX package's, on the CPU: the grid
-helpers (``utils/grid.py``, equal outputs), the throughput meter, the
-profiler helpers, and the debug checks (``tests/test_debug.py``: a clean
-step passes, a NaN state raises; also an index out of range and an integer
-division by zero, as checkify's index and division checks)."""
+helpers (``utils/grid.py``, equal outputs), the timer, the profiler
+helpers and the span markers' naming contract, and the debug checks
+(``tests/test_debug.py``: a clean step passes, a NaN state raises; also an
+index out of range and an integer division by zero, as checkify's index
+and division checks)."""
 
 import json
 
@@ -18,7 +19,7 @@ from gym_po_tpu_torch.utils import (
     assert_finite,
     checked,
     grid,
-    steps_per_second,
+    profiling,
     trace,
 )
 from gym_po_tpu_torch.utils.debug import CheckError
@@ -45,17 +46,13 @@ def test_grid_helpers_equal_jax():
                                   jgrid.coord_to_flat(shape)(coords + 7))
 
 
-def test_steps_per_second_meter_and_timer():
+def test_timer_accumulates():
     env = gpt_torch.make("Taxi-v4", device="cpu")
     gen = torch.Generator().manual_seed(0)
-    calls = []
 
     def run():
-        calls.append(1)
         return rollout(env, gen, None, 32, 16)[0].reward.sum()
 
-    sps = steps_per_second(run, steps_per_call=32 * 16, iters=2)
-    assert sps > 0 and len(calls) == 3  # one warm-up, two timed
     t = Timer()
     with t:
         run()
@@ -74,6 +71,66 @@ def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
     assert path.exists()
     names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
     assert "taxi-rollout" in names
+
+
+def test_annotate_with_spans_off_is_one_shared_noop(monkeypatch):
+    """Spans off (the default): every annotate is the same do-nothing
+    context, opens no record_function and times nothing; on, it opens one
+    and adds its host seconds, and a device span takes a name that has
+    markers."""
+    calls = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: calls.append(name) or real(name))
+    assert not profiling.spans_enabled()
+    before = profiling.host_seconds()
+    a, b = annotate("ppo.collect", torch.device("cpu")), annotate("env.step")
+    assert a is b
+    with a:
+        pass
+    assert calls == [] and profiling.host_seconds() == before
+    assert profiling.counter("ant.active_rows", "cpu") is None
+    profiling.enable_spans(True)
+    try:
+        with annotate("ppo.learn", torch.device("cpu")):
+            pass
+        with pytest.raises(ValueError):  # no device markers for this name
+            annotate("taxi-rollout", torch.device("cuda"))
+    finally:
+        profiling.enable_spans(False)
+    assert calls[0] == "ppo.learn"
+    assert profiling.host_seconds()["ppo.learn"] > before.get("ppo.learn", 0.0)
+
+
+def test_span_markers_name_and_pair():
+    """A marker's device name gives back its span and kind; markers fed in
+    any order pair by nesting on one stream (the n-th span of a name in
+    time order first); an unmatched begin or end raises."""
+    for span in ("ppo.collect", "env.step", "ant.forward", "a_b.c1"):
+        for begin in (True, False):
+            name = profiling.marker_name(span, begin)
+            assert name.startswith(profiling.MARKER_PREFIX)
+            assert name.isidentifier() and profiling.parse_marker(name) == (span, begin)
+    for bad in ("taxi-rollout", "a..b", "a__b", "_a", "a."):
+        with pytest.raises(ValueError):
+            profiling.marker_name(bad, True)
+    assert profiling.parse_marker("indexing_backward_kernel") is None
+    assert profiling.parse_marker(profiling.MARKER_PREFIX + "middle_x") is None
+
+    def m(span, begin, t):
+        return (profiling.marker_name(span, begin), t, 2)
+
+    events = [m("ppo.collect", True, 0), m("env.step", True, 10), m("env.step", False, 20),
+              m("env.step", True, 30), m("ant.forward", True, 31),
+              m("ant.forward", False, 40), m("env.step", False, 50),
+              m("ppo.collect", False, 60), m("ppo.learn", True, 70),
+              m("ppo.learn", False, 90)]
+    spans = profiling.pair_markers(events[::-1])
+    assert spans == {"ppo.collect": [(0, 62)], "env.step": [(10, 22), (30, 52)],
+                     "ant.forward": [(31, 42)], "ppo.learn": [(70, 92)]}
+    for broken in (events[:-1], events[1:], events[:2] + events[3:]):
+        with pytest.raises(ValueError):
+            profiling.pair_markers(broken)
 
 
 def test_checked_step_passes_clean():
