@@ -58,8 +58,8 @@ path and read just after:
    ``make_train_step`` calls from one state, bit for bit, both timed, with
    the capture's seconds and one replayed update's device ops; ``train``
    through the multi step; then the JAX package's PPO learning runs
-   (DiscreteCarFlag, the feedforward HeavenHell surrogate).  It reaches no
-   kernel: its launch counts stay 0;
+   (DiscreteCarFlag, the feedforward HeavenHell surrogate).  The one kernel
+   it reaches is the discrete first layer's backward, ``embed_grad``;
 7. recurrent PPO (``gym_po_tpu_torch.agents.ppo_rnn``) on the same env at
    the same defaults with the GRU 128 wide: updates through
    ``init_rnn_state`` and ``make_rnn_train_step``, each timed with its
@@ -71,7 +71,8 @@ path and read just after:
    for bit; the JAX package's recurrent learning runs (the GRU HeavenHell
    surrogate, the DiscreteCarFlag and TagContinuous smoke runs) over seeds
    0-7, in eight worker processes (each run launch-bound on its own host
-   core).  No kernel either;
+   core).  The one kernel it reaches is ``embed_grad``, the GRU embed's
+   backward;
 8. data parallelism through ``torch.distributed``
    (``gym_po_tpu_torch.parallel``): over a one-rank NCCL group, the fused
    Taxi Q trainer and the actor-critic (``fused_q_learning`` and
@@ -147,8 +148,11 @@ path 1 with the headline timing; path 2 with the trainers' timing and
 learning checks; path 3 with the ROOMS timings and learning checks; path 4
 with the MSRooms and RockSample timings and the MSRooms learning check;
 path 5 with the CRooms, Tag and HeavenHell timings and the CRooms learning
-check; path 6, PPO; path 7, recurrent PPO, bf16 and resume; path 8, data
-parallelism; path 9, the ant (its kernels' checks first).
+check; the discrete first layer's backward, ``embed_grad``, against its
+twin and the float64 sums at the taxi PPO minibatch and timed beside
+PyTorch's index backward; path 6, PPO; path 7, recurrent PPO, bf16 and
+resume; path 8, data parallelism; path 9, the ant (its kernels' checks
+first).
 The line before the last is the kernels' JSON record; the last line is the
 result.
 """
@@ -4395,6 +4399,86 @@ def bound(nbytes: float, ops: dict) -> tuple:
     return max(t_bytes, t_ops) * 1e3, by, pipe
 
 
+EMBED_ROWS, EMBED_OBS, EMBED_H = 131072, 320, 64  # the taxi PPO minibatch
+EMBED_TOL = 2.0 ** -17  # tests/test_torch_cuda.py's EMBED_KERNEL_TOL
+EMBED_TWIN_TOL = 2.0 ** -14  # and its EMBED_TWIN_TOL
+
+
+def embed_grad_checks(dev) -> dict:
+    """The discrete first layer's backward, ``embed_grad``, at the taxi PPO
+    cell's minibatch (131,072 rows, 320 observations, H = 64) on each law
+    of ``probe_embed.inputs`` in float32 and the uniform law in bfloat16:
+    the kernel against the float64 sums of the same rows within
+    ``EMBED_TOL`` of each entry's sum of |g| (bfloat16: plus half an ulp),
+    against its twin on the CPU copy within ``EMBED_TOL + EMBED_TWIN_TOL``
+    (bfloat16: plus an ulp), a second call bit for bit.  Then, on each
+    float32 law (CUDA events, medians of 3 windows of 20 calls, not
+    counted), the kernel and PyTorch's index backward that autograd ran
+    before it (``index_put_`` accumulating into zeros, plus the bias's
+    ``sum``), and on the uniform law the twin on the card.  Returns the
+    record's numbers, the uniform law's times."""
+    from gym_po_tpu_torch.ops import probe_embed as pe
+    from gym_po_tpu_torch.ops.embed import embed_grad, embed_grad_twin
+
+    n, errs, lines = EMBED_OBS, [], []
+    with uncounted():
+        for law, dtype in ([(law, torch.float32) for law in pe.LAWS]
+                           + [("uniform", torch.bfloat16)]):
+            g, idx = pe.inputs(law, dev, dtype, seed=11, n=n, H=EMBED_H,
+                               rows=EMBED_ROWS)
+            gw, gb = embed_grad(g, idx, n)
+            again = embed_grad(g, idx, n)
+            torch.cuda.synchronize()
+            if not (torch.equal(gw, again[0]) and torch.equal(gb, again[1])):
+                raise AssertionError(f"embed_grad {law} {dtype}: two calls differ")
+            tw, tb = embed_grad_twin(g.cpu(), idx.cpu(), n)
+            ew, eb, aw, ab = pe.exact(g, idx, n)
+            worst = 0.0
+            for got, twin, want, mag in ((gw, tw, ew, aw), (gb, tb, eb, ab)):
+                got, twin = got.cpu().double(), twin.double()
+                f32 = dtype == torch.float32
+                rounding = 0.0 if f32 else 2.0 ** -8 * want.abs()
+                ulp = 0.0 if f32 else 2.0 ** -7 * twin.abs()
+                if not ((got - want).abs() <= EMBED_TOL * mag + rounding).all():
+                    raise AssertionError(f"embed_grad {law} {dtype}: off the "
+                                         "float64 sums")
+                if not ((got - twin).abs()
+                        <= (EMBED_TOL + EMBED_TWIN_TOL) * mag + ulp).all():
+                    raise AssertionError(f"embed_grad {law} {dtype}: off its twin")
+                worst = max(worst, float(((got - want).abs()
+                                          / mag.clamp_min(1e-300)).max()))
+                if f32:
+                    errs.append(float((got - twin).abs().max()))
+            lines.append(f"{law} {str(dtype)[6:]} {worst:.3e}")
+        say("embed-grad", f"kernel == float64 sums within {EMBED_TOL:.2e} of "
+            "each sum of |g| (bfloat16 half an ulp besides), == twin, two calls "
+            f"bit for bit, at {EMBED_ROWS} x {n} x {EMBED_H}; largest error over "
+            f"sum |g|: {', '.join(lines)}; largest |kernel - twin| {max(errs):.3e}")
+        ms = {}
+        for law in pe.LAWS:
+            g, idx = pe.inputs(law, dev, seed=11, n=n, H=EMBED_H, rows=EMBED_ROWS)
+            il = idx.long()
+
+            def library(i):
+                w = torch.zeros(n, EMBED_H, device=dev)
+                torch.ops.aten._index_put_impl_(w, (il,), g, True, True)
+                return w, g.sum(0)
+
+            ms[law] = (event_windows(lambda i: embed_grad(g, idx, n), 3, 20),
+                       event_windows(library, 3, 20))
+            if law == "uniform":
+                plain = event_windows(lambda i: embed_grad_twin(g, idx, n), 3, 20)
+                nbytes = (g.numel() * g.element_size() + idx.numel() * idx.element_size()
+                          + (n + 1) * EMBED_H * 4)
+    b = bound(nbytes, {})
+    say("embed-grad", "ms a call, kernel / PyTorch's index backward: " + "; ".join(
+        f"{law} {k:.4f} / {lib:.4f}" for law, (k, lib) in ms.items())
+        + f"; twin (index_add_ on the card) {plain:.4f}; bound {b[0]:.4f} "
+        f"(bytes: {nbytes / 1e6:.2f} MB)")
+    return {"ms": ms["uniform"][0], "plain_ms": plain, "library_ms": ms["uniform"][1],
+            "bound": b, "max_abs_err": max(errs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -4420,7 +4504,7 @@ def main() -> int:
 
     sources = ("fused_taxi", "fused_qlearning", "fused_rooms", "fused_ac",
                "fused_msrooms", "fused_rocksample", "fused_crooms",
-               "fused_q_crooms", "fused_tag", "ant_forward")
+               "fused_q_crooms", "fused_tag", "ant_forward", "embed")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_library, sources))  # one nvcc each, together
@@ -4617,28 +4701,33 @@ def main() -> int:
         if launches[key] <= 0:
             raise AssertionError(f"path 5 did not go through {key}")
 
-    # path 6, the PPO update: it reaches no kernel (plain PyTorch, the
-    # collect half a CUDA graph), so its launch counts stay 0
+    # path 6, the PPO update: plain PyTorch (the collect half a CUDA
+    # graph) but for the discrete first layer's backward, embed_grad
     LAUNCHES.clear()
     ppo_path(dev, card)
-    if any(LAUNCHES.values()):
-        raise AssertionError(f"path 6 launched kernels: {dict(LAUNCHES)}")
-    # path 7, recurrent PPO: no kernel either
+    if set(LAUNCHES) != {"embed_grad"}:
+        raise AssertionError(f"path 6 launched {dict(LAUNCHES)}, not embed_grad alone")
+    launches["embed_grad"] = LAUNCHES["embed_grad"]
+    # path 7, recurrent PPO on the taxi: the GRU's embed, the same kernel
     LAUNCHES.clear()
     rnn_path(dev, card)
-    if any(LAUNCHES.values()):
-        raise AssertionError(f"path 7 launched kernels: {dict(LAUNCHES)}")
+    if set(LAUNCHES) != {"embed_grad"}:
+        raise AssertionError(f"path 7 launched {dict(LAUNCHES)}, not embed_grad alone")
+    launches["embed_grad"] += LAUNCHES["embed_grad"]
     # path 8, data parallelism: the fused Taxi Q trainer [2] and the
     # actor-critic [13] under a mesh, counted here and in the ranks'
-    # processes
+    # processes, and the PPO update's embed_grad
     LAUNCHES.clear()
     path8 = mesh_path(dev, card) + LAUNCHES
-    if set(path8) - {"fused_qlearning", "fused_ac"}:
+    if set(path8) - {"fused_qlearning", "fused_ac", "embed_grad"}:
         raise AssertionError(f"path 8 launched other kernels: {dict(path8)}")
+    launches["embed_grad"] += path8["embed_grad"]
     for key in ("fused_qlearning", "fused_ac"):
         if path8[key] <= 0:
             raise AssertionError(f"path 8 did not go through {key}")
         launches[key] += path8[key]
+    # the kernel that paths 6-8 reach, against its twin and timed
+    embed = embed_grad_checks(dev)
     # path 9, the articulated ant: the envs' default "scalar" forward runs
     # the three ant kernels (counted inside ant_path: its checks first)
     path9, ant_errs, ant_times = ant_path(dev, card)
@@ -4648,7 +4737,7 @@ def main() -> int:
     launches.update({k: path9[k] for k in ANT_KERNELS})
     say("launches", "on the main paths: " + ", ".join(
         f"{k} {v}" for k, v in launches.items())
-        + "; paths 6 (PPO) and 7 (recurrent PPO) none: they reach no kernel; "
+        + "; paths 6 (PPO), 7 (recurrent PPO) and 8's PPO: embed_grad alone; "
         f"path 8's share: fused_qlearning {path8['fused_qlearning']}, "
         f"fused_ac {path8['fused_ac']}")
 
@@ -4809,6 +4898,19 @@ def main() -> int:
             "bound_by": b[1],
             "library_ms": None,
         })
+    record.append({
+        "name": "embed_grad",
+        "route": "cuda",
+        "source": "gym_po_tpu_torch/csrc/embed.cu",
+        "replaces": None,  # the JAX first layer's one-hot product is XLA's
+        "launches": launches["embed_grad"],
+        "max_abs_err": embed["max_abs_err"],
+        "ms": embed["ms"],
+        "plain_ms": embed["plain_ms"],
+        "bound_ms": embed["bound"][0],
+        "bound_by": embed["bound"][1],
+        "library_ms": embed["library_ms"],
+    })
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..core import Box, Discrete, Space
+from ..ops.embed import embed_grad
 
 __all__ = [
     "ActorCritic",
@@ -95,12 +96,32 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y if bias is None else y + bias.to(dtype)
 
 
+class _EmbedDiscrete(torch.autograd.Function):
+    """The index and bias add of :func:`embed_discrete`, with the weight's
+    and the bias's gradients from :func:`~gym_po_tpu_torch.ops.embed.embed_grad`
+    (a fixed-order kernel on the card, the plain twin on the CPU) in place
+    of autograd's index backward."""
+
+    @staticmethod
+    def forward(ctx, obs, weight, bias, dtype):
+        ctx.save_for_backward(obs.to(torch.int32))
+        ctx.n = weight.shape[1]
+        return weight.to(dtype).t()[obs.long()] + bias.to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        gw, gb = embed_grad(grad, idx, ctx.n)
+        return None, gw, gb, None
+
+
 def embed_discrete(layer: nn.Linear, obs: torch.Tensor,
                    dtype: torch.dtype) -> torch.Tensor:
     """A first layer over a one-hot observation, as an index into its weight
     columns: one-hot x matmul sums a single term, so in either dtype the two
-    are equal."""
-    return layer.weight.to(dtype).t()[obs.long()] + layer.bias.to(dtype)
+    are equal.  Its backward sums the rows of each observation in float32
+    (rounded once to ``dtype``), as the one-hot product's would."""
+    return _EmbedDiscrete.apply(obs, layer.weight, layer.bias, dtype)
 
 
 def _linear(n_in: int, n_out: int, gain: float, generator, device) -> nn.Linear:

@@ -7,6 +7,8 @@ device.  On the card::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1342,8 +1344,8 @@ def test_ppo_collect_graph_replay_equals_eager(cuda, env_id, kw):
 def test_ppo_learn_on_card_equals_cpu(cuda):
     """The learn half on the card from the CPU's batch, weights and row
     orders equals the CPU's to atol 1e-6: the card's matmuls sum in
-    another order, and the first layer's backward (an indexed scatter-add,
-    atomics) in an order that changes from run to run."""
+    another order, and so does the first layer's backward (``embed_grad``'s
+    kernel, in blocks of rows, against the twin's row order)."""
     ppo, env, cfg, model, ts = _ppo(torch.device("cpu"), "ExtendedHansenTaxi-v4",
                                     {}, B=256, T=16)
     cfg = cfg._replace(epochs=4, minibatches=4)
@@ -1405,7 +1407,8 @@ def test_update_graph_replay_equals_eager_updates(cuda, env_id, kw):
     row orders, learn, metrics in one CUDA graph) equal three eager updates
     from the same state bit for bit: parameters, Adam state, observations,
     env state, generator state and each metric row; a replay counts the
-    ant kernels it launches."""
+    kernels it launches: the ant kernels, and the taxi's ``embed_grad``
+    once a minibatch."""
     from gym_po_tpu_torch.ops._build import LAUNCHES
 
     ant = env_id.startswith("Ant")
@@ -1423,15 +1426,19 @@ def test_update_graph_replay_equals_eager_updates(cuda, env_id, kw):
     for i, m in enumerate(rows):
         for k in ppo.METRIC_NAMES:
             assert got[k].shape == (3,) and torch.equal(got[k][i], m[k]), (i, k)
-    launches = sum(multi.graph.launches.values())
-    assert (launches > 0) == ant
-    before = LAUNCHES["ant_newton"]
+    per_replay = collections.Counter()
+    for (_, name), n in multi.graph.launches.items():
+        per_replay[name] += n
+    # the taxi's first layer is an index: its backward a kernel a minibatch
+    assert per_replay["embed_grad"] == (0 if ant else cfg.epochs * cfg.minibatches)
+    assert (per_replay["ant_newton"] > 0) == ant
+    before = LAUNCHES.copy()
     ts, _ = multi(ts)  # a second call replays the same graph, from ts
     assert ts.update_idx == 6
+    for name in ("ant_newton", "embed_grad"):
+        assert LAUNCHES[name] - before[name] == 3 * per_replay[name]
     if ant:
-        per_replay = sum(n for (_, name), n in multi.graph.launches.items()
-                         if name == "ant_newton")
-        assert per_replay == T * 2 * 1 and LAUNCHES["ant_newton"] - before == 3 * per_replay
+        assert per_replay["ant_newton"] == T * 2 * 1
     _, _, _, _, other = _ppo(cuda, env_id, kw, B=B, T=T)
     with pytest.raises(ValueError):
         multi(other)  # another train state's parameters
@@ -2122,3 +2129,90 @@ def test_ant_active_rows_counter_equals_rows(cuda, walls):
         assert torch.equal(g, w)
     af.forward(model, qpos, qvel, ctrl, warm, iters=8)
     assert read_counters()["ant.active_rows"] == after
+
+
+# ------------------------------------------- the discrete first layer's backward
+EMBED_CASES = {  # rows, observations, width, gradient type, law
+    "uniform": (131072, 320, 64, torch.float32, "uniform"),
+    "one_observation": (131072, 320, 64, torch.float32, "one"),
+    "concentrated": (131072, 320, 64, torch.float32, "concentrated"),
+    "past_one_tile": (131072, 1000, 64, torch.float32, "uniform"),
+    "h128": (131072, 320, 128, torch.float32, "uniform"),
+    "bf16": (131072, 320, 64, torch.bfloat16, "uniform"),
+    "bf16_one_observation": (131072, 320, 64, torch.bfloat16, "one"),
+    "ragged": (1000, 7, 20, torch.float32, "uniform"),
+}
+# an entry's error over its sum of absolute values: the kernel's sums are
+# chains of at most a few hundred float32 adds (a tree over a set's rows, a
+# part's sets, the parts, the slices' partials), each rounding by at most
+# 2^-24 of that sum, and the roundings mostly cancel (the largest reading
+# at the cell's shape 1.03e-7, about 2^-23); the twin's row order chains up
+# to all the rows
+EMBED_KERNEL_TOL = 2.0 ** -17
+EMBED_TWIN_TOL = 2.0 ** -14
+
+
+@pytest.mark.parametrize("case", list(EMBED_CASES))
+def test_embed_grad_kernel_equals_twin(cuda, case):
+    """``embed_grad``'s kernel against its twin (on the CPU, row order) and
+    both against the float64 sums: float32 within ``EMBED_KERNEL_TOL`` of
+    each entry's sum of absolute values; bfloat16 the float32 sum rounded
+    once, so within half a bfloat16 ulp (2^-8 relative) of the exact sum
+    besides, and within one ulp of the twin."""
+    from gym_po_tpu_torch.ops import probe_embed
+    from gym_po_tpu_torch.ops.embed import embed_grad, embed_grad_twin, plan
+
+    rows, n, H, dtype, law = EMBED_CASES[case]
+    g, idx = probe_embed.inputs(law, cuda, dtype, seed=7, n=n, H=H, rows=rows)
+    if case == "past_one_tile":
+        assert plan(g, idx, n)[1] > 1
+    gw, gb = embed_grad(g, idx, n)
+    torch.cuda.synchronize()
+    assert gw.shape == (H, n) and gb.shape == (H,) and gw.dtype == gb.dtype == torch.float32
+    assert gw.is_contiguous()
+    tw, tb = embed_grad_twin(g.cpu(), idx.cpu(), n)
+    ew, eb, aw, ab = probe_embed.exact(g, idx, n)
+    for got, twin, want, mag in ((gw, tw, ew, aw), (gb, tb, eb, ab)):
+        got, twin = got.cpu().double(), twin.double()
+        rounding = 0.0 if dtype == torch.float32 else 2.0 ** -8 * want.abs()
+        assert ((got - want).abs() <= EMBED_KERNEL_TOL * mag + rounding).all()
+        assert ((twin - want).abs() <= EMBED_TWIN_TOL * mag + rounding).all()
+        ulp = 0.0 if dtype == torch.float32 else 2.0 ** -7 * twin.abs()
+        assert ((got - twin).abs() <= (EMBED_KERNEL_TOL + EMBED_TWIN_TOL) * mag + ulp).all()
+
+
+@pytest.mark.parametrize("law", ["uniform", "one"])
+def test_embed_grad_calls_equal_bit_for_bit(cuda, law):
+    """Two calls on the same inputs give the same gradients bit for bit:
+    the kernel's sums have a fixed order (no atomics)."""
+    from gym_po_tpu_torch.ops import probe_embed
+    from gym_po_tpu_torch.ops.embed import embed_grad
+
+    g, idx = probe_embed.inputs(law, cuda, seed=3)
+    a, b = embed_grad(g, idx, 320), embed_grad(g, idx, 320)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_embed_discrete_backward_runs_the_kernel(cuda):
+    """The discrete first layer's backward on the card: one ``embed_grad``
+    launch, the forward the index expression bit for bit, the gradients
+    the twin's on the CPU copy within the kernel test's bound."""
+    from torch import nn
+
+    from gym_po_tpu_torch.agents.networks import embed_discrete
+    from gym_po_tpu_torch.ops.embed import embed_grad
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    layer = nn.Linear(320, 64, device=cuda)
+    obs = torch.randint(0, 320, (4096,), generator=gen, device=cuda, dtype=torch.int32)
+    up = torch.randn(4096, 64, generator=gen, device=cuda)
+    before = embed_grad.launches
+    y = embed_discrete(layer, obs, torch.float32)
+    assert torch.equal(y, layer.weight.t()[obs.long()] + layer.bias)
+    y.backward(up)
+    assert embed_grad.launches == before + 1
+    cpu = nn.Linear(320, 64)
+    cpu.load_state_dict(layer.state_dict())
+    embed_discrete(cpu, obs.cpu(), torch.float32).backward(up.cpu())
+    for p, q in ((layer.weight, cpu.weight), (layer.bias, cpu.bias)):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4, rtol=0)

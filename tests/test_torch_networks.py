@@ -169,3 +169,106 @@ def test_f32_forward_is_the_plain_layers():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tnet.ActorCritic(te.observation_space, te.action_space,
                          compute_dtype=torch.float16)
+
+
+# ------------------------------------------- the discrete first layer's backward
+@pytest.fixture
+def one_thread():
+    """Autograd's CPU index backward adds in parallel, in an order that
+    changes from run to run; on one thread it adds in row order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _embed_inputs(dtype, law, shape, n=320, H=64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    layer = torch.nn.Linear(n, H)
+    with torch.no_grad():
+        layer.weight.copy_(torch.randn(H, n, generator=gen))
+        layer.bias.copy_(torch.randn(H, generator=gen))
+    obs = (torch.randint(0, n, shape, generator=gen, dtype=torch.int32)
+           if law == "random" else torch.full(shape, 7, dtype=torch.int32))
+    return layer, obs, torch.randn(*shape, H, generator=gen).to(dtype)
+
+
+@pytest.mark.parametrize("shape", [(512,), (12, 40)], ids=["flat", "sequence"])
+@pytest.mark.parametrize("law", ["random", "equal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_embed_discrete_gradients_equal_the_index_expression(one_thread, dtype, law,
+                                                             shape):
+    """``embed_discrete`` (its backward the twin on the CPU) against the
+    index expression it replaced, ``weight.to(dt).t()[obs] + bias.to(dt)``
+    under autograd: the forward bit for bit; in float32 the weight's and
+    the bias's gradients bit for bit.  In bfloat16 the bias's gradient bit
+    for bit; the weight's is the float32 sum rounded once, within half a
+    bfloat16 ulp (2^-8 relative) of the exact sum, where the expression's
+    index backward rounds to bfloat16 after every row (here up to 35x off
+    where a sum cancels)."""
+    layer, obs, up = _embed_inputs(dtype, law, shape)
+    w = layer.weight.detach().clone().requires_grad_()
+    b = layer.bias.detach().clone().requires_grad_()
+    old = w.to(dtype).t()[obs.long()] + b.to(dtype)
+    old.backward(up)
+    new = tnet.embed_discrete(layer, obs, dtype)
+    new.backward(up)
+    assert new.dtype == dtype and torch.equal(new, old)
+    assert layer.weight.grad.shape == w.shape and torch.equal(layer.bias.grad, b.grad)
+    if dtype == torch.float32:
+        assert torch.equal(layer.weight.grad, w.grad)
+    else:
+        exact = torch.zeros(320, 64, dtype=torch.float64).index_add_(
+            0, obs.reshape(-1).long(), up.reshape(-1, 64).double()).t()
+        assert ((layer.weight.grad.double() - exact).abs()
+                <= 2.0 ** -8 * exact.abs()).all()
+
+
+@pytest.mark.parametrize("law", ["random", "equal"])
+def test_embed_discrete_bf16_weight_gradient_equals_flax_one_hot(law):
+    """In bfloat16 the weight's gradient equals the JAX package's first
+    layer's (flax's ``Dense(dtype=bfloat16)`` on the one-hot observation)
+    bit for bit."""
+    import flax.linen as fnn
+
+    layer, obs, up = _embed_inputs(torch.bfloat16, law, (2048,))
+    dense = fnn.Dense(64, dtype=jnp.bfloat16)
+    params = {"params": {"kernel": layer.weight.detach().t().numpy(),
+                         "bias": layer.bias.detach().numpy()}}
+    one_hot = jax.nn.one_hot(obs.numpy(), 320, dtype=jnp.bfloat16)
+    _, vjp = jax.vjp(lambda p: dense.apply(p, one_hot), params)
+    (grads,) = vjp(jnp.asarray(up.float().numpy()).astype(jnp.bfloat16))
+    tnet.embed_discrete(layer, obs, torch.bfloat16).backward(up)
+    np.testing.assert_array_equal(layer.weight.grad.t().numpy(),
+                                  np.asarray(grads["params"]["kernel"]))
+
+
+def test_actor_critic_and_gru_embed_go_through_embed_grad(monkeypatch):
+    """The discrete ``ActorCritic``'s first layer and the recurrent model's
+    embed take their gradients from ``embed_grad``, once a backward; a Box
+    observation's first layer does not."""
+    from gym_po_tpu_torch.agents import ppo_rnn as trnn
+    from gym_po_tpu_torch.ops.embed import embed_grad_twin
+
+    calls = []
+
+    def spy(grad, idx, n):
+        calls.append((tuple(grad.shape), n))
+        return embed_grad_twin(grad, idx, n)
+
+    monkeypatch.setattr(tnet, "embed_grad", spy)
+    te = gpt_torch.make("ExtendedHansenTaxi-v4", device="cpu")
+    n = te.observation_space.n
+    obs = torch.arange(300) % n
+    model = tnet.make_actor_critic(te, (32, 32), torch.Generator().manual_seed(0))
+    pi, v = model(obs)
+    (pi["logits"].sum() + v.sum()).backward()
+    assert calls == [((300, 32), n)]
+    rnn = trnn.RecurrentActorCritic(te.observation_space, te.action_space, 16,
+                                    torch.float32, torch.Generator().manual_seed(0))
+    w_i, b_i, _, _ = rnn.gate_weights()
+    rnn.inputs(obs.reshape(12, 25), w_i, b_i).sum().backward()
+    assert calls[1:] == [((12, 25, 16), n)] and rnn.embed.weight.grad is not None
+    box = tnet.ActorCritic(TBox(-1.0, 1.0, (6,)), te.action_space, (16,))
+    box(torch.zeros(5, 6))[1].sum().backward()
+    assert len(calls) == 2
